@@ -1,0 +1,198 @@
+"""The Hierarchy data structure.
+
+Port of sph_tpu/models/hierarchy.py (reference: sph/utils/Hierarchy.hpp:37-142
+/ Hierarchy.cpp — per level: numComponents, parents, spatialNeighbors,
+pixelComponents, randomWalks, notMergedNodes; `addLevel` performs
+updateParentsAndChildren, updateSpatialNeighbors and updateRandomWalks).
+
+The per-level label arrays are host numpy (the level loop's control plane);
+the walk matrices are SparseRows on the device.  Of the walk-handling modes
+only MERGE_RW_ONLY is ported: merged walks are summed child rows, never
+re-simulated.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..settings import (ComponentSim, NeighConnection, NormType,
+                        RandomWalkHandling)
+from ..utils.logging import Log
+from ..utils.timer import phase
+from ..ops.sparse import (SparseRows, merge_rows_by_parents,
+                          normalize_matrix)
+
+# pixel-grid offsets (reference: sph/utils/ImageHelper.hpp:11-52)
+_OFFSETS_FOUR = np.array([(-1, 0), (0, 1), (1, 0), (0, -1)], dtype=np.int64)
+_OFFSETS_EIGHT = np.array([(-1, -1), (-1, 0), (-1, 1), (0, -1),
+                           (0, 1), (1, -1), (1, 0), (1, 1)], dtype=np.int64)
+MERGE_WIDTH_BUDGET = 2 ** 28   # sph_tpu's SPH_MERGE_WIDTH_BUDGET default
+
+WALK_SIMS = (ComponentSim.NEIGH_WALKS, ComponentSim.NEIGH_WALKS_SINGLE_OVERLAP,
+             ComponentSim.GEO_WALKS)
+
+
+def pixel_neighbor_table(rows: int, cols: int,
+                         connection: NeighConnection) -> np.ndarray:
+    """[N, deg] table of pixel-grid neighbor ids, -1 where out of bounds
+    (reference: pixelNeighborIDs, ImageHelper.cpp:8-28)."""
+    offs = (_OFFSETS_FOUR if connection == NeighConnection.FOUR
+            else _OFFSETS_EIGHT)
+    rr, cc = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    rr = rr.ravel()
+    cc = cc.ravel()
+    out = np.full((rows * cols, len(offs)), -1, dtype=np.int64)
+    for j, (dr, dc) in enumerate(offs):
+        nr, nc = rr + dr, cc + dc
+        ok = (nr >= 0) & (nr < rows) & (nc >= 0) & (nc < cols)
+        out[ok, j] = nr[ok] * cols + nc[ok]
+    return out
+
+
+@dataclass
+class HierarchySettings:
+    """Reference: Hierarchy.hpp settings block (wired by
+    ImageHierarchy::updateHierarchySettings, ImageHierarchy.cpp:98-111)."""
+
+    num_rows: int = 0
+    num_cols: int = 0
+    neighbor_connection: NeighConnection = NeighConnection.FOUR
+    component_sim: ComponentSim = ComponentSim.NEIGH_OVERLAP
+    rw_norm_sim: NormType = NormType.ONEDIM
+    rw_weight_merge_by_size: bool = True
+    rw_handling: RandomWalkHandling = RandomWalkHandling.MERGE_RW_ONLY
+    rw_remove_self_sim_after_merging: bool = True
+    num_geodesic_samples: int = 0
+    verbose: bool = False
+
+
+class Hierarchy:
+    """Multi-level container: host label arrays, device walk matrices."""
+
+    def __init__(self, settings: Optional[HierarchySettings] = None):
+        self.settings = settings or HierarchySettings()
+        self.num_components: list[int] = []
+        # parents[l]: [C_l] -> component id on level l+1
+        self.parents: list[np.ndarray] = []
+        # pixel_components[l]: [N] pixel -> component id on level l
+        self.pixel_components: list[np.ndarray] = []
+        # spatial_neighbors[l]: padded [C_{l+1}, D] adjacency (no self), -1 pad
+        self.spatial_neighbors: list[np.ndarray] = []
+        # random_walks[l]: SparseRows on level l's components
+        self.random_walks: list[SparseRows] = []
+        self.not_merged: list[np.ndarray] = []
+        self._pixel_neighbors: Optional[np.ndarray] = None
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.num_components)
+
+    def represented_points(self, level: int) -> list[np.ndarray]:
+        """Per component on `level`, the data-level pixel ids it represents
+        (reference: updateComponentMap)."""
+        if level == 0:
+            return [np.array([i]) for i in range(self.num_components[0])]
+        labels = self.pixel_components[level]
+        order = np.argsort(labels, kind="stable")
+        counts = np.bincount(labels, minlength=self.num_components[level])
+        return np.split(order, np.cumsum(counts)[:-1])
+
+    def component_sizes(self, level: int) -> np.ndarray:
+        return np.bincount(self.pixel_components[level],
+                           minlength=self.num_components[level])
+
+    def spatial_neighbors_of(self, level: int) -> np.ndarray:
+        """Padded [C, D] spatial adjacency on `level` (no self edges).
+        Level 0 is the raw pixel grid."""
+        if level == 0:
+            if self._pixel_neighbors is None:
+                self._pixel_neighbors = pixel_neighbor_table(
+                    self.settings.num_rows, self.settings.num_cols,
+                    self.settings.neighbor_connection)
+            return self._pixel_neighbors
+        return self.spatial_neighbors[level - 1]
+
+    def clear(self):
+        self.__init__(self.settings)
+
+    def init_first_level(self, num_points: int):
+        """Reference: Hierarchy::initFirstLevel (:117-132)."""
+        assert self.num_levels == 0
+        self.num_components.append(num_points)
+        self.pixel_components.append(np.arange(num_points, dtype=np.int64))
+
+    def add_level(self, num_components_next: int,
+                  component_labels_next: np.ndarray):
+        """Reference: Hierarchy::addLevel (:134-160)."""
+        assert self.num_levels > 0
+        labels = np.asarray(component_labels_next, dtype=np.int64)
+        assert labels.shape[0] == self.num_components[-1]
+        self.parents.append(labels.copy())
+        self.num_components.append(num_components_next)
+        self.pixel_components.append(labels[self.pixel_components[-1]])
+        child_counts = np.bincount(labels, minlength=num_components_next)
+        self.not_merged.append(np.nonzero(child_counts == 1)[0])
+        with phase("h.spatial"):
+            self._update_spatial_neighbors(num_components_next)
+        if self.settings.component_sim in WALK_SIMS:
+            with phase("h.merge_walks"):
+                self._update_random_walks(num_components_next, labels)
+
+    def _update_spatial_neighbors(self, num_components_next: int):
+        pix_next = self.pixel_components[-1]
+        grid = self.spatial_neighbors_of(0)
+        n, deg = grid.shape
+        src = pix_next[np.repeat(np.arange(n), deg)]
+        ok = grid.ravel() >= 0
+        dst = pix_next[np.maximum(grid.ravel(), 0)]
+        src, dst = src[ok], dst[ok]
+        diff = src != dst
+        src, dst = src[diff], dst[diff]
+        key = np.unique(src * num_components_next + dst)
+        urow = (key // num_components_next).astype(np.int64)
+        ucol = (key % num_components_next).astype(np.int64)
+        counts = np.bincount(urow, minlength=num_components_next)
+        width = max(int(counts.max()) if counts.size else 1, 1)
+        adj = np.full((num_components_next, width), -1, dtype=np.int64)
+        starts = np.zeros(num_components_next + 1, dtype=np.int64)
+        np.cumsum(counts, out=starts[1:])
+        adj[urow, np.arange(urow.size) - starts[urow]] = ucol
+        self.spatial_neighbors.append(adj)
+
+    def _update_random_walks(self, num_next: int, labels: np.ndarray):
+        """Reference: Hierarchy::updateRandomWalks (:250-390), the
+        MERGE_RW_ONLY branch: sum the child walk rows into their parents
+        and renormalize."""
+        handling = self.settings.rw_handling
+        if handling != RandomWalkHandling.MERGE_RW_ONLY:
+            raise NotImplementedError(
+                f"rw_handling {handling.value} not ported yet; see ROADMAP")
+        # cap the merged row width to a memory budget: one giant merge
+        # component would otherwise force the whole padded matrix to its
+        # union nnz; truncation keeps the largest values
+        cap = max(1024, MERGE_WIDTH_BUDGET // max(num_next, 1))
+        onedim = self.settings.rw_norm_sim == NormType.ONEDIM
+        merged = merge_rows_by_parents(
+            self.random_walks[-1], labels, num_next, norm=onedim,
+            weight_by_size=self.settings.rw_weight_merge_by_size,
+            max_width=cap)
+        if (self.settings.rw_remove_self_sim_after_merging
+                and merged.num_rows > 1):
+            Log.warn_once("Hierarchy::updateRandomWalks: MERGE_RW_ONLY "
+                          "ignores rw_remove_self_sim_after_merging")
+        out = merged if onedim else normalize_matrix(merged)
+        # preserve the self-similarity when the top level is a single node
+        # (reference: :387-389)
+        if out.num_rows == 1 and out.nnz() == 0:
+            idx = torch.full((1, out.width), -1, dtype=torch.int64,
+                             device=out.device)
+            val = torch.zeros((1, out.width), dtype=torch.float32,
+                              device=out.device)
+            idx[0, 0] = 0
+            val[0, 0] = 1.0
+            out = SparseRows(idx, val, out.num_cols)
+        self.random_walks.append(out)

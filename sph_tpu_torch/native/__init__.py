@@ -1,0 +1,173 @@
+"""Host graph ops in C++, bound with ctypes.
+
+The port builds the JAX package's own source, ``sph_tpu/native/graphops.cpp``
+(found by file path, never imported: importing ``sph_tpu`` would pull in
+jax), with g++ into ``sph_tpu_torch/_build/`` at first use.  The library is
+named by the source's content hash, so an edited source is rebuilt.  A
+failed build raises: these ops have no Python fallback in the port.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from typing import Optional
+
+import numpy as np
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(os.path.dirname(_PKG), "sph_tpu", "native", "graphops.cpp")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _build() -> str:
+    with open(SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    so = os.path.join(BUILD_DIR, f"libgraphops_{digest}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+           SRC, "-o", tmp]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"native: building {SRC} failed:\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def get_lib() -> ctypes.CDLL:
+    """Load the library, building it first if needed."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(_build())
+    i64 = ctypes.c_int64
+    p_i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    p_i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    p_f32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    lib.weak_components.restype = i64
+    lib.weak_components.argtypes = [i64, i64, p_i32, p_i64]
+    lib.edge_list_components.restype = i64
+    lib.edge_list_components.argtypes = [i64, i64, p_i64, p_i64, p_i64]
+    lib.symmetrize_degrees.restype = i64
+    lib.symmetrize_degrees.argtypes = [i64, i64, p_i32, p_f32, p_i64]
+    lib.symmetrize_fill.restype = None
+    lib.symmetrize_fill.argtypes = [i64, i64, p_i32, p_f32, i64, p_i32,
+                                    p_f32, p_i32]
+    lib.merge_sum.restype = i64
+    lib.merge_sum.argtypes = [i64, i64, p_i32, p_f32, p_i64, i64,
+                              ctypes.c_int, p_i64, p_i32, p_f32]
+    lib.merge_min.restype = i64
+    lib.merge_min.argtypes = [i64, i64, p_i32, p_f32, p_i64, i64,
+                              p_i64, p_i32, p_f32]
+    lib.pack_rows.restype = None
+    lib.pack_rows.argtypes = [i64, p_i64, p_i32, p_f32, i64, i64, p_i32,
+                              p_f32]
+    _lib = lib
+    return lib
+
+
+def _checked(count: int, what: str) -> int:
+    if count < 0:
+        raise ValueError(f"native.{what}: a neighbor or endpoint id lies "
+                         "outside [0, num_nodes)")
+    return int(count)
+
+
+def weak_components(indices: np.ndarray) -> tuple[int, np.ndarray]:
+    """Weak CC over a padded [n, k] adjacency (-1 pads); labels in order of
+    first appearance."""
+    n, k = indices.shape
+    idx = np.ascontiguousarray(indices, dtype=np.int32)
+    labels = np.empty(n, dtype=np.int64)
+    ncc = _checked(get_lib().weak_components(n, k, idx, labels),
+                   "weak_components")
+    return ncc, labels
+
+
+def edge_list_components(num_nodes: int, src: np.ndarray, dst: np.ndarray
+                         ) -> tuple[int, np.ndarray]:
+    src = np.ascontiguousarray(src, dtype=np.int64)
+    dst = np.ascontiguousarray(dst, dtype=np.int64)
+    labels = np.empty(num_nodes, dtype=np.int64)
+    ncc = _checked(get_lib().edge_list_components(num_nodes, len(src), src,
+                                                  dst, labels),
+                   "edge_list_components")
+    return ncc, labels
+
+
+def merge_sum(indices: np.ndarray, values: np.ndarray, parents: np.ndarray,
+              num_merged: int, weight_by_size: bool) -> tuple:
+    """Sparse merge accumulation: (rows i64, cols i32, sums f32) sorted by
+    (row, col)."""
+    n, r = indices.shape
+    idx = np.ascontiguousarray(indices, dtype=np.int32)
+    val = np.ascontiguousarray(values, dtype=np.float32)
+    par = np.ascontiguousarray(parents, dtype=np.int64)
+    cap = n * r
+    out_rows = np.empty(cap, dtype=np.int64)
+    out_cols = np.empty(cap, dtype=np.int32)
+    out_vals = np.empty(cap, dtype=np.float32)
+    m = _checked(get_lib().merge_sum(n, r, idx, val, par, num_merged,
+                                     1 if weight_by_size else 0,
+                                     out_rows, out_cols, out_vals),
+                 "merge_sum")
+    return out_rows[:m], out_cols[:m], out_vals[:m]
+
+
+def merge_min(indices: np.ndarray, values: np.ndarray, parents: np.ndarray,
+              num_merged: int) -> tuple:
+    """Min-merge accumulation; see merge_sum."""
+    n, r = indices.shape
+    idx = np.ascontiguousarray(indices, dtype=np.int32)
+    val = np.ascontiguousarray(values, dtype=np.float32)
+    par = np.ascontiguousarray(parents, dtype=np.int64)
+    cap = n * r
+    out_rows = np.empty(cap, dtype=np.int64)
+    out_cols = np.empty(cap, dtype=np.int32)
+    out_vals = np.empty(cap, dtype=np.float32)
+    m = _checked(get_lib().merge_min(n, r, idx, val, par, num_merged,
+                                     out_rows, out_cols, out_vals),
+                 "merge_min")
+    return out_rows[:m], out_cols[:m], out_vals[:m]
+
+
+def pack_rows(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+              n: int, width: int) -> tuple[np.ndarray, np.ndarray]:
+    """Ragged -> padded packing of row-sorted (row, col, val) triples."""
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int32)
+    vals = np.ascontiguousarray(vals, dtype=np.float32)
+    out_idx = np.empty((n, width), dtype=np.int32)
+    out_val = np.empty((n, width), dtype=np.float32)
+    get_lib().pack_rows(len(rows), rows, cols, vals, n, width, out_idx,
+                        out_val)
+    return out_idx, out_val
+
+
+def symmetrize(indices: np.ndarray, distances: np.ndarray,
+               max_width: int = 0) -> tuple:
+    """Undirected union with min-distance dedup; returns (out_idx, out_dist,
+    counts).  max_width > 0 caps the row width (hub rows keep their closest
+    edges)."""
+    n, k = indices.shape
+    idx = np.ascontiguousarray(indices, dtype=np.int32)
+    dist = np.ascontiguousarray(distances, dtype=np.float32)
+    degrees = np.empty(n, dtype=np.int64)
+    lib = get_lib()
+    max_deg = _checked(lib.symmetrize_degrees(n, k, idx, dist, degrees),
+                       "symmetrize")
+    width = max_deg + 1
+    if max_width > 0:
+        width = min(width, max_width)
+    out_idx = np.empty((n, width), dtype=np.int32)
+    out_dist = np.empty((n, width), dtype=np.float32)
+    counts = np.empty(n, dtype=np.int32)
+    lib.symmetrize_fill(n, k, idx, dist, width, out_idx, out_dist, counts)
+    return out_idx, out_dist, counts
