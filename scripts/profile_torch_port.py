@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's Pines main path on one CUDA card.
+"""Profile one of the PyTorch port's paths on one CUDA card.
 
-    python3 scripts/profile_torch_port.py [--out out/torch_port_profile.txt]
+    python3 scripts/profile_torch_port.py [--path pines|large] [--out FILE]
 
-Runs chip_smoke.py's configuration (bench.py:89-136 at 145x145x200, then
-2000 level-1 t-SNE iterations) once to warm up, then once more with each
-stage under its own torch.profiler window.  Prints, per stage, the wall
-seconds, the device seconds (the sum of its kernels and copies, counted as
-torch.profiler counts its "Self CUDA time total"), the device's busy share
-of the wall and the number of device operations, then each stage's top
-operations by device time.  The profiler's own host cost lengthens the
-walls, so the busy shares read low against an unprofiled run.
+--path pines (the default) runs chip_smoke.py's Pines configuration
+(bench.py:89-136 at 145x145x200, then 2000 level-1 t-SNE iterations) once
+to warm up, then once more with each stage under its own torch.profiler
+window.  --path large runs chip_smoke.py's 1M path (BASELINE config 4: a
+1000x1000x100 stack, exact kNN with k = 16, P from the kNN graph at
+perplexity 5, the exact sparse-P t-SNE tier with SPH_TSNE_GRID=0 and
+SPH_TSNE_DENSE_P=0) once,
+after a warm-up at 64x64, with the kNN, the P and set-up, 10 t-SNE
+iterations and the KL each under its own window.
+
+Prints, per stage, the wall seconds, the device seconds (the sum of its
+kernels and copies, counted as torch.profiler counts its "Self CUDA time
+total"), the device's busy share of the wall and the number of device
+operations, then each stage's top operations by device time.  The
+profiler's own host cost lengthens the walls, so the busy shares read low
+against an unprofiled run.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KERNEL_NAMES = ("forces_dense_kernel", "repulsion_kernel")
 
 
 def run_main_path(stage_context):
@@ -49,11 +58,66 @@ def run_main_path(stage_context):
     return walls
 
 
+@contextlib.contextmanager
+def _env(**values):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def run_large_path(stage_context, rows: int = 1000, cols: int = 1000,
+                   iters: int = 10):
+    """chip_smoke.py's 1M path, driven through TsneComputation so that the
+    set-up, the iterations and the KL are separate stages; returns the
+    stages' wall seconds."""
+    import torch
+    import sph_tpu_torch as T
+    from sph_tpu_torch.ops.knn import compute_knn
+    from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
+    img = create_hyperspectral_scene(rows, cols, 100, seed=7)
+    data = T.scale(T.ImageStack.from_array(img).data, T.Scaler.NONE)
+    params = T.TsneParameters()
+    params.perplexity = 5.0
+    tsne = T.TsneComputation(params, device="cuda")
+    graph = []
+    stages = (
+        ("knn", lambda: graph.extend(compute_knn(
+            data, 16, T.KnnIndex.BRUTE_FORCE, device="cuda"))),
+        ("p_and_set_up", lambda: (tsne.set_neighbor_graph(*graph),
+                                  tsne.compute(0))),
+        (f"tsne_{iters}_iterations",
+         lambda: tsne.continue_gradient_descent(iters)),
+        ("kl", tsne.kl_divergence))
+    walls = {}
+    # the exact tier: no grid above 32768 points, no dense P below (the
+    # small warm-up)
+    with _env(SPH_TSNE_GRID="0", SPH_TSNE_DENSE_P="0"):
+        for name, stage in stages:
+            t = time.perf_counter()
+            with stage_context(name):
+                stage()
+                torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t
+    if tsne.tier != "exact":
+        raise RuntimeError(f"the 1M path took the {tsne.tier} tier")
+    return walls
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=os.path.join(
-        REPO, "out", "torch_port_profile.txt"))
+    ap.add_argument("--path", choices=("pines", "large"), default="pines")
+    ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    args.out = args.out or os.path.join(
+        REPO, "out", f"torch_port_profile_{args.path}.txt")
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -64,7 +128,12 @@ def main() -> int:
     from sph_tpu_torch.utils.logging import set_level
     set_level("WARNING")
 
-    run_main_path(lambda name: contextlib.nullcontext())
+    if args.path == "pines":
+        run = run_main_path
+        run(lambda name: contextlib.nullcontext())
+    else:
+        run = run_large_path
+        run_large_path(lambda name: contextlib.nullcontext(), 64, 64, 2)
     profs = {}
 
     @contextlib.contextmanager
@@ -74,11 +143,12 @@ def main() -> int:
             yield
         profs[name] = prof
 
-    walls = run_main_path(stage_profile)
+    walls = run(stage_profile)
 
-    lines = [torch.cuda.get_device_name(0), "",
+    import chip_smoke
+    lines = [chip_smoke.nvidia_smi_line(), f"path: {args.path}", "",
              f"{'stage':28s} {'wall s':>10s} {'device s':>10s} {'busy':>7s} "
-             f"{'device ops':>11s}"]
+             f"{'device ops':>11s} {'kernels s':>10s} {'of device':>9s}"]
     tables = []
     for name, wall in walls.items():
         prof = profs[name]
@@ -86,8 +156,12 @@ def main() -> int:
                if e.device_type == DeviceType.CUDA
                and not e.is_user_annotation]
         dev_s = sum(e.self_device_time_total for e in ops) / 1e6
+        # the hand-written kernels of csrc/ (their __global__ names)
+        ours = sum(e.self_device_time_total for e in ops
+                   if any(k in e.name for k in KERNEL_NAMES)) / 1e6
         lines.append(f"{name:28s} {wall:10.4f} {dev_s:10.4f} "
-                     f"{dev_s / wall:7.1%} {len(ops):11d}")
+                     f"{dev_s / wall:7.1%} {len(ops):11d} {ours:10.4f} "
+                     f"{ours / max(dev_s, 1e-12):9.1%}")
         tables += ["", f"{name}: top operations by self device time",
                    prof.key_averages().table(
                        sort_by="self_device_time_total", row_limit=12)]

@@ -4,14 +4,21 @@ Port of sph_tpu/models/compute_embedding.py (reference:
 sph/ComputeEmbedding.hpp:37-81 / .cpp — random disk init of radius 0.1 via
 polar sampling (:25-50), chunked t-SNE (:85-129), 1-point short-circuit
 (:69-74)).  UMAP is not ported yet.
+
+``compute_tsne`` keeps the wall seconds of its parts in ``seconds``: the
+set-up (P from a kNN graph, padding, the initial state), the iterations and
+the final KL, each ending with the device synchronised.  Its
+``TsneComputation`` stays in ``last_computation`` (tier, padded state).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
 from ..ops.math import random_disk_init
@@ -39,6 +46,8 @@ class ComputeEmbedding:
         self._init_embedding: Optional[np.ndarray] = None
         self.current_embedding: Optional[np.ndarray] = None
         self.last_kl: Optional[float] = None
+        self.seconds: dict[str, float] = {}
+        self.last_computation: Optional[TsneComputation] = None
 
     def init_embedding(self, num_points: int,
                        embedding: Optional[np.ndarray] = None):
@@ -51,16 +60,27 @@ class ComputeEmbedding:
             self._init_embedding = random_disk_init(
                 num_points, self.settings.init_radius, self.settings.seed)
 
-    def compute_tsne(self, inp: SparseRows, track_kl: bool = False
-                     ) -> np.ndarray:
+    def _lap(self, name: str, t0: float) -> float:
+        """Charge the time since t0 to `name` once the device is done."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t = time.perf_counter()
+        self.seconds[name] = t - t0
+        return t
+
+    def compute_tsne(self, inp: Union[SparseRows, tuple],
+                     track_kl: bool = False) -> np.ndarray:
         """Reference: computeTSNE (:52-129).  `inp` is a symmetrized
-        probability SparseRows."""
-        if not isinstance(inp, SparseRows):
-            raise NotImplementedError(
-                "t-SNE from a kNN graph not ported yet; see ROADMAP")
+        probability SparseRows or an (indices, distances) kNN graph tuple."""
         tsne = TsneComputation(self.settings.tsne, device=self.device)
-        tsne.set_probability_distribution(inp)
-        n = inp.num_rows
+        if isinstance(inp, SparseRows):
+            tsne.set_probability_distribution(inp)
+            n = inp.num_rows
+        else:
+            tsne.set_neighbor_graph(*inp)
+            n = inp[0].shape[0]
+        self.seconds = {}
+        self.last_computation = tsne
         if n == 1:
             Log.info("ComputeEmbedding: only 1 point, not embedding")
             self.current_embedding = np.zeros((1, 2), np.float32)
@@ -71,18 +91,22 @@ class ComputeEmbedding:
             self.init_embedding(n)
         tsne.set_initial_embedding(self._init_embedding)
 
+        t = time.perf_counter()
+        tsne.compute(0, verbose=False)        # P and the initial state
+        t = self._lap("set_up", t)
         # chunks of 50, as the JAX package runs them
         total = self.settings.tsne.num_iterations
         chunk = 50
-        tsne.compute(min(chunk, total), verbose=False)
-        done = min(chunk, total)
+        done = 0
         while done < total:
             step = min(chunk, total - done)
             tsne.continue_gradient_descent(step, verbose=False)
             done += step
         self.current_embedding = tsne.embedding
+        t = self._lap("iterations", t)
         if track_kl:
             self.last_kl = tsne.kl_divergence()
+            self._lap("kl", t)
             Log.info("t-SNE: final KL divergence %.6f", self.last_kl)
         self._init_embedding = None
         return self.current_embedding

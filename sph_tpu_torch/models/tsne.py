@@ -1,4 +1,4 @@
-"""t-SNE gradient descent, dense-P tier.
+"""t-SNE gradient descent: the dense-P tier and the exact sparse-P tier.
 
 Port of sph_tpu/models/tsne.py (reference: sph/EmbedTsne.cpp — HDILib's
 gradient descent with exaggeration factor clamp(4 + N/60000, 4, 20),
@@ -6,16 +6,28 @@ gradient descent with exaggeration factor clamp(4 + N/60000, 4, 20),
 TsneParameters defaults (minimum gain 0.1, eta 200, momentum 0.2 -> 0.8 at
 iteration 250, exaggeration removed at 250 with exponential decay over 150).
 
-Whenever N <= 32768 the joint P is densified once to [Npad, Npad] and every
-iteration takes one fused pass over it (ops/tsne_kernels.py): the CUDA
-kernel for a tensor on the card, its plain twin for one on the CPU.  The
-iterations are a Python loop of torch ops on the device.  Larger N needs the
-grid-interpolated tier, which is not ported yet.
+The tier is chosen as the JAX package chooses it with its kernels on
+(``select_tier``, sph_tpu/models/tsne.py:410-437), from the same environment
+switches read at the same moment:
+
+- dense: the joint P densified once to [Npad, Npad]; every iteration takes
+  one fused pass over it (``tsne_forces_dense``);
+- exact: the sparse attraction gathered over P's support
+  (``attractive_forces``) plus the exact all-pairs repulsion
+  (``tsne_repulsion``);
+- grid: the grid-interpolated repulsion, the default above 32768 points;
+  not ported yet.
+
+The kernels (ops/tsne_kernels.py) run on the card for a tensor there and
+their plain twins for one on the CPU.  The iterations are a Python loop of
+torch ops on the device.  P comes either as a symmetrized probability
+matrix or from a kNN graph (``set_neighbor_graph``).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -24,11 +36,19 @@ import torch
 
 from ..device import resolve_device
 from ..ops.sparse import SparseRows, topk_rows
-from ..ops.tsne_kernels import tsne_forces_dense
+from ..ops.tsne_kernels import tsne_forces_dense, tsne_repulsion
 from ..utils.logging import Log
 
-DENSE_P_MAX = 32768      # sph_tpu's SPH_TSNE_DENSE_P_MAX default
-P_WIDTH_CAP = 1024       # sph_tpu's SPH_TSNE_P_WIDTH_CAP default
+# defaults of the JAX package's environment switches
+DENSE_P_MAX = 32768      # SPH_TSNE_DENSE_P_MAX
+GRID_MIN = 32768         # SPH_TSNE_GRID_MIN
+P_WIDTH_CAP = 1024       # SPH_TSNE_P_WIDTH_CAP
+SPARSE_BLOCK = 512       # TsneComputation(block=512): the exact tier's padding
+# gathered entries over P's support up to which the attraction takes all
+# rows at once, and the size of each row piece above it (the JAX package's
+# _attractive_forces defaults)
+ATTR_FUSE_MAX = 1 << 25
+ATTR_PIECE = 1 << 23
 
 
 @dataclass
@@ -65,6 +85,67 @@ def dense_npad(n: int) -> int:
     return _ceil_to(n, min(1024, _ceil_to(n, 256)))
 
 
+def sparse_npad(n: int) -> int:
+    """Rows of the exact sparse tier for n points: a multiple of the block
+    min(512, n rounded up to 8), as the JAX package pads it."""
+    return _ceil_to(n, min(SPARSE_BLOCK, _ceil_to(n, 8)))
+
+
+def _switch(name: str) -> Optional[bool]:
+    """An SPH_TSNE_* force switch: "1" on, "0" off, anything else auto."""
+    return {"1": True, "0": False}.get(os.environ.get(name, "auto"))
+
+
+def select_tier(n: int) -> str:
+    """"dense", "exact" or "grid" for n points, from SPH_TSNE_DENSE_P,
+    SPH_TSNE_DENSE_P_MAX, SPH_TSNE_GRID and SPH_TSNE_GRID_MIN, as the JAX
+    package's _init_gradient_descent picks with its kernels on
+    (sph_tpu/models/tsne.py:414-437): the grid wins over dense P."""
+    dense = _switch("SPH_TSNE_DENSE_P")
+    if dense is None:
+        dense = n <= int(os.environ.get("SPH_TSNE_DENSE_P_MAX",
+                                        str(DENSE_P_MAX)))
+    grid = _switch("SPH_TSNE_GRID")
+    if grid is None:
+        grid = n > int(os.environ.get("SPH_TSNE_GRID_MIN", str(GRID_MIN)))
+    return "grid" if grid else "dense" if dense else "exact"
+
+
+def _row_chunk(npts: int, width: int) -> int:
+    """Rows per piece of a gather over P's support: all rows up to
+    ATTR_FUSE_MAX entries, else pieces of about ATTR_PIECE entries.  The
+    pieces bound memory and leave the result as it is."""
+    if npts * width <= ATTR_FUSE_MAX:
+        return max(npts, 1)
+    return min(max((ATTR_PIECE // width) // 8 * 8, 8), _ceil_to(npts, 8))
+
+
+def _neighbor_diffs(y: torch.Tensor, p_idx: torch.Tensor, r0: int, r1: int):
+    """(y_i - y_j) by coordinate and w = 1 / (1 + |y_i - y_j|^2) over P's
+    support for rows r0..r1, each [r1 - r0, R]."""
+    idx = torch.clamp(p_idx[r0:r1], min=0)
+    d0 = y[r0:r1, 0:1] - y[:, 0][idx]
+    d1 = y[r0:r1, 1:2] - y[:, 1][idx]
+    return d0, d1, 1.0 / (1.0 + d0 * d0 + d1 * d1)
+
+
+def attractive_forces(y: torch.Tensor, p_idx: torch.Tensor,
+                      p_val: torch.Tensor) -> torch.Tensor:
+    """Sparse attraction sum_j p_ij w_ij (y_i - y_j) over P's support
+    (JAX: _attractive_forces, unpacked), in row pieces that bound the
+    gathered [rows, R] buffers."""
+    npts, width = p_idx.shape
+    out = torch.empty((npts, 2), dtype=torch.float32, device=y.device)
+    chunk = _row_chunk(npts, width)
+    for r0 in range(0, npts, chunk):
+        r1 = min(r0 + chunk, npts)
+        d0, d1, w = _neighbor_diffs(y, p_idx, r0, r1)
+        coef = torch.where(p_idx[r0:r1] >= 0, p_val[r0:r1] * w, 0.0)
+        out[r0:r1, 0] = (coef * d0).sum(1)
+        out[r0:r1, 1] = (coef * d1).sum(1)
+    return out
+
+
 def repulsive_forces(y: torch.Tensor, n_valid: int, block: int = 1024):
     """Exact O(N^2) Student-t repulsion in row blocks: (rep [Np, 2] =
     sum_j w_ij^2 (y_i - y_j), Z = sum_{i != j} w_ij).  Pad rows (>= n_valid)
@@ -93,31 +174,45 @@ def repulsive_forces(y: torch.Tensor, n_valid: int, block: int = 1024):
 def tsne_kl_divergence(y: torch.Tensor, p_idx: torch.Tensor,
                        p_val: torch.Tensor, n_valid: int) -> torch.Tensor:
     """KL(P || Q) over P's off-diagonal support: sum p log(p / q), q = w/Z,
-    with P renormalized over that support (Q gives i == j no mass)."""
-    _, z = repulsive_forces(y, n_valid)
-    idx = torch.clamp(p_idx, min=0)
-    d0 = y[:, 0:1] - y[:, 0][idx]
-    d1 = y[:, 1:2] - y[:, 1][idx]
-    w = 1.0 / (1.0 + d0 * d0 + d1 * d1)
-    rows = torch.arange(p_idx.shape[0], device=y.device)[:, None]
+    with P renormalized over that support (Q gives i == j no mass).
+
+    Z comes from the ``tsne_repulsion`` kernel on the card and from
+    ``repulsive_forces``, the counterpart of the JAX package's XLA
+    repulsion, on the CPU.  The support is visited in the row pieces of
+    ``attractive_forces``."""
+    if y.device.type == "cpu":
+        _, z = repulsive_forces(y, n_valid)
+    else:
+        _, z = tsne_repulsion(y, n_valid)
+    npts, width = p_idx.shape
+    rows = torch.arange(npts, device=y.device)[:, None]
     valid = (p_idx >= 0) & (p_val > 0) & (p_idx != rows)
     p_mass = torch.where(valid, p_val, 0.0).sum()
-    pn = p_val / torch.clamp(p_mass, min=1e-12)
-    q = torch.clamp(w / torch.clamp(z, min=1e-12), min=1e-38)
-    p = torch.clamp(pn, min=1e-38)
-    return torch.where(valid, pn * (torch.log(p) - torch.log(q)), 0.0).sum()
+    chunk = _row_chunk(npts, width)
+    kl = torch.zeros((), dtype=torch.float32, device=y.device)
+    for r0 in range(0, npts, chunk):
+        r1 = min(r0 + chunk, npts)
+        _, _, w = _neighbor_diffs(y, p_idx, r0, r1)
+        pn = p_val[r0:r1] / torch.clamp(p_mass, min=1e-12)
+        q = torch.clamp(w / torch.clamp(z, min=1e-12), min=1e-38)
+        p = torch.clamp(pn, min=1e-38)
+        kl = kl + torch.where(valid[r0:r1],
+                              pn * (torch.log(p) - torch.log(q)), 0.0).sum()
+    return kl
 
 
 class TsneComputation:
     """Reference: sph/EmbedTsne.hpp:62 TsneComputation — compute /
-    continueGradientDescent / stop, with a symmetrized probability
-    distribution as input."""
+    continueGradientDescent / stop, with a probability distribution or a kNN
+    graph as input."""
 
     def __init__(self, params: Optional[TsneParameters] = None,
                  device=None):
         self.params = params or TsneParameters()
         self.device = resolve_device(device)
         self._p: Optional[SparseRows] = None
+        self._knn = None
+        self.tier: Optional[str] = None
         self._n = 0
         self._initial_embedding: Optional[np.ndarray] = None
         self._should_stop = False
@@ -130,12 +225,18 @@ class TsneComputation:
         """P must already be row-normalized / symmetrized upstream
         (reference: setProbabilityDistribution, EmbedTsne.cpp:294-301)."""
         self._p = p
+        self._knn = None
         self._n = p.num_rows
         self._initialized = False
 
     def set_neighbor_graph(self, indices: np.ndarray, distances: np.ndarray):
-        raise NotImplementedError(
-            "t-SNE from a kNN graph not ported yet; see ROADMAP")
+        """Compute P from a kNN graph (reference: initProbabilityDistribution
+        EmbedTsne.cpp:96-123 — Gaussian rows with the configured
+        perplexity)."""
+        self._knn = (indices, distances)
+        self._p = None
+        self._n = indices.shape[0]
+        self._initialized = False
 
     def set_initial_embedding(self, emb: np.ndarray):
         if emb.shape[0] != self._n:
@@ -152,30 +253,64 @@ class TsneComputation:
 
     # ------------------------------------------------------------------
 
+    def _ensure_p(self, cap: int = 0) -> Optional[float]:
+        """P from the kNN graph, on this computation's device: Gaussian rows
+        without the self column, then (P + P^T) / 2 (JAX: _ensure_p), with
+        rows wider than `cap` cut to their largest entries as they are
+        packed (the JAX package cuts them right after; a hub row's full
+        width would otherwise be allocated for every row).  Returns P's mass
+        before the cut, or None when P was given and not made here."""
+        if self._p is not None:
+            return None
+        from ..ops.distributions import gaussian_row_distributions
+        from ..ops.sparse import symmetrize_tsne
+        idx, dist = self._knn
+        mask = idx >= 0
+        # the reference feeds the graph's distances to the beta search as-is
+        # (EmbedTsne.cpp:117: already sqrt'd euclidean)
+        p = gaussian_row_distributions(
+            torch.as_tensor(np.where(mask, dist, 0.0).astype(np.float32),
+                            device=self.device),
+            torch.as_tensor(mask, device=self.device),
+            self.params.perplexity, ignore_first=True,
+            sum_width=idx.shape[1])        # the JAX package pads nothing here
+        rows = SparseRows(np.where(mask, idx, -1), p, self._n,
+                          device=self.device)
+        self._p = symmetrize_tsne(rows, cap if cap > 0 else None)
+        return float(p.sum())
+
     def _init_gradient_descent(self):
         n = self._n
-        if n > DENSE_P_MAX:
+        tier = select_tier(n)
+        if tier == "grid":
             raise NotImplementedError(
-                f"t-SNE for N = {n} > {DENSE_P_MAX} needs the grid tier, "
-                "not ported yet; see ROADMAP")
+                f"t-SNE for N = {n}: grid tier not ported yet; see ROADMAP "
+                "(SPH_TSNE_GRID=0 takes the exact tier)")
+        if os.environ.get("SPH_TSNE_ATTR_PACKED") == "1":
+            raise NotImplementedError(
+                "the u16-packed attraction gather is not ported; see ROADMAP")
+        self.tier = tier
+        # bound the padded P width: one hub row otherwise sets the width of
+        # every row; keep the largest-probability entries.  0 disables.
+        cap = int(os.environ.get("SPH_TSNE_P_WIDTH_CAP", str(P_WIDTH_CAP)))
+        mass = self._ensure_p(cap)
         dev = self.device
         p = SparseRows(self._p.idx, self._p.val, self._p.num_cols,
                        device=dev)
-        # bound the padded P width: one hub row otherwise sets the width of
-        # every row; keep the largest-probability entries
-        if p.width > P_WIDTH_CAP:
-            before = p.row_sums().sum()
-            p = topk_rows(p, P_WIDTH_CAP)
-            kept = p.row_sums().sum() / max(before, 1e-12)
+        if cap > 0 and p.width > cap:        # a P given directly
+            mass = float(p.row_sums().sum())
+            p = topk_rows(p, cap)
+        if mass is not None and cap > 0 and p.width == cap:
+            kept = float(p.row_sums().sum()) / max(mass, 1e-12)
             Log.info("t-SNE: P width capped to %d (%.4f%% of mass kept)",
-                     P_WIDTH_CAP, 100.0 * kept)
+                     cap, 100.0 * kept)
         self.params.exaggeration_factor = default_exaggeration(n)
         Log.info("t-SNE: exaggeration %.2f for %d iters, decay over %d",
                  self.params.exaggeration_factor,
                  self.params.remove_exaggeration_iter,
                  self.params.exponential_decay_iter)
 
-        npad = dense_npad(n)
+        npad = dense_npad(n) if tier == "dense" else sparse_npad(n)
         self._npad = npad
 
         if self._initial_embedding is None:
@@ -194,12 +329,14 @@ class TsneComputation:
                                   device=dev)
         self._p_idx[:n] = p.idx
         self._p_val[:n] = pv
-        live = self._p_idx >= 0
-        rows = torch.arange(npad, device=dev)[:, None].expand_as(live)
-        self._p_dense = torch.zeros((npad, npad), dtype=torch.float32,
-                                    device=dev)
-        self._p_dense.index_put_((rows[live], self._p_idx[live]),
-                                 self._p_val[live], accumulate=True)
+        self._p_dense = None
+        if tier == "dense":
+            live = self._p_idx >= 0
+            rows = torch.arange(npad, device=dev)[:, None].expand_as(live)
+            self._p_dense = torch.zeros((npad, npad), dtype=torch.float32,
+                                        device=dev)
+            self._p_dense.index_put_((rows[live], self._p_idx[live]),
+                                     self._p_val[live], accumulate=True)
         self._y = y
         self._vel = torch.zeros_like(y)
         self._gain = torch.ones_like(y)
@@ -239,7 +376,11 @@ class TsneComputation:
         momentum = (prm.momentum if it < prm.mom_switching_iter
                     else prm.final_momentum)
 
-        attr, rep, z = tsne_forces_dense(self._y, self._p_dense, self._n)
+        if self.tier == "dense":
+            attr, rep, z = tsne_forces_dense(self._y, self._p_dense, self._n)
+        else:
+            attr = attractive_forces(self._y, self._p_idx, self._p_val)
+            rep, z = tsne_repulsion(self._y, self._n)
         grad = 4.0 * (exag * attr - rep / torch.clamp(z, min=1e-12))
         same_sign = torch.sign(grad) == torch.sign(self._vel)
         gain = torch.where(same_sign, self._gain * 0.8, self._gain + 0.2)

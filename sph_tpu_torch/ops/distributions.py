@@ -20,8 +20,8 @@ import torch
 
 from ..device import resolve_device
 from ..settings import NormalizationScheme
-from .numerics import (_f32, exp, flush_subnormals as _ftz, log, row_sum,
-                       sqrt)
+from .numerics import (_f32, exp, flush_subnormals as _ftz, log, row_dot,
+                       row_sum, sqrt)
 
 _MIN_SIGMA = 0.001     # reference: GraphNormalization.cpp:96,249
 _MIN_VAL = 1.0e-10     # values below are dropped (GraphNormalization.cpp:133)
@@ -32,7 +32,8 @@ def gaussian_row_distributions(values: torch.Tensor, mask: torch.Tensor,
                                perplexity: float,
                                ignore_first: bool = True,
                                max_iter: int = 200,
-                               tol: float = 1e-6) -> torch.Tensor:
+                               tol: float = 1e-6,
+                               sum_width: int = 0) -> torch.Tensor:
     """Per-row Gaussian kernel with fixed perplexity.
 
     perplexity <= 0 means "use row_size / 3" (GraphNormalization.cpp:75-79;
@@ -43,12 +44,15 @@ def gaussian_row_distributions(values: torch.Tensor, mask: torch.Tensor,
     converge, and the tiny-sigma fallback chain (copy distances ->
     unit-normalize -> invert -> renormalize).  As in the JAX package, the
     self slot of an all-zero row stays 0 so every returned row sums to 1.
+
+    sum_width: the row width the JAX package's caller sums over (0: the
+    bucketed width below).
     """
     n, k = values.shape
     dev = values.device
     # the JAX package runs this on rows padded to a power-of-two width of
     # at least 32; summing over that width keeps its float32 association
-    wpad = max(32, 1 << (k - 1).bit_length())
+    wpad = sum_width or max(32, 1 << (k - 1).bit_length())
     eff_mask = mask.clone()
     if ignore_first and k > 0:
         eff_mask[:, 0] = False
@@ -75,7 +79,7 @@ def gaussian_row_distributions(values: torch.Tensor, mask: torch.Tensor,
         p = torch.where(eff_mask, _ftz(exp(-beta[:, None] * vals)),
                         0.0)
         s = row_sum(p, wpad)
-        h = _ftz(_ftz(row_sum(_ftz(p * vals), wpad) * beta) / s) + log(s)
+        h = _ftz(_ftz(row_dot(p, vals, wpad) * beta) / s) + log(s)
         hdiff = h - log_perp
         new_found = found | (torch.abs(hdiff) < tol)
 

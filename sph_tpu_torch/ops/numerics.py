@@ -13,6 +13,11 @@ tensor gets the same bits as a CPU one.
   windows of 32 (the row zero-padded evenly at both ends to a multiple of
   32), each window added left to right, then reduces the window sums the
   same way.
+- ``row_dot``: a sum of products.  Over at most 32 terms XLA keeps the
+  multiply inside the reduction's loop and contracts each step into one
+  fused multiply-add, left to right, except over 5 to 8 terms, where it
+  adds the rounded products left to right; over more than 32 it sums the
+  rounded products as ``row_sum`` does.
 - ``cumsum``: XLA's cumulative sum runs left to right inside chunks of 16;
   the chunk totals are scanned the same way and added back.
 - ``sqrt``: correctly rounded, as XLA's is (torch's CPU kernel is not
@@ -56,6 +61,19 @@ def row_sum(x: torch.Tensor, width: int = 0) -> torch.Tensor:
     xp = F.pad(x, (pad // 2, pad - pad // 2))
     return row_sum(_sum_left_to_right(
         xp.reshape(*x.shape[:-1], m, _SUM_WINDOW)))
+
+
+def row_dot(a: torch.Tensor, b: torch.Tensor, width: int = 0
+            ) -> torch.Tensor:
+    """sum(a * b) over the last axis in XLA-CPU association (see module
+    doc); `width` as in ``row_sum``."""
+    n = max(width, a.shape[-1])
+    if n > _SUM_WINDOW or 5 <= n <= 8:
+        return row_sum(flush_subnormals(a * b), width)
+    acc = torch.zeros(a.shape[:-1], dtype=a.dtype, device=a.device)
+    for j in range(a.shape[-1]):     # zero padding adds nothing to the chain
+        acc = flush_subnormals(_fma(a[..., j], b[..., j], acc))
+    return acc
 
 
 def cumsum(x: torch.Tensor) -> torch.Tensor:

@@ -118,11 +118,23 @@ def compact(idx: torch.Tensor, val: torch.Tensor, num_cols: int
 
 
 def pack_coo(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
-             num_rows: int, num_cols: int) -> SparseRows:
+             num_rows: int, num_cols: int,
+             max_width: Optional[int] = None) -> SparseRows:
     """Pack (row, col, val) triples, sorted by (row, col), into padded rows
-    of the exact widest row."""
+    of the exact widest row.  max_width keeps each row's largest values
+    (ties to the lower column), as ``topk_rows`` would on the packed rows,
+    without ever holding rows wider than that."""
     dev = vals.device
     counts = torch.bincount(rows, minlength=num_rows)
+    if (max_width is not None and rows.numel()
+            and int(counts.max()) > max_width):
+        by_val = torch.sort(-vals, stable=True).indices
+        order = by_val[torch.sort(rows[by_val], stable=True).indices]
+        starts = torch.cumsum(counts, 0) - counts
+        rank = torch.arange(rows.numel(), device=dev) - starts[rows[order]]
+        keep = torch.sort(order[rank < max_width]).values
+        rows, cols, vals = rows[keep], cols[keep], vals[keep]
+        counts = torch.bincount(rows, minlength=num_rows)
     width = max(int(counts.max()) if rows.numel() else 1, 1)
     starts = torch.cumsum(counts, 0) - counts
     slot = torch.arange(rows.numel(), device=dev) - starts[rows]
@@ -365,9 +377,12 @@ def pairwise_similarities(sr: SparseRows, k: int, prune_val: float = 1e-4,
     return normalize_rows(out)
 
 
-def symmetrize_tsne(sr: SparseRows) -> SparseRows:
+def symmetrize_tsne(sr: SparseRows, max_width: Optional[int] = None
+                    ) -> SparseRows:
     """p_sym = (p + p^T) / 2 on the union support, rows ascending by column
-    (reference: symmetrizeTSNE, HDILibHelper.hpp:260-280)."""
+    (reference: symmetrizeTSNE, HDILibHelper.hpp:260-280).  max_width: the
+    result's rows cut to their largest values as in ``pack_coo`` (the
+    t-SNE width cap, applied before hub rows set the width of all)."""
     n = sr.num_rows
     assert sr.num_cols == n, "symmetrize_tsne needs a square matrix"
     rows, cols, vals = _live_coo(sr)
@@ -376,4 +391,4 @@ def symmetrize_tsne(sr: SparseRows) -> SparseRows:
     # each key collects at most two addends, so the sum is order-exact
     sums = torch.zeros(uniq.numel(), dtype=torch.float32, device=sr.device)
     sums.index_add_(0, inv, torch.cat([vals, vals]))
-    return pack_coo(uniq // n, uniq % n, sums * 0.5, n, n)
+    return pack_coo(uniq // n, uniq % n, sums * 0.5, n, n, max_width)

@@ -3,6 +3,8 @@ kernel (interpret mode on the CPU) and against a numpy oracle; the CUDA
 kernel against the twin on the card.  The wrapper routes CPU tensors to the
 twin, so the CPU tests reach it through the public wrapper."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -96,9 +98,15 @@ def test_forces_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_kernel_source_notes_the_tpu_kernel_it_replaces():
-    with open(tsne_kernels.SRC) as f:
-        src = f.read()
-    assert "sph_tpu/ops/pallas/tsne_kernels.py" in src
+    assert tsne_kernels.KERNELS == ("tsne_forces_dense", "tsne_repulsion")
+    for name in tsne_kernels.KERNELS:
+        with open(tsne_kernels.source(name)) as f:
+            src = f.read()
+        assert "sph_tpu/ops/pallas/tsne_kernels.py" in src and name in src
+        assert f'extern "C" int {name}_launch' in src
+        # one library per kernel and source content
+        assert os.path.basename(tsne_kernels.library_path(name)).startswith(
+            f"lib{name}_")
     assert "sm_90a" in " ".join(tsne_kernels.NVCC_FLAGS)
 
 

@@ -76,6 +76,18 @@ def test_row_sum_and_cumsum_bit_exact(width):
                           numerics.cumsum(torch.from_numpy(x)).numpy())
 
 
+@pytest.mark.parametrize("width", [5, 16, 32, 33, 64, 200])
+def test_row_dot_bit_exact(width):
+    """A sum of products inside one jitted fusion: fused multiply-adds left
+    to right up to 32 terms, the rounded products' windowed sum above."""
+    r = np.random.default_rng(width)
+    a = r.random((4096, width), dtype=np.float32)
+    b = r.random((4096, width), dtype=np.float32) * np.float32(0.1)
+    ref = np.asarray(jax.jit(lambda x, y: jnp.sum(x * y, axis=1))(a, b))
+    got = numerics.row_dot(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    assert np.array_equal(ref, got)
+
+
 def test_exp_log_sqrt_bit_exact():
     r = np.random.default_rng(0)
     x = np.concatenate([r.uniform(-100, 90, 20000), r.uniform(-5, 5, 20000),

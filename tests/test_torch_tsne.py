@@ -126,14 +126,27 @@ def test_compute_embedding_chunks_and_kl():
     assert np.isfinite(ce.last_kl) and ce.last_kl > 0
 
 
-def test_unported_tiers_raise():
+def test_unported_tiers_raise(monkeypatch):
+    """A kNN graph is taken now; above 32768 points the default tier is
+    the grid, which raises, and SPH_TSNE_GRID=0 takes the exact tier.  UMAP
+    still raises."""
+    for name in ("SPH_TSNE_GRID", "SPH_TSNE_DENSE_P", "SPH_TSNE_GRID_MIN",
+                 "SPH_TSNE_DENSE_P_MAX"):
+        monkeypatch.delenv(name, raising=False)
     tt = ttsne.TsneComputation(device="cpu")
-    with pytest.raises(NotImplementedError):
-        tt.set_neighbor_graph(np.zeros((4, 2), np.int32),
-                              np.zeros((4, 2), np.float32))
+    tt.set_neighbor_graph(np.array([[0, 1], [1, 0], [2, 1], [3, 2]],
+                                   np.int32),
+                          np.array([[0, 1], [0, 1], [0, 2], [0, 1]],
+                                   np.float32))
+    assert tt._n == 4
     big = T.SparseRows(np.zeros((ttsne.DENSE_P_MAX + 1, 1), np.int64),
                        np.ones((ttsne.DENSE_P_MAX + 1, 1), np.float32),
                        ttsne.DENSE_P_MAX + 1, device="cpu")
     tt.set_probability_distribution(big)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="grid tier"):
         tt.compute(1)
+    monkeypatch.setenv("SPH_TSNE_GRID", "0")
+    tt._init_gradient_descent()
+    assert tt.tier == "exact"
+    with pytest.raises(NotImplementedError, match="UMAP"):
+        T.ComputeEmbedding(device="cpu").compute_umap(big)
