@@ -24,17 +24,31 @@ Phases, each printing one JSON line, and each raising on failure:
    the kernel on the main path, the KL gate of bench.py:344-360 against
    docs/anchors_pines.json, and the levels against the JAX-on-CPU record in
    docs/torch_port_pines_reference.json.
-6. large   — BASELINE config 4 (benchmarks/bench_1m.py): a 1000x1000x100
-   synthetic stack, exact kNN with k = 16 through compute_knn(BRUTE_FORCE),
-   then ComputeEmbedding.compute_tsne((indices, distances)) at perplexity 5
-   on the exact sparse-P tier (SPH_TSNE_GRID=0 for this phase only), cut to
-   50 iterations; seconds per part, the kNN's peak memory, the KL before
-   and after, the launches.
-7. large_checks — kNN invariants, kNN exactness against float64 distances
-   on 1024 sampled rows, a symmetric P whose conditional rows sum to 1, the
+6. umap    — the same level 1 through ComputeEmbedding.compute_umap for
+   the reference's 500 epochs (rows tier): seconds, epochs/s, and the
+   trustworthiness at k = 10 against the components' mean spectra, at
+   least 0.99 x the JAX-on-CPU record in
+   docs/torch_port_pines_umap_reference.json.
+7. large_graph — BASELINE config 4 (benchmarks/bench_1m.py): a
+   1000x1000x100 synthetic stack and its exact kNN graph (k = 16, once for
+   both tiers below); kNN invariants and exactness against float64
+   distances on 1024 sampled rows.
+8. large_grid — t-SNE from that graph at perplexity 5 on the default tier,
+   the grid, for the reference's 4000 iterations: seconds, iterations/s,
+   the grid sizes, the KL at iterations 0, 250, 1000 and 4000, the grid's
+   Z against tsne_repulsion's (at most 1e-3 apart) and the final KL with
+   the exact Z, milliseconds an iteration by part, the scatter-add's
+   run-to-run difference, peak memory; no kernel launches on this tier.
+9. large   — the same graph on the exact sparse-P tier (SPH_TSNE_GRID=0),
+   cut to 10 iterations; the KL before and after, the launches.
+10. large_checks — a symmetric P whose conditional rows sum to 1, the
    exact tier (tsne_repulsion on every iteration, tsne_forces_dense never),
    a falling KL, a finite embedding with zero pad rows, and tsne_repulsion
    against its twin at the embedding the path produced.
+11. grid_vs_exact — the 1M recipe at 256x256 (65536 points), 1000
+   iterations on the grid and the exact tier from the same P and initial
+   layout, both scored under that P with the exact Z: KL_grid <= 1.001 x
+   KL_exact.
 
 Then the kernels line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -43,6 +57,7 @@ the repository beside it, the script exits non-zero before that line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -52,8 +67,52 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 KL_SLACK = 1.01            # bench.py:344-360: KL <= 1.01 x sklearn anchor
 LEVEL1_TOLERANCE = 0.02    # level-1 count within 2 % of the JAX record
-LARGE_ITERS = 50           # 1M path: one ComputeEmbedding chunk (depth cut)
+LARGE_ITERS = 10           # 1M exact tier: a depth cut (0.6 s an iteration)
+GRID_ITERS = 4000          # 1M grid tier: the reference's schedule above 200k
+GRID_KL_AT = (0, 250, 1000)
+MID_ITERS = 1000           # 65536 points: the reference's schedule below 100k
+Z_GAP_MAX = 1e-3           # grid Z against the exact Z at 1M, relative
+KL_RATIO_MAX = 1.001       # 65536 points: KL_grid / KL_exact
+UMAP_TRUST_SLACK = 0.99    # Pines UMAP trustworthiness vs the JAX-CPU record
+# the switches of the t-SNE tier choice, all unset for the default path
+TSNE_SWITCHES = ("SPH_TSNE_DENSE_P", "SPH_TSNE_DENSE_P_MAX", "SPH_TSNE_GRID",
+                 "SPH_TSNE_GRID_MIN", "SPH_TSNE_GRID_MAX",
+                 "SPH_TSNE_P_WIDTH_CAP", "SPH_TSNE_GRID_P_WIDTH",
+                 "SPH_TSNE_ATTR_PACKED")
 DEV = "cuda"               # the helpers' device; "cpu" rehearses them small
+
+
+# the card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+# float32 operations a pair (a fused multiply-add counts two, the
+# reciprocal one): dx, dy 2; d^2 3; 1 + d^2 1; 1/d 1; w^2 1; the sums
+# z, s2 2 and ax, ay 4 -> 14; the dense pass adds p w 1, its sum 1 and
+# two more multiply-adds 4 -> 20
+REPULSION_FLOPS_PER_PAIR = 14
+FORCES_FLOPS_PER_PAIR = 20
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the float32 rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def forces_bound(n: int, npad: int) -> dict:
+    """tsne_forces_dense: P [npad, npad] and y read once, attr, rep and the
+    row Z written once; n^2 pairs."""
+    return bound(4 * npad * npad + 8 * npad + 4 * 5 * npad,
+                 FORCES_FLOPS_PER_PAIR * n * n)
+
+
+def repulsion_bound(n: int, npad: int) -> dict:
+    """tsne_repulsion: y read once, rep and the row Z written once; n^2
+    pairs."""
+    return bound(8 * npad + 12 * npad, REPULSION_FLOPS_PER_PAIR * n * n)
 
 
 def sync() -> None:
@@ -311,22 +370,48 @@ def p_checks(p, idx, dist, perplexity: float) -> dict:
             "conditional_row_sum_err": worst}
 
 
-def large_path(tsne_kernels, iters: int, k: int = 16, rows: int = 1000,
-               cols: int = 1000) -> dict:
-    """BASELINE config 4 at full width (benchmarks/bench_1m.py): returns its
-    timings, results and what its checks need.  Kernel counts are set to 0
-    just before it and read just after."""
-    import numpy as np
+@contextlib.contextmanager
+def env(**values):
+    """Set (a string) or unset (None) environment variables for the block,
+    then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def zero_launches(tsne_kernels) -> None:
+    for kern in (tsne_kernels.tsne_forces_dense, tsne_kernels.tsne_repulsion):
+        kern.launches = 0
+
+
+def read_launches(tsne_kernels) -> dict:
+    return {"tsne_forces_dense": tsne_kernels.tsne_forces_dense.launches,
+            "tsne_repulsion": tsne_kernels.tsne_repulsion.launches}
+
+
+def scene_graph(rows: int, cols: int, k: int = 16) -> dict:
+    """A synthetic rows x cols x 100 stack (Scaler.NONE) and its exact kNN
+    graph (BASELINE config 4's recipe); seconds of both and the kNN's peak
+    memory."""
     import torch
     import sph_tpu_torch as T
     from sph_tpu_torch.ops.knn import compute_knn
     from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
-    for kern in (tsne_kernels.tsne_forces_dense, tsne_kernels.tsne_repulsion):
-        kern.launches = 0
     seconds = {}
     t = time.perf_counter()
     img = create_hyperspectral_scene(rows, cols, 100, seed=7)
-    data = T.scale(T.ImageStack.from_array(img, name="synthetic_1m").data,
+    data = T.scale(T.ImageStack.from_array(img, name="synthetic").data,
                    T.Scaler.NONE)
     seconds["data"] = time.perf_counter() - t
     sync()
@@ -337,19 +422,239 @@ def large_path(tsne_kernels, iters: int, k: int = 16, rows: int = 1000,
     seconds["knn"] = time.perf_counter() - t
     knn_peak = (torch.cuda.max_memory_allocated() if DEV == "cuda"
                 else "not measured")
+    return {"data": data, "idx": idx, "dist": dist, "seconds": seconds,
+            "knn_peak": knn_peak}
+
+
+def tsne_settings(iters: int, k: int):
+    import sph_tpu_torch as T
     es = T.ComputeEmbeddingSettings()
     es.tsne.num_iterations = iters
     es.tsne.perplexity = (k - 1) / 3.0       # HDILib's perplexity multiplier
+    return es
+
+
+def large_path(tsne_kernels, iters: int, k: int = 16, rows: int = 1000,
+               cols: int = 1000, graph: dict = None) -> dict:
+    """BASELINE config 4 at full width (benchmarks/bench_1m.py) on the tier
+    the environment selects, from `graph` (made here when None): returns
+    its timings, results and what its checks need.  Kernel counts are set
+    to 0 just before the t-SNE and read just after."""
+    import sph_tpu_torch as T
+    graph = graph or scene_graph(rows, cols, k)
+    seconds = dict(graph["seconds"])
+    zero_launches(tsne_kernels)
+    es = tsne_settings(iters, k)
     ce = T.ComputeEmbedding(es, device=DEV)
-    emb = ce.compute_tsne((idx, dist), track_kl=True)
-    launches = {"tsne_forces_dense": tsne_kernels.tsne_forces_dense.launches,
-                "tsne_repulsion": tsne_kernels.tsne_repulsion.launches}
+    emb = ce.compute_tsne((graph["idx"], graph["dist"]), track_kl=True)
+    launches = read_launches(tsne_kernels)
     seconds["p_and_set_up"] = ce.seconds["set_up"]
     seconds["tsne"] = ce.seconds["iterations"]
     seconds["kl"] = ce.seconds["kl"]
-    return {"data": data, "idx": idx, "dist": dist, "emb": emb, "ce": ce,
-            "es": es, "seconds": seconds, "knn_peak": knn_peak,
+    return {"data": graph["data"], "idx": graph["idx"],
+            "dist": graph["dist"], "emb": emb, "ce": ce, "es": es,
+            "seconds": seconds, "knn_peak": graph["knn_peak"],
             "launches": launches, "kl": float(ce.last_kl)}
+
+
+def grid_path(tsne_kernels, graph: dict, iters: int,
+              kl_at=(0, 250, 1000)) -> dict:
+    """t-SNE from `graph` on the default tier (the grid above 32768 points)
+    through ComputeEmbedding, with the KL at the iterations `kl_at` (chunk
+    ends) and at the end.  Kernel counts are set to 0 just before and read
+    just after; the seconds of the KLs taken on the way are kept apart
+    from the iterations'."""
+    import torch
+    import sph_tpu_torch as T
+    k = graph["idx"].shape[1]
+    zero_launches(tsne_kernels)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ce = T.ComputeEmbedding(tsne_settings(iters, k), device=DEV)
+    kls, kl_seconds = {}, [0.0]
+
+    def progress(comp):
+        if comp.current_iteration in kl_at:
+            t = time.perf_counter()
+            kls[comp.current_iteration] = comp.kl_divergence()
+            kl_seconds[0] += time.perf_counter() - t
+
+    with env(**{name: None for name in TSNE_SWITCHES}):
+        emb = ce.compute_tsne((graph["idx"], graph["dist"]), track_kl=True,
+                              progress=progress)
+    launches = read_launches(tsne_kernels)
+    peak = (torch.cuda.max_memory_allocated() if DEV == "cuda"
+            else "not measured")
+    kls[iters] = float(ce.last_kl)
+    seconds = {"p_and_set_up": ce.seconds["set_up"],
+               "tsne": ce.seconds["iterations"] - kl_seconds[0],
+               "kl_on_the_way": kl_seconds[0], "kl": ce.seconds["kl"]}
+    return {"emb": emb, "ce": ce, "kls": kls, "seconds": seconds,
+            "launches": launches, "peak_memory_bytes": peak}
+
+
+def grid_sizes(history) -> list:
+    """[first iteration, G] for each change of the grid size."""
+    out = []
+    for it, g in history:
+        if not out or out[-1][1] != g:
+            out.append([it, g])
+    return out
+
+
+def z_gap(comp) -> dict:
+    """Z of the layout from the grid (the size the KL used) and from the
+    exact tsne_repulsion kernel, and the final KL with the exact Z: with
+    P renormalized over its support, KL(Z') = KL(Z) + log(Z' / Z)."""
+    import math
+    from sph_tpu_torch.ops.tsne_grid import grid_repulsion
+    from sph_tpu_torch.ops.tsne_kernels import tsne_repulsion
+    g = comp._current_grid()
+    _, z_grid = grid_repulsion(comp._y, comp._n, g)
+    _, z_exact = tsne_repulsion(comp._y, comp._n)
+    z_grid, z_exact = float(z_grid), float(z_exact)
+    return {"grid": g, "z_grid": z_grid, "z_exact": z_exact,
+            "z_rel_gap": abs(z_grid - z_exact) / z_exact,
+            "log_z_ratio": math.log(z_exact / z_grid)}
+
+
+def grid_split(comp, calls: int = 10) -> dict:
+    """Milliseconds of one grid-tier iteration by part at the computation's
+    layout, CUDA events: the attraction, the box and taps, the deposit
+    (scatter-add), the FFT convolution, the interpolation (gather), the
+    update, and the whole step.  The state is put back afterwards."""
+    from sph_tpu_torch.models.tsne import attractive_forces
+    from sph_tpu_torch.ops import tsne_grid as G
+    y, n, g = comp._y, comp._n, comp._grid
+    lo, h = G.grid_box(y, n, g)
+    yv = y[:n]
+    cells, wx, wy = G.grid_taps(yv, lo, h, g)
+    charges = G.deposit_charges(yv, cells, wx, wy, g)
+    fields = G.field_grids(charges, h, g)
+    state = (comp._y, comp._vel, comp._gain, comp._iteration)
+    forces = comp._forces()
+
+    def update():
+        comp._update(*forces)
+        comp._y, comp._vel, comp._gain, comp._iteration = state
+
+    ms = {"grid": g, "attraction": cuda_ms(lambda: attractive_forces(
+        y, comp._p_idx, comp._p_val), calls, 2),
+        "box_and_taps": cuda_ms(lambda: G.grid_taps(
+            yv, *G.grid_box(y, n, g), g), calls, 2),
+        "deposit": cuda_ms(lambda: G.deposit_charges(yv, cells, wx, wy, g),
+                           calls, 2),
+        "fft": cuda_ms(lambda: G.field_grids(charges, h, g), calls, 2),
+        "interpolation": cuda_ms(lambda: G.interpolate_fields(
+            fields, cells, wx, wy), calls, 2),
+        "update": cuda_ms(update, calls, 2)}
+    ms["step"] = cuda_ms(comp._step, calls, 2)
+    comp._y, comp._vel, comp._gain, comp._iteration = state
+    return ms
+
+
+def scatter_repeatability(comp) -> dict:
+    """Two grid_repulsion calls on the same layout: how far the unordered
+    scatter-add moves the result from one call to the next."""
+    from sph_tpu_torch.ops.tsne_grid import grid_repulsion
+    g = comp._current_grid()
+    r1, z1 = grid_repulsion(comp._y, comp._n, g)
+    r2, z2 = grid_repulsion(comp._y, comp._n, g)
+    return {"grid": g, "bits_equal": bool((r1 == r2).all() and z1 == z2),
+            "rep_max_rel_diff": float((r1 - r2).abs().max()
+                                      / r1.abs().max()),
+            "z_rel_diff": abs(float(z1) - float(z2)) / float(z1)}
+
+
+def grid_vs_exact(tsne_kernels, rows: int = 256, cols: int = 256,
+                  iters: int = 1000, k: int = 16) -> dict:
+    """The 1M recipe at rows x cols: `iters` iterations on the grid tier
+    (the default above 32768 points) and on the exact tier
+    (SPH_TSNE_GRID=0), from the same P and initial layout: the grid tier's
+    cut of P to 64 entries a row is switched off (SPH_TSNE_GRID_P_WIDTH=0),
+    so the grid's repulsion is the one difference.  Both layouts are scored
+    under that P with the exact Z."""
+    import sph_tpu_torch as T
+    from sph_tpu_torch.models.tsne import tsne_kl_divergence
+    graph = scene_graph(rows, cols, k)
+    out = {"n": graph["idx"].shape[0], "k": k, "iterations": iters,
+           "seconds": dict(graph["seconds"])}
+    runs = {}
+    for tier, switches in (("grid", {"SPH_TSNE_GRID_P_WIDTH": "0"}),
+                           ("exact", {"SPH_TSNE_GRID": "0"})):
+        zero_launches(tsne_kernels)
+        ce = T.ComputeEmbedding(tsne_settings(iters, k), device=DEV)
+        with env(**{**{name: None for name in TSNE_SWITCHES}, **switches}):
+            ce.compute_tsne((graph["idx"], graph["dist"]), track_kl=True)
+        runs[tier] = ce.last_computation
+        out[tier] = {"tier": ce.last_computation.tier,
+                     "p_width": ce.last_computation._p_val.shape[1],
+                     "seconds": ce.seconds["iterations"],
+                     "iters_per_s": iters / ce.seconds["iterations"],
+                     "kl_own": float(ce.last_kl),
+                     "launches": read_launches(tsne_kernels)}
+    exact = runs["exact"]
+    for tier, comp in runs.items():
+        out[tier]["kl_scored"] = float(tsne_kl_divergence(
+            comp._y, exact._p_idx, exact._p_val, exact._n))
+    out["kl_ratio"] = out["grid"]["kl_scored"] / out["exact"]["kl_scored"]
+    out["grid"]["grid_sizes"] = grid_sizes(runs["grid"].grid_history)
+    return out
+
+
+def trustworthiness(x, emb, k: int = 10, block: int = 512) -> float:
+    """sklearn.manifold.trustworthiness in numpy (the card's machine has no
+    sklearn): 1 - 2 / (n k (2n - 3k - 1)) times the sum, over each point's
+    k nearest neighbours in `emb`, of how far past k their ranks by
+    distance in `x` go.  Distances in float64, rows in blocks."""
+    import numpy as np
+    x = np.asarray(x, np.float64)
+    e = np.asarray(emb, np.float64)
+    n = x.shape[0]
+    sqx, sqe = (x * x).sum(1), (e * e).sum(1)
+    total = 0
+    for r0 in range(0, n, block):
+        rows = np.arange(r0, min(r0 + block, n))
+        ar = np.arange(rows.size)
+        dx = sqx[rows, None] + sqx[None, :] - 2.0 * (x[rows] @ x.T)
+        de = sqe[rows, None] + sqe[None, :] - 2.0 * (e[rows] @ e.T)
+        dx[ar, rows] = np.inf
+        de[ar, rows] = np.inf
+        near = np.argpartition(de, k, axis=1)[:, :k]
+        at = np.take_along_axis(dx, near, 1)
+        ranks = (dx[:, None, :] < at[:, :, None]).sum(2) + 1 - k
+        total += int(ranks[ranks > 0].sum())
+    return 1.0 - total * 2.0 / (n * k * (2.0 * n - 3.0 * k - 1.0))
+
+
+def component_means(data, labels, count: int):
+    """The mean spectrum of each component: [count, channels] float64."""
+    import numpy as np
+    sums = np.zeros((count, data.shape[1]))
+    np.add.at(sums, labels, data)
+    return sums / np.bincount(labels, minlength=count)[:, None]
+
+
+def pines_umap(ch, data, epochs: int = 500) -> dict:
+    """UMAP of the Pines hierarchy's level 1 through
+    ComputeEmbedding.compute_umap (the fuzzy union of the level's P, the
+    reference's 500 epochs); its seconds and the trustworthiness at k = 10
+    of the layout against the components' mean spectra."""
+    import sph_tpu_torch as T
+    es = T.ComputeEmbeddingSettings()
+    es.umap.num_epochs = epochs
+    ce = T.ComputeEmbedding(es, device=DEV)
+    emb = ce.compute_umap(ch.level_similarities.get_prob_dist(1))
+    comp = ce.last_computation
+    h = ch.image_hierarchy.hierarchy
+    t = time.perf_counter()
+    trust = trustworthiness(component_means(
+        data, h.pixel_components[1], h.num_components[1]), emb, 10)
+    return {"n": emb.shape[0], "tier": comp.tier, "epochs": comp.n_epochs,
+            "width": tuple(comp._eps.shape)[1], "seconds": ce.seconds,
+            "epochs_per_s": comp.n_epochs / ce.seconds["epochs"],
+            "trustworthiness_k10": trust,
+            "trustworthiness_seconds": time.perf_counter() - t, "emb": emb}
 
 
 def pines_hierarchy(device: str):
@@ -536,14 +841,87 @@ def main() -> int:
     emit({"phase": "checks", "passed": True, "kl_gate": KL_SLACK * anchor,
           "jax_cpu_levels": ref_levels, "jax_cpu_level_1_kl":
               ref["level_1_kl"]})
-    del ch, cond, dense, emb, ce
 
-    # ---- the 1M path: BASELINE config 4 ---------------------------------
-    grid_env = os.environ.get("SPH_TSNE_GRID")
-    os.environ["SPH_TSNE_GRID"] = "0"     # the exact tier above 32768
-    try:
-        large = large_path(tsne_kernels, LARGE_ITERS)
-        n_large = large["idx"].shape[0]
+    # ---- UMAP of the same level 1 ----------------------------------------
+    zero_launches(tsne_kernels)
+    umap = pines_umap(ch, data)
+    with open(os.path.join(REPO, "docs",
+                           "torch_port_pines_umap_reference.json")) as f:
+        umap_ref = json.load(f)
+    emit({"phase": "umap", **{k: v for k, v in umap.items() if k != "emb"},
+          "jax_cpu_trustworthiness_k10": umap_ref["trustworthiness_k10"],
+          "launches": read_launches(tsne_kernels)})
+    if umap["tier"] != "rows" or umap["n"] != levels[1]:
+        raise AssertionError(f"UMAP of level 1 took the {umap['tier']} tier")
+    if not np.all(np.isfinite(umap["emb"])):
+        raise AssertionError("the UMAP embedding is not finite")
+    if not umap["trustworthiness_k10"] >= (
+            UMAP_TRUST_SLACK * umap_ref["trustworthiness_k10"]):
+        raise AssertionError(
+            f"UMAP trustworthiness {umap['trustworthiness_k10']} < "
+            f"{UMAP_TRUST_SLACK} x the JAX package's "
+            f"{umap_ref['trustworthiness_k10']}")
+    del ch, cond, dense, emb, ce, umap
+
+    # ---- the 1M path: BASELINE config 4, one kNN graph for both tiers ----
+    graph = scene_graph(1000, 1000)
+    n_large = graph["idx"].shape[0]
+    emit({"phase": "large_graph", "n": n_large, "d": graph["data"].shape[1],
+          "k": graph["idx"].shape[1], "seconds": graph["seconds"],
+          "knn_peak_memory_bytes": graph["knn_peak"]})
+    idx, dist = graph["idx"], graph["dist"]
+    if not np.array_equal(idx[:, 0], np.arange(n_large)):
+        raise AssertionError("kNN: slot 0 is not the point itself")
+    if not (np.all(dist[:, 0] == 0) and np.all(np.isfinite(dist))
+            and np.all(np.diff(dist, axis=1) >= 0)):
+        raise AssertionError("kNN: distances not 0-first, finite, ascending")
+    sample = np.sort(np.random.default_rng(3).choice(n_large, 1024,
+                                                     replace=False))
+    exact = knn_exactness(graph["data"], idx, idx.shape[1], sample)
+    emit({"phase": "large_graph_checks", "passed": True,
+          "knn_exactness": exact})
+
+    # the default tier (grid) at the reference's depth
+    grid = grid_path(tsne_kernels, graph, GRID_ITERS, GRID_KL_AT)
+    gcomp = grid["ce"].last_computation
+    gap = z_gap(gcomp)
+    split = grid_split(gcomp)
+    repeat = scatter_repeatability(gcomp)
+    kls = grid["kls"]
+    emit({"phase": "large_grid", "n": n_large, "tsne_tier": gcomp.tier,
+          "tsne_iterations": GRID_ITERS, "seconds": grid["seconds"],
+          "tsne_iters_per_s": GRID_ITERS / grid["seconds"]["tsne"],
+          "p_width": gcomp._p_val.shape[1],
+          "grid_sizes": grid_sizes(gcomp.grid_history),
+          "grid_picks": len(gcomp.grid_history),
+          "kl_at": {str(i): v for i, v in sorted(kls.items())},
+          "kl_final_exact_z": kls[GRID_ITERS] + gap["log_z_ratio"],
+          "z": gap, "ms_per_iteration_by_part": split,
+          "scatter_repeatability": repeat,
+          "peak_memory_bytes": grid["peak_memory_bytes"],
+          "embedding_max_abs": float(np.abs(grid["emb"]).max()),
+          "launches": grid["launches"]})
+    if gcomp.tier != "grid":
+        raise AssertionError(f"the 1M default took the {gcomp.tier} tier")
+    if any(grid["launches"].values()):
+        raise AssertionError(f"a kernel launched on the grid tier: "
+                             f"{grid['launches']}")
+    if not kls[GRID_ITERS] < kls[0]:
+        raise AssertionError(f"grid tier: KL {kls[GRID_ITERS]} not below "
+                             f"iteration 0's {kls[0]}")
+    if not gap["z_rel_gap"] <= Z_GAP_MAX:
+        raise AssertionError(f"grid Z {gap['z_grid']} vs exact "
+                             f"{gap['z_exact']}: gap {gap['z_rel_gap']}")
+    if not (np.all(np.isfinite(grid["emb"]))
+            and grid["emb"].shape == (n_large, 2)):
+        raise AssertionError("the 1M grid embedding is not finite [N, 2]")
+    if bool((gcomp._y[n_large:] != 0).any()):
+        raise AssertionError("the 1M grid embedding's pad rows are not 0")
+    del grid, gcomp
+
+    # the exact tier, cut in depth
+    with env(SPH_TSNE_GRID="0"):          # the exact tier above 32768
+        large = large_path(tsne_kernels, LARGE_ITERS, graph=graph)
         comp = large["ce"].last_computation
         # the KL at iteration 0, computed the same way: the path's P at the
         # initial layout
@@ -557,36 +935,22 @@ def main() -> int:
         kl0_s = time.perf_counter() - t
         t0_tier = t0_tsne.tier
         del t0_tsne
-    finally:
-        if grid_env is None:
-            os.environ.pop("SPH_TSNE_GRID")
-        else:
-            os.environ["SPH_TSNE_GRID"] = grid_env
     sec = large["seconds"]
     large_launches = large["launches"]
     emit({"phase": "large", "n": n_large, "d": large["data"].shape[1],
           "k": large["idx"].shape[1],
           "perplexity": large["es"].tsne.perplexity,
-          "tsne_tier": large["ce"].last_computation.tier,
+          "tsne_tier": comp.tier,
           "tsne_iterations": LARGE_ITERS, "seconds": sec,
           "seconds_total": sum(sec.values()),
           "tsne_iters_per_s": LARGE_ITERS / sec["tsne"],
-          "knn_peak_memory_bytes": large["knn_peak"],
           "kl_iteration_0": kl0, "kl_iteration_0_seconds": kl0_s,
           "kl_final": large["kl"],
           "embedding_max_abs": float(np.abs(large["emb"]).max()),
           "launches": large_launches})
 
-    # ---- checks of the 1M path -------------------------------------------
-    idx, dist, emb = large["idx"], large["dist"], large["emb"]
-    if not np.array_equal(idx[:, 0], np.arange(n_large)):
-        raise AssertionError("kNN: slot 0 is not the point itself")
-    if not (np.all(dist[:, 0] == 0) and np.all(np.isfinite(dist))
-            and np.all(np.diff(dist, axis=1) >= 0)):
-        raise AssertionError("kNN: distances not 0-first, finite, ascending")
-    sample = np.sort(np.random.default_rng(3).choice(n_large, 1024,
-                                                     replace=False))
-    exact = knn_exactness(large["data"], idx, idx.shape[1], sample)
+    # ---- checks of the exact tier at 1M ----------------------------------
+    emb = large["emb"]
     pc = p_checks(comp._p, idx, dist, large["es"].tsne.perplexity)
     if comp.tier != "exact" or t0_tier != "exact":
         raise AssertionError(f"the 1M path took the {comp.tier} tier")
@@ -606,27 +970,51 @@ def main() -> int:
     # the kernel once more, at the embedding the path produced
     rep_checks.append(check_repulsion_kernel(comp._y.contiguous(), n_large,
                                              sampled=True))
-    emit({"phase": "large_checks", "passed": True, "knn_exactness": exact,
-          **pc, "npad": comp._npad,
+    emit({"phase": "large_checks", "passed": True, **pc,
+          "npad": comp._npad,
           "kernel_vs_twin_at_final_embedding": rep_checks[-1]})
+    del large, comp, graph, emb
+
+    # ---- the grid against the exact tier at 65536 points -----------------
+    mid = grid_vs_exact(tsne_kernels, iters=MID_ITERS)
+    emit({"phase": "grid_vs_exact", **mid})
+    if mid["grid"]["tier"] != "grid" or mid["exact"]["tier"] != "exact":
+        raise AssertionError(f"65536 points took the {mid['grid']['tier']} "
+                             f"and {mid['exact']['tier']} tiers")
+    if mid["grid"]["p_width"] != mid["exact"]["p_width"]:
+        raise AssertionError("65536 points: the tiers ran on different P")
+    if mid["exact"]["launches"]["tsne_repulsion"] < MID_ITERS:
+        raise AssertionError("tsne_repulsion did not run every exact "
+                             "iteration at 65536 points")
+    if not mid["kl_ratio"] <= KL_RATIO_MAX:
+        raise AssertionError(f"KL_grid / KL_exact = {mid['kl_ratio']} > "
+                             f"{KL_RATIO_MAX} at 65536 points")
 
     main_shape = checks[-1]
     rep_full = rep_checks[1]            # the largest shape timed in full
+    rep_1m = rep_checks[2]
     emit({"kernels": [{
         "name": "tsne_forces_dense", "route": "cuda",
         "source": "sph_tpu_torch/csrc/tsne_forces_dense.cu",
         "replaces": "sph_tpu/ops/pallas/tsne_kernels.py:167",
         "launches": launches,
         "max_abs_err": max(c["max_abs_err"] for c in checks),
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"]}, {
+        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+        **forces_bound(main_shape["n"], main_shape["npad"]),
+        "library_ms": None,
+        "shape": [main_shape["n"], main_shape["npad"]]}, {
         "name": "tsne_repulsion", "route": "cuda",
         "source": "sph_tpu_torch/csrc/tsne_repulsion.cu",
         "replaces": "sph_tpu/ops/pallas/tsne_kernels.py:80",
         "launches": large_launches["tsne_repulsion"],
         "max_abs_err": max(c["max_abs_err"] for c in rep_checks),
         "ms": rep_full["ms"], "plain_ms": rep_full["plain_ms"],
+        **repulsion_bound(rep_full["n"], rep_full["npad"]),
+        "library_ms": None,
         "shape": [rep_full["n"], rep_full["npad"]],
-        "ms_at_1m": rep_checks[2]["ms"]}]})
+        "ms_at_1m": rep_1m["ms"],
+        "bound_ms_at_1m": repulsion_bound(rep_1m["n"],
+                                          rep_1m["npad"])["bound_ms"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

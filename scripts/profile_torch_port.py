@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Profile one of the PyTorch port's paths on one CUDA card.
 
-    python3 scripts/profile_torch_port.py [--path pines|large] [--out FILE]
+    python3 scripts/profile_torch_port.py [--path pines|large|grid] [--out FILE]
 
 --path pines (the default) runs chip_smoke.py's Pines configuration
 (bench.py:89-136 at 145x145x200, then 2000 level-1 t-SNE iterations) once
@@ -11,7 +11,9 @@ window.  --path large runs chip_smoke.py's 1M path (BASELINE config 4: a
 perplexity 5, the exact sparse-P t-SNE tier with SPH_TSNE_GRID=0 and
 SPH_TSNE_DENSE_P=0) once,
 after a warm-up at 64x64, with the kNN, the P and set-up, 10 t-SNE
-iterations and the KL each under its own window.
+iterations and the KL each under its own window.  --path grid runs the
+same 1M path on its default tier, the grid (no SPH_TSNE_* switch set),
+with 50 iterations in the t-SNE window.
 
 Prints, per stage, the wall seconds, the device seconds (the sum of its
 kernels and copies, counted as torch.profiler counts its "Self CUDA time
@@ -58,27 +60,14 @@ def run_main_path(stage_context):
     return walls
 
 
-@contextlib.contextmanager
-def _env(**values):
-    """Set environment variables for the block, then restore them."""
-    old = {k: os.environ.get(k) for k in values}
-    os.environ.update(values)
-    try:
-        yield
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k)
-            else:
-                os.environ[k] = v
-
-
 def run_large_path(stage_context, rows: int = 1000, cols: int = 1000,
-                   iters: int = 10):
+                   iters: int = 10, tier: str = "exact"):
     """chip_smoke.py's 1M path, driven through TsneComputation so that the
-    set-up, the iterations and the KL are separate stages; returns the
-    stages' wall seconds."""
+    set-up, the iterations and the KL are separate stages, on the exact
+    tier or the grid tier (forced at sizes where it is not the default);
+    returns the stages' wall seconds."""
     import torch
+    import chip_smoke
     import sph_tpu_torch as T
     from sph_tpu_torch.ops.knn import compute_knn
     from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
@@ -98,22 +87,26 @@ def run_large_path(stage_context, rows: int = 1000, cols: int = 1000,
         ("kl", tsne.kl_divergence))
     walls = {}
     # the exact tier: no grid above 32768 points, no dense P below (the
-    # small warm-up)
-    with _env(SPH_TSNE_GRID="0", SPH_TSNE_DENSE_P="0"):
+    # small warm-up); the grid tier is the default at 1M
+    switches = ({"SPH_TSNE_GRID": "0", "SPH_TSNE_DENSE_P": "0"}
+                if tier == "exact" else
+                {} if rows * cols > 32768 else {"SPH_TSNE_GRID": "1"})
+    with chip_smoke.env(**switches):
         for name, stage in stages:
             t = time.perf_counter()
             with stage_context(name):
                 stage()
                 torch.cuda.synchronize()
             walls[name] = time.perf_counter() - t
-    if tsne.tier != "exact":
+    if tsne.tier != tier:
         raise RuntimeError(f"the 1M path took the {tsne.tier} tier")
     return walls
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("pines", "large"), default="pines")
+    ap.add_argument("--path", choices=("pines", "large", "grid"),
+                    default="pines")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     args.out = args.out or os.path.join(
@@ -132,8 +125,13 @@ def main() -> int:
         run = run_main_path
         run(lambda name: contextlib.nullcontext())
     else:
-        run = run_large_path
-        run_large_path(lambda name: contextlib.nullcontext(), 64, 64, 2)
+        tier = "exact" if args.path == "large" else "grid"
+        iters = 10 if tier == "exact" else 50
+
+        def run(ctx, rows=1000, cols=1000, iters=iters):
+            return run_large_path(ctx, rows, cols, iters, tier)
+
+        run(lambda name: contextlib.nullcontext(), 64, 64, 2)
     profs = {}
 
     @contextlib.contextmanager

@@ -4,7 +4,7 @@ Superpixel hierarchies and t-SNE embeddings for high-dimensional images, for
 one NVIDIA H100, behind sph_tpu's public surface:
 
     ImageStack -> ComputeHierarchy{NearestNeighbors -> ImageHierarchy ->
-    LevelSimilarities} -> ComputeEmbedding{t-SNE}
+    LevelSimilarities} -> ComputeEmbedding{t-SNE | UMAP}
 
 The JAX package ``sph_tpu`` stays beside it as the reference each ported
 function is tested against.  This package imports torch and never jax.  Entry
@@ -29,6 +29,7 @@ from .models.image_hierarchy import ImageHierarchy
 from .models.level_similarities import LevelSimilarities
 from .models.nearest_neighbors import NearestNeighbors
 from .models.tsne import TsneComputation, TsneParameters
+from .models.umap import UmapComputation, UmapParameters
 from .ops.graph import KnnGraph, PaddedGraph
 from .ops.sparse import SparseRows
 
@@ -38,7 +39,7 @@ __all__ = [
     "ImageStack", "scale",
     "ComputeHierarchy", "ComputeEmbedding", "ComputeEmbeddingSettings",
     "NearestNeighbors", "ImageHierarchy", "LevelSimilarities", "Hierarchy",
-    "TsneComputation", "TsneParameters",
+    "TsneComputation", "TsneParameters", "UmapComputation", "UmapParameters",
     "KnnGraph", "PaddedGraph", "SparseRows",
     "CacheSettings", "ComponentSim", "EmbeddingInit",
     "ImageHierarchySettings", "ImportanceWeighting", "KnnIndex", "KnnMetric",

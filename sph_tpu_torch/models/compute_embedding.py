@@ -1,9 +1,9 @@
-"""ComputeEmbedding — the embedding facade (t-SNE path).
+"""ComputeEmbedding — the embedding facade (t-SNE and UMAP).
 
 Port of sph_tpu/models/compute_embedding.py (reference:
 sph/ComputeEmbedding.hpp:37-81 / .cpp — random disk init of radius 0.1 via
-polar sampling (:25-50), chunked t-SNE (:85-129), 1-point short-circuit
-(:69-74)).  UMAP is not ported yet.
+polar sampling (:25-50), chunked t-SNE (:85-129), UMAP (:131-174), 1-point
+short-circuit (:69-74)).
 
 ``compute_tsne`` keeps the wall seconds of its parts in ``seconds``: the
 set-up (P from a kNN graph, padding, the initial state), the iterations and
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -25,13 +25,15 @@ from ..ops.math import random_disk_init
 from ..ops.sparse import SparseRows
 from ..utils.logging import Log
 from .tsne import TsneComputation, TsneParameters
+from .umap import UmapComputation, UmapParameters
 
 
 @dataclass
 class ComputeEmbeddingSettings:
-    """Reference: ComputeEmbedding.hpp:25-29 (t-SNE part)."""
+    """Reference: ComputeEmbedding.hpp:25-29."""
 
     tsne: TsneParameters = field(default_factory=TsneParameters)
+    umap: UmapParameters = field(default_factory=UmapParameters)
     init_radius: float = 0.1
     seed: int = 0
 
@@ -47,7 +49,8 @@ class ComputeEmbedding:
         self.current_embedding: Optional[np.ndarray] = None
         self.last_kl: Optional[float] = None
         self.seconds: dict[str, float] = {}
-        self.last_computation: Optional[TsneComputation] = None
+        self.last_computation: Optional[Union[TsneComputation,
+                                              UmapComputation]] = None
 
     def init_embedding(self, num_points: int,
                        embedding: Optional[np.ndarray] = None):
@@ -69,9 +72,14 @@ class ComputeEmbedding:
         return t
 
     def compute_tsne(self, inp: Union[SparseRows, tuple],
-                     track_kl: bool = False) -> np.ndarray:
+                     track_kl: bool = False,
+                     progress: Optional[Callable[[TsneComputation], None]]
+                     = None) -> np.ndarray:
         """Reference: computeTSNE (:52-129).  `inp` is a symmetrized
-        probability SparseRows or an (indices, distances) kNN graph tuple."""
+        probability SparseRows or an (indices, distances) kNN graph tuple.
+        `progress`, when given, is called with the computation after the
+        set-up and after each chunk of iterations (the reference reports
+        progress per chunk); its time counts to the iterations."""
         tsne = TsneComputation(self.settings.tsne, device=self.device)
         if isinstance(inp, SparseRows):
             tsne.set_probability_distribution(inp)
@@ -98,10 +106,14 @@ class ComputeEmbedding:
         total = self.settings.tsne.num_iterations
         chunk = 50
         done = 0
+        if progress is not None:
+            progress(tsne)
         while done < total:
             step = min(chunk, total - done)
             tsne.continue_gradient_descent(step, verbose=False)
             done += step
+            if progress is not None:
+                progress(tsne)
         self.current_embedding = tsne.embedding
         t = self._lap("iterations", t)
         if track_kl:
@@ -111,8 +123,36 @@ class ComputeEmbedding:
         self._init_embedding = None
         return self.current_embedding
 
-    def compute_umap(self, inp):
-        raise NotImplementedError("UMAP not ported yet; see ROADMAP")
+    def compute_umap(self, inp: Union[SparseRows, tuple]) -> np.ndarray:
+        """Reference: computeUMAP (:131-174).  `inp` is a similarity
+        SparseRows (combined with the fuzzy union) or an (indices,
+        distances) kNN graph tuple.  Keeps the wall seconds of the set-up
+        and of the epochs in ``seconds`` and the computation in
+        ``last_computation``."""
+        umap = UmapComputation(self.settings.umap, device=self.device)
+        if isinstance(inp, SparseRows):
+            umap.set_neighbor_matrix(inp)
+            n = inp.num_rows
+        else:
+            umap.set_neighbor_graph(*inp)
+            n = inp[0].shape[0]
+        self.seconds = {}
+        self.last_computation = umap
+        if n == 1:
+            Log.info("ComputeEmbedding: only 1 point, not embedding")
+            self.current_embedding = np.zeros((1, 2), np.float32)
+            return self.current_embedding
+        if self._init_embedding is not None and len(
+                self._init_embedding) == n:
+            umap.set_initial_embedding(self._init_embedding)
+        t = time.perf_counter()
+        umap.init_optimization()       # memberships, layout, schedule
+        t = self._lap("set_up", t)
+        umap.run_for_epochs(umap.n_epochs)
+        self._lap("epochs", t)
+        self.current_embedding = umap.embedding
+        self._init_embedding = None
+        return self.current_embedding
 
     def get_embedding(self) -> np.ndarray:
         return self.current_embedding

@@ -143,7 +143,7 @@ class ImageHierarchy:
         probs = distance_rows_to_probabilities(
             torch.as_tensor(np.asarray(knn_dist, np.float32), device=dev),
             mask_t, self._ihs.norm_knn_distances, perplexity=-1.0,
-            ignore_first=True)
+            ignore_first=True, umap_row_norm=True)
         idx_t = torch.as_tensor(np.asarray(knn_idx, np.int64), device=dev)
         self.data_level_probdist = SparseRows(
             torch.where(mask_t, idx_t, -1), probs, n)

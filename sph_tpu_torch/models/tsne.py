@@ -1,4 +1,4 @@
-"""t-SNE gradient descent: the dense-P tier and the exact sparse-P tier.
+"""t-SNE gradient descent: the dense-P, exact sparse-P and grid tiers.
 
 Port of sph_tpu/models/tsne.py (reference: sph/EmbedTsne.cpp — HDILib's
 gradient descent with exaggeration factor clamp(4 + N/60000, 4, 20),
@@ -15,8 +15,16 @@ switches read at the same moment:
 - exact: the sparse attraction gathered over P's support
   (``attractive_forces``) plus the exact all-pairs repulsion
   (``tsne_repulsion``);
-- grid: the grid-interpolated repulsion, the default above 32768 points;
-  not ported yet.
+- grid: the sparse attraction plus the grid-interpolated repulsion
+  (ops/tsne_grid.py), the default above 32768 points.  P is cut to 64
+  entries a row (``SPH_TSNE_GRID_P_WIDTH``), and the grid size is picked
+  from the layout's span once per dispatch chunk of
+  ``DISPATCH_BUDGET // Npad`` iterations, where the JAX package picks it.
+
+The attraction always gathers both coordinates in float32.  The JAX
+package's grid tier packs them into u16 fixed point by default
+(``SPH_TSNE_ATTR_PACKED``, a TPU gather workaround and less exact); that
+gather is not ported, and an explicit ``SPH_TSNE_ATTR_PACKED=1`` raises.
 
 The kernels (ops/tsne_kernels.py) run on the card for a tensor there and
 their plain twins for one on the CPU.  The iterations are a Python loop of
@@ -36,6 +44,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.sparse import SparseRows, topk_rows
+from ..ops.tsne_grid import grid_repulsion, pick_grid_size
 from ..ops.tsne_kernels import tsne_forces_dense, tsne_repulsion
 from ..utils.logging import Log
 
@@ -43,6 +52,12 @@ from ..utils.logging import Log
 DENSE_P_MAX = 32768      # SPH_TSNE_DENSE_P_MAX
 GRID_MIN = 32768         # SPH_TSNE_GRID_MIN
 P_WIDTH_CAP = 1024       # SPH_TSNE_P_WIDTH_CAP
+GRID_P_WIDTH = 64        # SPH_TSNE_GRID_P_WIDTH
+GRID_MAX = 1024          # SPH_TSNE_GRID_MAX
+# row-iterations per device program in the JAX package
+# (SPH_TSNE_DISPATCH_BUDGET); on the grid tier it sets how often the grid
+# size is picked again
+DISPATCH_BUDGET = 1 << 24
 SPARSE_BLOCK = 512       # TsneComputation(block=512): the exact tier's padding
 # gathered entries over P's support up to which the attraction takes all
 # rows at once, and the size of each row piece above it (the JAX package's
@@ -172,15 +187,19 @@ def repulsive_forces(y: torch.Tensor, n_valid: int, block: int = 1024):
 
 
 def tsne_kl_divergence(y: torch.Tensor, p_idx: torch.Tensor,
-                       p_val: torch.Tensor, n_valid: int) -> torch.Tensor:
+                       p_val: torch.Tensor, n_valid: int,
+                       grid: int = 0) -> torch.Tensor:
     """KL(P || Q) over P's off-diagonal support: sum p log(p / q), q = w/Z,
     with P renormalized over that support (Q gives i == j no mass).
 
-    Z comes from the ``tsne_repulsion`` kernel on the card and from
-    ``repulsive_forces``, the counterpart of the JAX package's XLA
-    repulsion, on the CPU.  The support is visited in the row pieces of
-    ``attractive_forces``."""
-    if y.device.type == "cpu":
+    grid > 0 (the grid tier) takes Z from ``grid_repulsion`` with that many
+    nodes, as the JAX package does.  Otherwise Z comes from the
+    ``tsne_repulsion`` kernel on the card and from ``repulsive_forces``,
+    the counterpart of the JAX package's XLA repulsion, on the CPU.  The
+    support is visited in the row pieces of ``attractive_forces``."""
+    if grid > 0:
+        _, z = grid_repulsion(y, n_valid, grid)
+    elif y.device.type == "cpu":
         _, z = repulsive_forces(y, n_valid)
     else:
         _, z = tsne_repulsion(y, n_valid)
@@ -282,10 +301,6 @@ class TsneComputation:
     def _init_gradient_descent(self):
         n = self._n
         tier = select_tier(n)
-        if tier == "grid":
-            raise NotImplementedError(
-                f"t-SNE for N = {n}: grid tier not ported yet; see ROADMAP "
-                "(SPH_TSNE_GRID=0 takes the exact tier)")
         if os.environ.get("SPH_TSNE_ATTR_PACKED") == "1":
             raise NotImplementedError(
                 "the u16-packed attraction gather is not ported; see ROADMAP")
@@ -304,6 +319,19 @@ class TsneComputation:
             kept = float(p.row_sums().sum()) / max(mass, 1e-12)
             Log.info("t-SNE: P width capped to %d (%.4f%% of mass kept)",
                      cap, 100.0 * kept)
+        self._grid = 0
+        self.grid_history: list[tuple[int, int]] = []
+        if tier == "grid":
+            Log.info("t-SNE: grid-interpolated repulsion (N=%d)", n)
+            # the attraction's gathers dominate this tier: a harder cap
+            gcap = int(os.environ.get("SPH_TSNE_GRID_P_WIDTH",
+                                      str(GRID_P_WIDTH)))
+            if gcap > 0 and p.width > gcap:
+                before = float(p.row_sums().sum())
+                p = topk_rows(p, gcap)
+                kept = float(p.row_sums().sum()) / max(before, 1e-12)
+                Log.info("t-SNE grid tier: P width %d (%.2f%% mass kept)",
+                         gcap, 100.0 * kept)
         self.params.exaggeration_factor = default_exaggeration(n)
         Log.info("t-SNE: exaggeration %.2f for %d iters, decay over %d",
                  self.params.exaggeration_factor,
@@ -362,11 +390,43 @@ class TsneComputation:
             return
         if not self._initialized:
             self._init_gradient_descent()
-        for _ in range(iterations):
-            self._step()
+        # the grid tier picks its size afresh for each dispatch chunk, at the
+        # iterations where the JAX package starts a device program
+        chunk = (max(1, DISPATCH_BUDGET // self._npad) if self.tier == "grid"
+                 else iterations)
+        for start in range(0, iterations, chunk):
+            if self.tier == "grid":
+                self._grid = self._current_grid()
+                self.grid_history.append((self._iteration, self._grid))
+            for _ in range(min(chunk, iterations - start)):
+                self._step()
+
+    def _current_grid(self) -> int:
+        """Grid nodes per dim for the next chunk (JAX: _current_grid): the
+        span of the current layout (pad rows included) x 1.3, at least 1,
+        with room for growth during the chunk."""
+        y = self._y
+        span = float((y.amax(0) - y.amin(0)).max())
+        max_g = int(os.environ.get("SPH_TSNE_GRID_MAX", str(GRID_MAX)))
+        return pick_grid_size(max(span, 1.0) * 1.3, max_g=max_g)
 
     def _step(self):
         """One iteration (JAX: the body of tsne_iterations, :226-272)."""
+        self._update(*self._forces())
+
+    def _forces(self):
+        """(attraction, repulsion, Z) at the current layout, on the tier."""
+        if self.tier == "dense":
+            return tsne_forces_dense(self._y, self._p_dense, self._n)
+        attr = attractive_forces(self._y, self._p_idx, self._p_val)
+        if self.tier == "grid":
+            return (attr, *grid_repulsion(self._y, self._n, self._grid))
+        return (attr, *tsne_repulsion(self._y, self._n))
+
+    def _update(self, attr: torch.Tensor, rep: torch.Tensor,
+                z: torch.Tensor):
+        """The gradient step with gains and momentum, pad rows kept at 0
+        and the layout re-centred."""
         prm = self.params
         it = float(self._iteration)
         decay = math.exp(-4.6 * max(it - prm.remove_exaggeration_iter, 0.0)
@@ -375,12 +435,6 @@ class TsneComputation:
             1.0 if it < prm.remove_exaggeration_iter else decay)
         momentum = (prm.momentum if it < prm.mom_switching_iter
                     else prm.final_momentum)
-
-        if self.tier == "dense":
-            attr, rep, z = tsne_forces_dense(self._y, self._p_dense, self._n)
-        else:
-            attr = attractive_forces(self._y, self._p_idx, self._p_val)
-            rep, z = tsne_repulsion(self._y, self._n)
         grad = 4.0 * (exag * attr - rep / torch.clamp(z, min=1e-12))
         same_sign = torch.sign(grad) == torch.sign(self._vel)
         gain = torch.where(same_sign, self._gain * 0.8, self._gain + 0.2)
@@ -412,5 +466,6 @@ class TsneComputation:
     def kl_divergence(self) -> float:
         if self._n <= 1:
             return 0.0
+        grid = self._current_grid() if self.tier == "grid" else 0
         return float(tsne_kl_divergence(self._y, self._p_idx, self._p_val,
-                                        self._n))
+                                        self._n, grid))

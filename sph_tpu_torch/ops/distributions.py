@@ -1,8 +1,10 @@
-"""Distance -> probability kernels (the Gaussian / t-SNE scheme).
+"""Distance -> probability kernels (the Gaussian / t-SNE and the UMAP
+schemes).
 
 Port of sph_tpu/ops/distributions.py (reference: sph/utils/GraphNormalization
 .cpp — Gaussian rows with the perplexity beta search and tiny-sigma
-fallbacks, :38-338; the search itself is HDILibHelper.hpp:23-109).
+fallbacks, :38-338; the search itself is HDILibHelper.hpp:23-109; UMAP's
+smooth-knn memberships, :413-593).
 
 The per-row binary search runs on all rows at once, one [N, K] step per
 iteration, until every row has met the entropy tolerance or stopped moving
@@ -10,10 +12,12 @@ iteration, until every row has met the entropy tolerance or stopped moving
 
 Row layout: ``values [N, K]`` with a parallel ``mask [N, K]`` (True = valid
 entry), both tensors on one device.  ``ignore_first=True`` excludes column 0
-(the self edge).  The UMAP and LINEAR schemes are not ported yet.
+(the self edge).  The LINEAR scheme is not ported yet.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -136,18 +140,82 @@ def gaussian_row_distributions(values: torch.Tensor, mask: torch.Tensor,
     return torch.where(single[:, None] & eff_mask, 1.0, prob)
 
 
+# XLA compiles jnp.log2's log(x) / log(2) as log(x) times this constant
+_INV_LN2 = _f32(1.0 / _f32(math.log(2.0)))
+_SIGMA_STEPS = 64      # the bisection's fixed length in the JAX package
+
+
+def smooth_knn_distributions(values: torch.Tensor, mask: torch.Tensor,
+                             sum_width: int = 0) -> torch.Tensor:
+    """UMAP's exponential kernel (reference: computeExponentialDistributions
+    wrapping umappp::neighbor_similarities, GraphNormalization.cpp:413-593),
+    at umappp's local connectivity 1 and bandwidth 1.
+
+    Per row, rho = the distance to the nearest neighbour at a nonzero
+    distance (0 when there is none), then 64 bisection steps for the sigma
+    with sum_j exp(-max(0, d_j - rho) / sigma) = log2(k), k the row's valid
+    entries; sigma is floored at 1e-3 of the row's mean distance.  Returns
+    similarities in (0, 1], not row-normalized.  Sums, exp and log follow
+    XLA-CPU (ops/numerics.py); sum_width is the row width the JAX package's
+    caller sums over (0: the rows' own width).
+    """
+    n = values.shape[0]
+    dev = values.device
+    width = sum_width or values.shape[1]
+    values = values.to(torch.float32)
+    counts = mask.sum(1).to(torch.float32)
+    rho = torch.where(mask & (values > 0), values, torch.inf).amin(1)
+    rho = torch.where(torch.isfinite(rho), rho, 0.0)
+    target = log(torch.clamp(counts, min=2.0)) * _INV_LN2
+    d = torch.clamp(values - rho[:, None], min=0.0)
+
+    sigma = torch.ones(n, dtype=torch.float32, device=dev)
+    lo = torch.zeros(n, dtype=torch.float32, device=dev)
+    hi = torch.full((n,), torch.inf, dtype=torch.float32, device=dev)
+    for _ in range(_SIGMA_STEPS):
+        cur = row_sum(torch.where(mask, exp(-d / sigma[:, None]), 0.0),
+                      width)
+        too_big = cur > target
+        new_sigma = torch.where(
+            too_big, (sigma + lo) / 2.0,
+            torch.where(torch.isinf(hi), sigma * 2.0, (sigma + hi) / 2.0))
+        hi = torch.where(too_big, sigma, hi)
+        lo = torch.where(too_big, lo, sigma)
+        sigma = new_sigma
+
+    mean_d = (row_sum(torch.where(mask, values, 0.0), width)
+              / torch.clamp(counts, min=1.0))
+    sigma = torch.maximum(sigma, _f32(1e-3) * torch.clamp(mean_d, min=1e-12))
+    return torch.where(mask, exp(-d / sigma[:, None]), 0.0)
+
+
 def distance_rows_to_probabilities(values: torch.Tensor, mask: torch.Tensor,
                                    scheme: NormalizationScheme,
                                    perplexity: float = -1.0,
-                                   ignore_first: bool = True
+                                   ignore_first: bool = True,
+                                   umap_row_norm: bool = False
                                    ) -> torch.Tensor:
     """The distance-rows -> probability-rows dispatcher (reference:
-    normalizeKnnDistances, GraphNormalization.hpp:36-53)."""
-    if scheme != NormalizationScheme.TSNE:
+    normalizeKnnDistances, GraphNormalization.hpp:36-53): TSNE gives
+    Gaussian-perplexity rows, UMAP smooth-knn memberships (row-normalized
+    when umap_row_norm, as for the random-walk sampler)."""
+    if scheme == NormalizationScheme.TSNE:
+        return gaussian_row_distributions(values, mask, perplexity,
+                                          ignore_first=ignore_first)
+    if scheme != NormalizationScheme.UMAP:
         raise NotImplementedError(
             f"normalization {scheme.value} not ported yet; see ROADMAP")
-    return gaussian_row_distributions(values, mask, perplexity,
-                                      ignore_first=ignore_first)
+    m2 = mask.clone()
+    if ignore_first:
+        m2[:, 0] = False
+    # the JAX package runs these rows at a power-of-two width of at least 32
+    k = values.shape[1]
+    p = smooth_knn_distributions(values, m2,
+                                 sum_width=max(32, 1 << (k - 1).bit_length()))
+    if umap_row_norm:
+        s = p.sum(1, keepdim=True)
+        p = torch.where(s > 0, p / torch.clamp(s, min=1e-12), 0.0)
+    return p
 
 
 def normalize_knn_distances(distances: np.ndarray,

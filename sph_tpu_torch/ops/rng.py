@@ -1,14 +1,17 @@
 """Counter-based threefry2x32, bit-exact with jax's default PRNG.
 
 The random walks (ops/walks.py) draw ``jax.random.uniform(fold_in(PRNGKey(
-seed), t), (n,))`` in the JAX package, with ``jax_threefry_partitionable``
-on (the default since jax 0.5).  Without the same bits the walks, and so the
-whole hierarchy, diverge from the first Borůvka step.  This module rebuilds
-those draws (jax/_src/prng.py: threefry2x32 lowering, ``threefry_fold_in``,
-``_threefry_random_bits_partitionable`` and ``random.uniform``):
+seed), t), (n,))`` in the JAX package, and UMAP's rows tier its negatives
+with ``jax.random.randint``, with ``jax_threefry_partitionable`` on (the
+default since jax 0.5).  Without the same bits the walks, and so the whole
+hierarchy, diverge from the first Borůvka step.  This module rebuilds those
+draws (jax/_src/prng.py: threefry2x32 lowering, ``threefry_fold_in``,
+``_threefry_split_foldlike``, ``_threefry_random_bits_partitionable``;
+jax/_src/random.py: ``uniform``, ``_randint``):
 
 - ``PRNGKey(s)`` is the pair ``(s >> 32, s & 0xFFFFFFFF)``;
-- ``fold_in(k, t)`` is ``threefry2x32(k, (0, t))``;
+- ``fold_in(k, t)`` is ``threefry2x32(k, (0, t))``, and key i of
+  ``split(k)`` is ``threefry2x32(k, (0, i))``;
 - bits for shape (n,) are ``threefry2x32(k, (hi(i), lo(i)))`` over the flat
   index i, combined as ``bits1 ^ bits2``;
 - uniform is ``float32((bits >> 9) | 0x3F800000) - 1``.
@@ -19,6 +22,8 @@ ints; the same code runs on Python ints and on tensors.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -56,12 +61,35 @@ def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
     return threefry2x32(key, 0, data & _M32)
 
 
+def split(key: tuple[int, int], num: int = 2) -> list[tuple[int, int]]:
+    """jax.random.split(key, num): key i is threefry2x32(key, (0, i))."""
+    return [threefry2x32(key, 0, i) for i in range(num)]
+
+
 def random_bits(key: tuple[int, int], n: int,
                 device: torch.device) -> torch.Tensor:
-    """32 random bits per element for shape (n,), as int64 in [0, 2^32)."""
+    """32 random bits per element for shape (n,) (or any shape of n
+    elements, flat in row-major order), as int64 in [0, 2^32)."""
     i = torch.arange(n, dtype=torch.int64, device=device)
     b0, b1 = threefry2x32(key, i >> 32, i & _M32)
     return b0 ^ b1
+
+
+def randint(key: tuple[int, int], shape: tuple[int, ...], minval: int,
+            maxval: int, device: torch.device) -> torch.Tensor:
+    """jax.random.randint(key, shape, minval, maxval) for int32 values
+    (jax/_src/random.py _randint): two words of bits from the halves of
+    split(key), folded into the span with uint32 arithmetic that wraps.
+    Returns int64 values in [minval, maxval)."""
+    n = math.prod(shape)
+    k1, k2 = split(key)
+    higher = random_bits(k1, n, device)
+    lower = random_bits(k2, n, device)
+    span = (maxval - minval) & _M32 if maxval > minval else 1
+    multiplier = (1 << 16) % span
+    multiplier = ((multiplier * multiplier) & _M32) % span
+    offset = ((higher % span) * multiplier + lower % span) & _M32
+    return (minval + offset % span).reshape(shape)
 
 
 def uniform(key: tuple[int, int], n: int,

@@ -392,3 +392,29 @@ def symmetrize_tsne(sr: SparseRows, max_width: Optional[int] = None
     sums = torch.zeros(uniq.numel(), dtype=torch.float32, device=sr.device)
     sums.index_add_(0, inv, torch.cat([vals, vals]))
     return pack_coo(uniq // n, uniq % n, sums * 0.5, n, n, max_width)
+
+
+def symmetrize_umap(sr: SparseRows) -> SparseRows:
+    """The fuzzy union p + p^T - p * p^T elementwise on the union support,
+    rows ascending by column (reference: symmetrizeUMAP,
+    HDILibHelper.hpp:282-302), each entry as (a + b) - a * b in float32
+    with a = p_ij and b = p_ji (0 where absent), as the JAX package's
+    scipy sums give it."""
+    n = sr.num_rows
+    assert sr.num_cols == n, "symmetrize_umap needs a square matrix"
+    rows, cols, vals = _live_coo(sr)
+    fwd, order = torch.sort(rows * n + cols)
+    vals = vals[order]
+    keys = torch.unique(torch.cat([fwd, cols * n + rows]), sorted=True)
+
+    def value_at(k: torch.Tensor) -> torch.Tensor:
+        if fwd.numel() == 0:
+            return torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        pos = torch.searchsorted(fwd, k).clamp_(max=fwd.numel() - 1)
+        return torch.where(fwd[pos] == k, vals[pos], 0.0)
+
+    a = value_at(keys)
+    b = value_at((keys % n) * n + keys // n)
+    out = (a + b) - a * b
+    keep = out != 0
+    return pack_coo(keys[keep] // n, keys[keep] % n, out[keep], n, n)

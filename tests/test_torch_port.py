@@ -24,7 +24,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_leaves_jax_out():
     code = ("import sys, sph_tpu_torch, sph_tpu_torch.interop, "
-            "sph_tpu_torch.ops.tsne_kernels; "
+            "sph_tpu_torch.ops.tsne_kernels, sph_tpu_torch.ops.tsne_grid, "
+            "sph_tpu_torch.models.umap; "
             "sys.exit(1 if any(m == 'jax' or m.startswith('jax.') "
             "or m.startswith('sph_tpu.') or m == 'sph_tpu' "
             "for m in sys.modules) else 0)")

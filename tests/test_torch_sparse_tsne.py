@@ -259,13 +259,16 @@ def test_tier_choice_matches_jax(clean_env, n, env):
 
 
 def test_grid_tier_raises_and_grid_off_takes_the_exact_tier(clean_env):
+    """Above 32768 points the default is the grid tier (it raised until it
+    was ported); SPH_TSNE_GRID=0 takes the exact tier."""
     n = ttsne.DENSE_P_MAX + 1
     idx = np.stack([np.arange(n), (np.arange(n) + 1) % n], 1)
     p = T.SparseRows(idx, np.full((n, 2), 0.5, np.float32), n, device="cpu")
     tt = ttsne.TsneComputation(device="cpu")
     tt.set_probability_distribution(p)
-    with pytest.raises(NotImplementedError, match="grid"):
-        tt.compute(1)
+    tt.compute(1)
+    assert tt.tier == "grid" and tt.grid_history == [(0, 128)]
+    assert tt._npad == ttsne.sparse_npad(n) and tt._p_dense is None
     clean_env.setenv("SPH_TSNE_GRID", "0")
     tt._init_gradient_descent()
     assert tt.tier == "exact" and tt._npad == ttsne.sparse_npad(n)

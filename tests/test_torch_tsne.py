@@ -127,11 +127,13 @@ def test_compute_embedding_chunks_and_kl():
 
 
 def test_unported_tiers_raise(monkeypatch):
-    """A kNN graph is taken now; above 32768 points the default tier is
-    the grid, which raises, and SPH_TSNE_GRID=0 takes the exact tier.  UMAP
-    still raises."""
+    """A kNN graph is taken; above 32768 points the default tier is the
+    grid, SPH_TSNE_GRID=0 takes the exact tier, and compute_umap runs (the
+    grid tier and UMAP raised until they were ported).  What still raises:
+    the u16-packed gathers and the UMAP edge-list tier."""
     for name in ("SPH_TSNE_GRID", "SPH_TSNE_DENSE_P", "SPH_TSNE_GRID_MIN",
-                 "SPH_TSNE_DENSE_P_MAX"):
+                 "SPH_TSNE_DENSE_P_MAX", "SPH_TSNE_ATTR_PACKED",
+                 "SPH_UMAP_EDGE_PATH", "SPH_UMAP_PACKED"):
         monkeypatch.delenv(name, raising=False)
     tt = ttsne.TsneComputation(device="cpu")
     tt.set_neighbor_graph(np.array([[0, 1], [1, 0], [2, 1], [3, 2]],
@@ -143,10 +145,22 @@ def test_unported_tiers_raise(monkeypatch):
                        np.ones((ttsne.DENSE_P_MAX + 1, 1), np.float32),
                        ttsne.DENSE_P_MAX + 1, device="cpu")
     tt.set_probability_distribution(big)
-    with pytest.raises(NotImplementedError, match="grid tier"):
-        tt.compute(1)
+    tt._init_gradient_descent()
+    assert tt.tier == "grid"
     monkeypatch.setenv("SPH_TSNE_GRID", "0")
     tt._init_gradient_descent()
     assert tt.tier == "exact"
-    with pytest.raises(NotImplementedError, match="UMAP"):
-        T.ComputeEmbedding(device="cpu").compute_umap(big)
+    monkeypatch.setenv("SPH_TSNE_ATTR_PACKED", "1")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tt._init_gradient_descent()
+    p = _joint_p(n=40, k=6)
+    small = T.SparseRows(p.indices, p.values, 40, device="cpu")
+    es = T.ComputeEmbeddingSettings()
+    es.umap.num_epochs = 5
+    assert T.ComputeEmbedding(es, device="cpu").compute_umap(small).shape == (
+        40, 2)
+    for name in ("SPH_UMAP_EDGE_PATH", "SPH_UMAP_PACKED"):
+        monkeypatch.setenv(name, "1")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            T.ComputeEmbedding(es, device="cpu").compute_umap(small)
+        monkeypatch.delenv(name)
