@@ -12,8 +12,9 @@ Phases, each printing one JSON line, and each raising on failure:
 3. kernel_vs_twin — each kernel against its plain PyTorch twin on the card
    at the paths' shapes, with the time per call of both (CUDA events):
    tsne_forces_dense at the Pines level-1 shapes, tsne_repulsion at
-   (n, Npad) = (1000, 1024) and (65536, 65536) in full and at
-   (1000000, 1000448) on 4096 sampled rows.
+   (n, Npad) = (1000, 1024), (5358, 6144) (the Pines KL's) and
+   (65536, 65536) in full and at (1000000, 1000448) on 4096 sampled rows,
+   two calls bit-equal, its launch plan and its SFU floor.
 4. main    — the Pines configuration of bench.py:89-136 at 145x145x200
    through ComputeHierarchy(device="cuda") and 2000 level-1 t-SNE
    iterations through ComputeEmbedding(device="cuda"), counting kernel
@@ -73,6 +74,12 @@ GRID_KL_AT = (0, 250, 1000)
 MID_ITERS = 1000           # 65536 points: the reference's schedule below 100k
 Z_GAP_MAX = 1e-3           # grid Z against the exact Z at 1M, relative
 KL_RATIO_MAX = 1.001       # 65536 points: KL_grid / KL_exact
+# tsne_repulsion against its twin: (n, Npad, calls timed, twin calls timed,
+# sampled rows); the Pines KL's shape, grid_vs_exact's, the 1M path's
+REPULSION_SHAPES = ((1000, 1024, 200, 100, False),
+                    (5358, 6144, 200, 20, False),
+                    (65536, 65536, 100, 5, False),
+                    (1_000_000, 1_000_448, 20, 0, True))
 UMAP_TRUST_SLACK = 0.99    # Pines UMAP trustworthiness vs the JAX-CPU record
 # the switches of the t-SNE tier choice, all unset for the default path
 TSNE_SWITCHES = ("SPH_TSNE_DENSE_P", "SPH_TSNE_DENSE_P_MAX", "SPH_TSNE_GRID",
@@ -86,9 +93,11 @@ DEV = "cuda"               # the helpers' device; "cpu" rehearses them small
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 # float32 operations a pair (a fused multiply-add counts two, the
-# reciprocal one): dx, dy 2; d^2 3; 1 + d^2 1; 1/d 1; w^2 1; the sums
-# z, s2 2 and ax, ay 4 -> 14; the dense pass adds p w 1, its sum 1 and
-# two more multiply-adds 4 -> 20
+# reciprocal one), counted on the TPU kernel's s2 form, which is the
+# yardstick kept for comparing versions: dx, dy 2; d^2 3; 1 + d^2 1; 1/d 1;
+# w^2 1; the sums z, s2 2 and ax, ay 4 -> 14 (the CUDA kernel's direct form
+# needs 13); the dense pass adds p w 1, its sum 1 and two more
+# multiply-adds 4 -> 20
 REPULSION_FLOPS_PER_PAIR = 14
 FORCES_FLOPS_PER_PAIR = 20
 
@@ -115,6 +124,12 @@ def repulsion_bound(n: int, npad: int) -> dict:
     return bound(8 * npad + 12 * npad, REPULSION_FLOPS_PER_PAIR * n * n)
 
 
+def sfu_floor_ms(n: int, sms: int, clock_hz: float) -> float:
+    """tsne_repulsion's floor beside its operations bound: its reciprocals,
+    one a pair, at 16 a clock on each of `sms` SMs at `clock_hz`."""
+    return float(n) * n / (16 * sms * clock_hz) * 1e3
+
+
 def sync() -> None:
     import torch
     if DEV == "cuda":
@@ -125,12 +140,21 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi(query: str, units: bool = True) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}",
+         "--format=csv,noheader" + ("" if units else ",nounits")],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def nvidia_smi_line() -> str:
+    return nvidia_smi("name,power.limit")
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reads it."""
+    return float(nvidia_smi("clocks.max.sm", units=False)) * 1e6
 
 
 def cuda_ms(fn, calls: int, warmup: int = 10) -> float:
@@ -220,26 +244,36 @@ def sample_ranges(npad: int, count: int = 4, width: int = 1024):
 
 
 def check_repulsion_kernel(y, n: int, calls: int = 0, twin_calls: int = 0,
-                           sampled: bool = False) -> dict:
+                           sampled: bool = False,
+                           clock_hz: float | None = None) -> dict:
     """tsne_repulsion against its twin on the card, in full or on sampled
-    rows; raises on disagreement.  calls > 0 also times the kernel (and
-    twin_calls > 0 the full twin) with CUDA events."""
+    rows, and two calls bit-equal; raises on disagreement.  calls > 0 also
+    times the kernel with CUDA events and gives its SFU floor at the card's
+    SM count and `clock_hz` (twin_calls > 0 times the full twin)."""
     import torch
-    from sph_tpu_torch.ops.tsne_kernels import (tsne_repulsion_reference,
+    from sph_tpu_torch.ops.tsne_kernels import (REPULSION_TILE,
+                                                repulsion_plan,
+                                                tsne_repulsion_reference,
                                                 tsne_repulsion_rows)
     npad = y.shape[0]
+    sms = (torch.cuda.get_device_properties(0).multi_processor_count
+           if DEV == "cuda" else 132)
+    plan = repulsion_plan(n, sms)
     rep, zrow = tsne_repulsion_rows(y, n)
+    rep2, zrow2 = tsne_repulsion_rows(y, n)
     if sampled:
         ranges = sample_ranges(npad)
     else:
         ranges = [(0, npad)]
     refs = [tsne_repulsion_reference(y, n, rows=r) for r in ranges]
     sync()
+    name = f"tsne_repulsion n={n} npad={npad}"
+    if not (torch.equal(rep, rep2) and torch.equal(zrow, zrow2)):
+        raise AssertionError(f"{name}: two calls differ")
     got_rep = torch.cat([rep[a:b] for a, b in ranges])
     got_z = torch.cat([zrow[a:b] for a, b in ranges])
     ref_rep = torch.cat([r for r, _ in refs])
     ref_z = torch.cat([z for _, z in refs])
-    name = f"tsne_repulsion n={n} npad={npad}"
     scale = float(ref_rep.abs().max())
     err = float((got_rep - ref_rep).abs().max())
     if not err <= 1e-5 * scale:
@@ -251,10 +285,12 @@ def check_repulsion_kernel(y, n: int, calls: int = 0, twin_calls: int = 0,
     if bool((rep[n:] != 0).any()) or bool((zrow[n:] != 0).any()):
         raise AssertionError(f"{name}: pad rows are not 0")
     out = {"n": n, "npad": npad, "max_abs_err": err,
-           "rows_checked": sum(b - a for a, b in ranges)}
-    if sampled:
-        out["zrow_rel_err"] = z_rel
-    else:
+           "rep_err_over_max": err / scale, "zrow_rel_err": z_rel,
+           "rows_checked": sum(b - a for a, b in ranges),
+           "bits_equal_across_calls": True,
+           "plan": {"tile": REPULSION_TILE, "splits": plan.splits,
+                    "split_cols": plan.split_cols, "blocks": plan.blocks}}
+    if not sampled:
         z, z_ref = float(zrow.sum()), float(ref_z.double().sum())
         out["z_rel_err"] = abs(z - z_ref) / z_ref
         if not out["z_rel_err"] <= 1e-5:
@@ -263,6 +299,8 @@ def check_repulsion_kernel(y, n: int, calls: int = 0, twin_calls: int = 0,
         out["ms"] = cuda_ms(lambda: tsne_repulsion_rows(y, n), calls,
                             warmup=min(10, calls // 10))
         out["calls_timed"] = calls
+        out["sfu_floor_ms"] = sfu_floor_ms(n, sms, clock_hz)
+        out["sms"], out["sm_clock_hz"] = sms, clock_hz
     if twin_calls:
         out["plain_ms"] = cuda_ms(lambda: tsne_repulsion_reference(y, n),
                                   twin_calls, warmup=1)
@@ -735,14 +773,12 @@ def main() -> int:
     for c in checks:
         emit({"phase": "kernel_vs_twin", "kernel": "tsne_forces_dense", **c})
 
+    clock_hz = sm_clock_hz()
     rep_checks = []
-    for n, npad, calls, twin_calls, sampled in (
-            (1000, 1024, 200, 100, False),
-            (65536, 65536, 100, 5, False),
-            (1_000_000, 1_000_448, 20, 0, True)):
+    for n, npad, calls, twin_calls, sampled in REPULSION_SHAPES:
         y = torch.from_numpy(repulsion_layout(n, npad, seed=n)).cuda()
-        rep_checks.append(check_repulsion_kernel(y, n, calls, twin_calls,
-                                                 sampled))
+        rep_checks.append(check_repulsion_kernel(
+            y, n, calls, twin_calls, sampled, clock_hz))
         del y
         emit({"phase": "kernel_vs_twin", "kernel": "tsne_repulsion",
               **rep_checks[-1], **({} if twin_calls else {
@@ -773,13 +809,14 @@ def main() -> int:
     torch.cuda.synchronize()
     seconds["tsne"] = time.perf_counter() - t
     launches = tsne_kernels.tsne_forces_dense.launches
+    main_rep_launches = tsne_kernels.tsne_repulsion.launches
     kl = float(ce.last_kl)
     emit({"phase": "main", "levels": levels, "level_1_kl": kl,
           "seconds": seconds, "tsne_iterations": iters,
           "tsne_iters_per_s": iters / seconds["tsne"],
           "tsne_tier": ce.last_computation.tier,
           "tsne_forces_dense_launches": launches,
-          "tsne_repulsion_launches": tsne_kernels.tsne_repulsion.launches})
+          "tsne_repulsion_launches": main_rep_launches})
 
     # the kernel once more at the level-1 size the main path just gave it
     from sph_tpu_torch.models.tsne import dense_npad
@@ -822,6 +859,9 @@ def main() -> int:
     if launches < iters:
         raise AssertionError(f"tsne_forces_dense launched {launches} times "
                              f"in {iters} iterations")
+    if main_rep_launches < 1:
+        raise AssertionError("tsne_repulsion did not give the level-1 KL "
+                             "its Z")
     with open(os.path.join(REPO, "docs", "anchors_pines.json")) as f:
         anchor = json.load(f)["kl_under_p_sklearn_bh"]
     if not kl <= KL_SLACK * anchor:
@@ -884,7 +924,9 @@ def main() -> int:
     # the default tier (grid) at the reference's depth
     grid = grid_path(tsne_kernels, graph, GRID_ITERS, GRID_KL_AT)
     gcomp = grid["ce"].last_computation
+    zero_launches(tsne_kernels)
     gap = z_gap(gcomp)
+    gap["launches"] = read_launches(tsne_kernels)
     split = grid_split(gcomp)
     repeat = scatter_repeatability(gcomp)
     kls = grid["kls"]
@@ -909,6 +951,9 @@ def main() -> int:
     if not kls[GRID_ITERS] < kls[0]:
         raise AssertionError(f"grid tier: KL {kls[GRID_ITERS]} not below "
                              f"iteration 0's {kls[0]}")
+    if gap["launches"]["tsne_repulsion"] != 1:
+        raise AssertionError("the exact Z at 1M did not come from "
+                             "tsne_repulsion")
     if not gap["z_rel_gap"] <= Z_GAP_MAX:
         raise AssertionError(f"grid Z {gap['z_grid']} vs exact "
                              f"{gap['z_exact']}: gap {gap['z_rel_gap']}")
@@ -991,8 +1036,8 @@ def main() -> int:
                              f"{KL_RATIO_MAX} at 65536 points")
 
     main_shape = checks[-1]
-    rep_full = rep_checks[1]            # the largest shape timed in full
-    rep_1m = rep_checks[2]
+    rep_main = rep_checks[1]            # the Pines KL's shape
+    rep_timed = rep_checks[:len(REPULSION_SHAPES)]
     emit({"kernels": [{
         "name": "tsne_forces_dense", "route": "cuda",
         "source": "sph_tpu_torch/csrc/tsne_forces_dense.cu",
@@ -1006,15 +1051,28 @@ def main() -> int:
         "name": "tsne_repulsion", "route": "cuda",
         "source": "sph_tpu_torch/csrc/tsne_repulsion.cu",
         "replaces": "sph_tpu/ops/pallas/tsne_kernels.py:80",
-        "launches": large_launches["tsne_repulsion"],
+        "launches": main_rep_launches,
         "max_abs_err": max(c["max_abs_err"] for c in rep_checks),
-        "ms": rep_full["ms"], "plain_ms": rep_full["plain_ms"],
-        **repulsion_bound(rep_full["n"], rep_full["npad"]),
+        "ms": rep_main["ms"], "plain_ms": rep_main["plain_ms"],
+        **repulsion_bound(rep_main["n"], rep_main["npad"]),
         "library_ms": None,
-        "shape": [rep_full["n"], rep_full["npad"]],
-        "ms_at_1m": rep_1m["ms"],
-        "bound_ms_at_1m": repulsion_bound(rep_1m["n"],
-                                          rep_1m["npad"])["bound_ms"]}]})
+        "shape": [rep_main["n"], rep_main["npad"]],
+        # the paths' launches, each with its point count (the top-level
+        # launches, ms and bound are the main path's, at the Pines KL's)
+        "launches_by_path": [
+            {"path": "pines_kl", "launches": main_rep_launches,
+             "n": rep_main["n"]},
+            {"path": "large_grid_z_gap", "n": n_large,
+             "launches": gap["launches"]["tsne_repulsion"]},
+            {"path": "large_exact", "n": n_large,
+             "launches": large_launches["tsne_repulsion"]},
+            {"path": "grid_vs_exact", "n": mid["n"],
+             "launches": mid["exact"]["launches"]["tsne_repulsion"]}],
+        "at_shapes": [{
+            "shape": [c["n"], c["npad"]], "plan": c["plan"], "ms": c["ms"],
+            "plain_ms": c.get("plain_ms", "not measured"),
+            "bound_ms": repulsion_bound(c["n"], c["npad"])["bound_ms"],
+            "sfu_floor_ms": c["sfu_floor_ms"]} for c in rep_timed]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -32,7 +32,10 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNEL_NAMES = ("forces_dense_kernel", "repulsion_kernel")
+# the __global__ names of csrc/: tsne_forces_dense, tsne_repulsion's unit
+# and split-sum kernels, and its earlier single kernel (older checkouts)
+KERNEL_NAMES = ("forces_dense_kernel", "repulsion_units", "reduce_splits",
+                "repulsion_kernel")
 
 
 def run_main_path(stage_context):

@@ -1,58 +1,106 @@
 // Exact t-SNE repulsion over all pairs, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel sph_tpu/ops/pallas/tsne_kernels.py::tsne_repulsion
-// (kernel body _rep_kernel), the repulsion of the exact sparse-P t-SNE tier.
-// For every row i < n_valid it sums over the columns j != i, j < n_valid,
-// with the Student-t weight w = 1 / (1 + dx^2 + dy^2) of the direct
-// differences dx = y_ix - y_jx, dy = y_iy - y_jy:
+// (kernel body _rep_kernel), the repulsion of the exact sparse-P t-SNE tier
+// and the Z of the KL divergence on the card.  For every row i < n_valid it
+// sums over the columns j != i, j < n_valid, with the Student-t weight
+// w = 1 / (1 + dx^2 + dy^2) of the direct differences dx = y_ix - y_jx,
+// dy = y_iy - y_jy:
 //
-//   z = sum w,   s2 = sum w^2,   ax = sum w^2 y_jx,   ay = sum w^2 y_jy,
+//   z = sum w,   fx = sum w^2 dx,   fy = sum w^2 dy,
 //
-// and writes rep_i = s2 y_i - (ax, ay) and the row's z.  Rows >= n_valid
-// (up to npad) come out exactly 0.  The caller sums z to Z.
+// and writes rep_i = (fx, fy) and the row's z.  Rows >= n_valid (up to npad)
+// come out exactly 0 and are never read.  The caller sums z to Z.
 //
-// What bounds it: arithmetic, with no P to read.  Each pair costs about ten
-// FP32 operations and one reciprocal, and a call visits n_valid^2 pairs:
-// 1e12 at 1M points.  The reciprocal runs on the SFU, 16 a clock per SM,
-// about 4e12 a second on 132 SMs: 0.25 s a call.  The FP32 pipes give about
-// 0.3 s.  Prediction before the first run on an H100: 0.4-0.6 s a call at
-// 1M points.
+// What bounds it: arithmetic, with no P to read.  A call visits n_valid^2
+// pairs, 1e12 at 1M points.  Three floors on an H100 SXM (132 SMs, 1.98 GHz):
+//   - operations: 14 float32 operations a pair at 67 TFLOP/s, 0.209 s
+//     (14 counts the TPU kernel's s2 form, the yardstick chip_smoke.py
+//     keeps; the direct form below does 13, 0.194 s);
+//   - SFU: one reciprocal a pair, 16 a clock per SM, 0.239 s;
+//   - issue: each pair costs a warp scheduler 9 instruction slots (below),
+//     4 schedulers an SM each issuing one warp instruction a clock:
+//     9 n^2 / (32 x 4 x 132 x 1.98e9) = 0.27 s.
+// The issue floor is the one that binds.  By the pipes' rates (not read on
+// the card), the SFU takes 8 clocks for each warp-wide reciprocal, so it
+// would be busy 8 of every 9 issue clocks: the two run nearly full
+// together.  The design below aims at the issue floor; on an H100 SXM at
+// 700 W it reaches 86-87 % of the floor of the loop as built (0.324-0.327 s
+// a call at 1M points; PERF.md).
 //
-// Design.  The TPU kernel walks all column blocks inside one grid step per
-// row block; here a block of 128 threads owns 512 rows (four per thread, for
-// independent work in flight) and loops over all valid columns itself, so
-// nothing carries between blocks and no atomics are needed.  Columns are
-// staged through shared memory in tiles of 1024 points; every thread reads
-// the same column at once, a broadcast.  Columns >= n_valid are never
-// visited.  Only the tiles that hold one of the block's own rows (the
-// diagonal) or the ragged end of the columns take the masked loop.
+// The inner loop, per column and row (9 slots):
+//   dx = xi - cx; dy = yi - cy            2 FADD
+//   q = fma(dx, dx, 1); q = fma(dy, dy, q) 2 FFMA (the "1 +" folded in)
+//   w = rcp.approx.ftz(q)                  1 MUFU.RCP (q >= 1: none flushed)
+//   w2 = w * w                             1 FMUL
+//   z += w; fx = fma(w2, dx, fx); fy = ...  1 FADD, 2 FFMA
+// plus one shared-memory load for two columns, shared by the thread's rows,
+// and the loop's own counter and branch.  As built (cuobjdump -sass of the
+// library; scripts/repulsion_readout.py prints it), the unmasked loop is
+// 151 instructions for 16 pairs, 9.44 a pair (issue floor 0.282 s at 1M).
+// The direct differences replace the TPU kernel's s2 y - (sum w^2 y_j)
+// form: one accumulator fewer and no cancellation of two large sums.
+//
+// Layout.  A block of 128 threads owns a tile of 512 rows, 4 a thread (4
+// independent reciprocals in flight, one column load for 4 pairs), and one
+// range of columns: 96 registers, 5 blocks an SM.  8 rows a thread (twice
+// the work in flight, half the loads) needs 167 registers to keep its
+// accumulators without spilling, so 3 blocks an SM; it measured 4 % slower
+// at 65536 and 1M points and no faster below (PERF.md), and was dropped.
+//
+// The columns are split too, so that there are (tile, split) units for
+// several blocks an SM at every size the paths use, not only at 1M, and so
+// that the last wave is a small part of the call; the plan is computed in
+// Python (ops/tsne_kernels.py: repulsion_plan) and each block is one unit.
+// Columns are staged through shared memory in tiles of 2048 points; every
+// thread reads the same column at once, a broadcast.  Columns past n_valid
+// are staged as a far point whose weight is exactly 0, so the loop has no
+// ragged end.  Only the chunks that hold one of the tile's own rows (the
+// diagonal) take the masked loop.
+//
+// With one split the unit writes rep and z itself.  With more, each unit
+// writes its partial (fx, fy, z) to scratch [splits, npad, 3] and a second
+// kernel sums the splits of each row in a fixed order, in float64.  No
+// atomics: two calls give the same bits.
 //
 // Accuracy.  A single running float32 sum over 1e6 terms drifts by about
 // sqrt(N) eps.  Each row instead sums 128 columns at a time into chunk-local
-// partials (at most 128 eps relative, worst case), and folds each partial
-// into its running sum with Kahan compensation.
+// partials, and folds each partial into its running sum with Kahan
+// compensation.
 //
-// The reciprocal is __fdividef(1, d), the SFU's approximate reciprocal
-// (2 ulp), not the IEEE division that 1.0f / d compiles to without fast
-// math (a refinement sequence several times longer).  d >= 1 always, far
-// below the 2^126 where __fdividef returns 0.
+// What does not apply here:
+//   - Tensor cores (wgmma): the only product is the rank-2 y_i . y_j of the
+//     expansion |y_i|^2 + |y_j|^2 - 2 y_i . y_j, which cancels for near
+//     pairs: at 1M, |y| reaches 35, |y|^2 ~ 1250, while a neighbour's d^2 is
+//     ~1e-2, so w would be off by more than the 1e-5 tolerance even in full
+//     float32, let alone TF32.
+//   - TMA or cp.async: y is 8 MB at 1M and stays in the 50 MB L2; a block
+//     reads 16 KB of columns for every 2M pairs it computes.
+//   - Two reciprocals per MUFU issue (h2rcp): f16 keeps about 3 decimal
+//     digits, far outside the 1e-5 tolerance against the float64 twin.
 //
-// Requirements, checked by the Python wrapper: y is [npad, 2] float32,
-// contiguous and 8-byte aligned; 0 <= n_valid <= npad.
+// Requirements, checked by the Python wrapper and again here: y is [npad, 2]
+// float32, contiguous and 8-byte aligned; 0 <= n_valid <= npad; split_cols a
+// positive multiple of 128 with (splits - 1) split_cols < n_valid <= splits
+// split_cols; scratch [splits, npad, 3] float32 when splits > 1.  The tile is
+// 512 rows (ops/tsne_kernels.py: REPULSION_TILE).
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kRows = 4;                      // rows per thread
-constexpr int kBlockRows = kThreads * kRows;  // 512 rows per block
-constexpr int kTile = 1024;                   // columns staged per pass
-constexpr int kChunk = 128;                   // columns per partial sum
+constexpr int kRows = 4;           // rows a thread
+constexpr int kTileRows = kThreads * kRows;
+constexpr int kChunk = 128;        // columns per partial sum; splits align
+constexpr int kTileCols = 2048;    // columns staged per pass (16 KB)
+constexpr float kFar = 1e30f;      // a staged column past n_valid: w == 0
 
-struct Acc {
-  float z, s2, ax, ay;
-};
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
 
 __device__ __forceinline__ void kahan_add(float& sum, float& comp, float v) {
   const float y = v - comp;
@@ -61,120 +109,175 @@ __device__ __forceinline__ void kahan_add(float& sum, float& comp, float v) {
   sum = t;
 }
 
+// One chunk of kChunk staged columns against the thread's kRows rows.
+// kMasked: the chunk holds one of the tile's rows, whose own column is left
+// out.
 template <bool kMasked>
-__device__ __forceinline__ void chunk_sums(const float2* __restrict__ tile,
-                                           int j0, int col0, int n_valid,
+__device__ __forceinline__ void chunk_sums(const float2* __restrict__ cols,
+                                           int col0, int row0,
                                            const float (&xi)[kRows],
                                            const float (&yi)[kRows],
-                                           const int (&ri)[kRows],
-                                           Acc (&part)[kRows]) {
+                                           float (&z)[kRows],
+                                           float (&fx)[kRows],
+                                           float (&fy)[kRows]) {
 #pragma unroll 4
-  for (int j = j0; j < j0 + kChunk; ++j) {
-    const float2 c = tile[j];
+  for (int j = 0; j < kChunk; ++j) {
+    const float2 c = cols[j];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const float dx = xi[r] - c.x;
       const float dy = yi[r] - c.y;
-      float w = __fdividef(1.0f, 1.0f + (dx * dx + dy * dy));
-      if (kMasked) {
-        const int col = col0 + j;
-        w = (col < n_valid && col != ri[r]) ? w : 0.0f;
-      }
+      float w = rcp_approx(fmaf(dy, dy, fmaf(dx, dx, 1.0f)));
+      if (kMasked) w = (col0 + j == row0 + r * kThreads) ? 0.0f : w;
       const float w2 = w * w;
-      part[r].z += w;
-      part[r].s2 += w2;
-      part[r].ax += w2 * c.x;
-      part[r].ay += w2 * c.y;
+      z[r] += w;
+      fx[r] = fmaf(w2, dx, fx[r]);
+      fy[r] = fmaf(w2, dy, fy[r]);
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-repulsion_kernel(const float2* __restrict__ y, int npad, int n_valid,
-                 float2* __restrict__ rep, float* __restrict__ zrow) {
-  __shared__ __align__(16) float2 tile[kTile];
+// One block = one unit (row tile, column split): blockIdx.x = tile * splits
+// + split.  partial == nullptr: write rep and zrow directly (one split).
+__global__ void __launch_bounds__(kThreads, 4)
+repulsion_units(const float2* __restrict__ y, int npad, int n_valid,
+                int split_cols, int splits, float* __restrict__ partial,
+                float2* __restrict__ rep, float* __restrict__ zrow) {
+  __shared__ __align__(16) float2 cols[kTileCols];
 
-  const int block_lo = blockIdx.x * kBlockRows;
-  const int block_hi = block_lo + kBlockRows;
+  const int tile = blockIdx.x / splits;
+  const int split = blockIdx.x - tile * splits;
+  const int tile_lo = tile * kTileRows;
+  const int row0 = tile_lo + threadIdx.x;     // row r is row0 + r kThreads
+  const int c_lo = split * split_cols;
+  const int c_hi = min(c_lo + split_cols, n_valid);
 
-  int ri[kRows];
   float xi[kRows], yi[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    ri[r] = block_lo + r * kThreads + threadIdx.x;
-    const float2 v = ri[r] < n_valid ? y[ri[r]] : make_float2(0.f, 0.f);
+    const int row = row0 + r * kThreads;
+    const float2 v = row < n_valid ? y[row] : make_float2(0.f, 0.f);
     xi[r] = v.x;
     yi[r] = v.y;
   }
 
-  Acc sum[kRows], comp[kRows];
+  float zs[kRows], zc[kRows], xs[kRows], xc[kRows], ys[kRows], yc[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    sum[r] = Acc{0.f, 0.f, 0.f, 0.f};
-    comp[r] = Acc{0.f, 0.f, 0.f, 0.f};
+    zs[r] = zc[r] = xs[r] = xc[r] = ys[r] = yc[r] = 0.f;
   }
 
-  // the whole block is padding: the branch is uniform, before any barrier
-  if (block_lo < n_valid) {
-    for (int c0 = 0; c0 < n_valid; c0 += kTile) {
-      __syncthreads();                          // previous tile consumed
-      for (int t = threadIdx.x; t < kTile; t += kThreads) {
-        const int col = c0 + t;
-        tile[t] = col < n_valid ? y[col] : make_float2(0.f, 0.f);
+  // c_lo, c_hi and everything below that branches are uniform in the block
+  for (int t0 = c_lo; t0 < c_hi; t0 += kTileCols) {
+    const int count = min(kTileCols, c_hi - t0);
+    const int staged = (count + kChunk - 1) / kChunk * kChunk;
+    __syncthreads();                            // previous tile consumed
+    for (int t = threadIdx.x; t < staged; t += kThreads) {
+      cols[t] = t < count ? y[t0 + t] : make_float2(kFar, kFar);
+    }
+    __syncthreads();
+    for (int j0 = 0; j0 < staged; j0 += kChunk) {
+      const int col0 = t0 + j0;
+      float z[kRows], fx[kRows], fy[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) z[r] = fx[r] = fy[r] = 0.f;
+      if (col0 < tile_lo + kTileRows && tile_lo < col0 + kChunk) {
+        chunk_sums<true>(cols + j0, col0, row0, xi, yi, z, fx, fy);
+      } else {
+        chunk_sums<false>(cols + j0, col0, row0, xi, yi, z, fx, fy);
       }
-      __syncthreads();
-      const bool masked = c0 + kTile > n_valid ||
-                          (c0 < block_hi && block_lo < c0 + kTile);
-      for (int j0 = 0; j0 < kTile; j0 += kChunk) {
-        if (c0 + j0 >= n_valid) break;          // uniform across the block
-        Acc part[kRows];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) part[r] = Acc{0.f, 0.f, 0.f, 0.f};
-        if (masked) {
-          chunk_sums<true>(tile, j0, c0, n_valid, xi, yi, ri, part);
-        } else {
-          chunk_sums<false>(tile, j0, c0, n_valid, xi, yi, ri, part);
-        }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          kahan_add(sum[r].z, comp[r].z, part[r].z);
-          kahan_add(sum[r].s2, comp[r].s2, part[r].s2);
-          kahan_add(sum[r].ax, comp[r].ax, part[r].ax);
-          kahan_add(sum[r].ay, comp[r].ay, part[r].ay);
-        }
+      for (int r = 0; r < kRows; ++r) {
+        kahan_add(zs[r], zc[r], z[r]);
+        kahan_add(xs[r], xc[r], fx[r]);
+        kahan_add(ys[r], yc[r], fy[r]);
       }
     }
   }
 
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    const int row = ri[r];
-    if (row >= npad) continue;
-    if (row < n_valid) {
-      const float z = sum[r].z - comp[r].z;
-      const float s2 = sum[r].s2 - comp[r].s2;
-      const float ax = sum[r].ax - comp[r].ax;
-      const float ay = sum[r].ay - comp[r].ay;
-      rep[row] = make_float2(s2 * xi[r] - ax, s2 * yi[r] - ay);
-      zrow[row] = z;
+    const int row = row0 + r * kThreads;
+    if (row >= n_valid) continue;
+    const float z = zs[r] - zc[r];
+    const float fx = xs[r] - xc[r];
+    const float fy = ys[r] - yc[r];
+    if (partial != nullptr) {
+      float* p = partial + (static_cast<size_t>(split) * npad + row) * 3;
+      p[0] = fx;
+      p[1] = fy;
+      p[2] = z;
     } else {
-      rep[row] = make_float2(0.f, 0.f);
-      zrow[row] = 0.f;
+      rep[row] = make_float2(fx, fy);
+      zrow[row] = z;
     }
   }
 }
 
+// Sums each row's split partials in split order, in float64, rounding once.
+__global__ void __launch_bounds__(256)
+reduce_splits(const float* __restrict__ partial, int npad, int n_valid,
+              int splits, float2* __restrict__ rep,
+              float* __restrict__ zrow) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n_valid) return;
+  double fx = 0.0, fy = 0.0, z = 0.0;
+  for (int s = 0; s < splits; ++s) {
+    const float* p = partial + (static_cast<size_t>(s) * npad + row) * 3;
+    fx += p[0];
+    fy += p[1];
+    z += p[2];
+  }
+  rep[row] = make_float2(static_cast<float>(fx), static_cast<float>(fy));
+  zrow[row] = static_cast<float>(z);
+}
+
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// Launches on `stream` and returns a CUDA error code (0 on success).
 extern "C" int tsne_repulsion_launch(const void* y, int npad, int n_valid,
-                                     void* rep, void* zrow, void* stream) {
-  const int blocks = (npad + kBlockRows - 1) / kBlockRows;
-  if (blocks > 0) {
-    repulsion_kernel<<<blocks, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float2*>(y), npad, n_valid,
-        static_cast<float2*>(rep), static_cast<float*>(zrow));
+                                     int split_cols, int splits,
+                                     void* scratch, void* rep, void* zrow,
+                                     void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool plan_ok =
+      n_valid == 0 ||
+      (split_cols > 0 && split_cols % kChunk == 0 && splits >= 1 &&
+       static_cast<long long>(split_cols) * splits >= n_valid &&
+       static_cast<long long>(split_cols) * (splits - 1) < n_valid &&
+       (splits == 1 || scratch != nullptr));
+  if (n_valid < 0 || n_valid > npad || !plan_ok) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  float2* rep2 = static_cast<float2*>(rep);
+  float* z = static_cast<float*>(zrow);
+  if (npad > n_valid) {                         // pad rows: exactly 0
+    cudaError_t err = cudaMemsetAsync(
+        rep2 + n_valid, 0, sizeof(float2) * (npad - n_valid), s);
+    if (err == cudaSuccess) {
+      err = cudaMemsetAsync(z + n_valid, 0, sizeof(float) * (npad - n_valid),
+                            s);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (n_valid == 0) return static_cast<int>(cudaGetLastError());
+  float* partial = splits > 1 ? static_cast<float*>(scratch) : nullptr;
+  const int tiles = (n_valid + kTileRows - 1) / kTileRows;
+  repulsion_units<<<tiles * splits, kThreads, 0, s>>>(
+      static_cast<const float2*>(y), npad, n_valid, split_cols, splits,
+      partial, rep2, z);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  reduce_splits<<<(n_valid + 255) / 256, 256, 0, s>>>(partial, npad, n_valid,
+                                                       splits, rep2, z);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the unit kernel resident on one SM (the occupancy calculator),
+// or minus a CUDA error code.
+extern "C" int tsne_repulsion_blocks_per_sm() {
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, repulsion_units, kThreads, 0);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }

@@ -25,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from dataclasses import dataclass
 
 import torch
 
@@ -39,7 +40,7 @@ _I = ctypes.c_int
 # kernel name -> argument types of its C entry point ``<name>_launch``
 _SIGNATURES = {
     "tsne_forces_dense": [_P, _P, _I, _I, _P, _P, _P, _P],
-    "tsne_repulsion": [_P, _I, _I, _P, _P, _P],
+    "tsne_repulsion": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 KERNELS = tuple(_SIGNATURES)
 
@@ -218,12 +219,74 @@ def tsne_forces_dense_reference(y: torch.Tensor, p_dense: torch.Tensor,
 # tsne_repulsion
 # ---------------------------------------------------------------------------
 
+REPULSION_TILE = 512         # rows a block: 128 threads of 4 rows
+REPULSION_CHUNK = 128        # columns a partial sum; a split is a multiple
+REPULSION_UNITS_PER_SM = 32  # units a plan aims at for each SM
+
+
+@dataclass(frozen=True)
+class RepulsionPlan:
+    """How ``csrc/tsne_repulsion.cu`` cuts the n_valid x n_valid pairs:
+    ``tiles`` row tiles of REPULSION_TILE rows by ``splits`` column ranges
+    of ``split_cols`` columns (the last one ends at n_valid); one block for
+    each (tile, split), ``blocks`` in all."""
+    n_valid: int
+    tiles: int
+    split_cols: int
+    splits: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    def unit(self, block: int):
+        """(row_lo, row_hi, col_lo, col_hi) of a block, as the kernel
+        derives them from its index."""
+        tile, split = divmod(block, self.splits)
+        return (tile * REPULSION_TILE,
+                min((tile + 1) * REPULSION_TILE, self.n_valid),
+                split * self.split_cols,
+                min((split + 1) * self.split_cols, self.n_valid))
+
+
+def repulsion_plan(n_valid: int, sms: int = 132) -> RepulsionPlan:
+    """The launch plan for n_valid points on a card of `sms` SMs: split the
+    columns until there are REPULSION_UNITS_PER_SM units an SM (many small
+    units leave no ragged last wave), in splits of whole chunks."""
+    if n_valid == 0:
+        return RepulsionPlan(0, 0, REPULSION_CHUNK, 1)
+    tiles = -(-n_valid // REPULSION_TILE)
+    splits = min(-(-REPULSION_UNITS_PER_SM * sms // tiles),
+                 -(-n_valid // REPULSION_CHUNK))
+    split_cols = -(-n_valid // splits)
+    split_cols = -(-split_cols // REPULSION_CHUNK) * REPULSION_CHUNK
+    return RepulsionPlan(n_valid, tiles, split_cols, -(-n_valid // split_cols))
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def tsne_repulsion_blocks_per_sm() -> int:
+    """Blocks of the kernel resident on one SM of the current card, from
+    the CUDA occupancy calculator."""
+    fn = _library("tsne_repulsion").tsne_repulsion_blocks_per_sm
+    fn.restype = ctypes.c_int
+    fn.argtypes = []
+    blocks = fn()
+    if blocks < 0:
+        raise RuntimeError(f"tsne_repulsion: occupancy query failed with "
+                           f"CUDA error {-blocks}")
+    return blocks
+
+
 def tsne_repulsion_rows(y: torch.Tensor, n_valid: int):
     """Exact all-pairs repulsion per row: y [Npad, 2] (any Npad >= n_valid;
     rows at or past n_valid may hold anything) -> (rep [Npad, 2], zrow
     [Npad]) with rep_i = sum_j w_ij^2 (y_i - y_j) and zrow_i = sum_j w_ij
     over j != i, j < n_valid.  Pad rows come out 0.  The kernel on a CUDA
-    tensor (counted in ``tsne_repulsion.launches``), the twin on a CPU one.
+    tensor (counted in ``tsne_repulsion.launches``), launched by
+    ``repulsion_plan`` for the card; the twin on a CPU one.
     """
     n_valid = int(n_valid)
     _check_y("tsne_repulsion", y, n_valid)
@@ -232,11 +295,16 @@ def tsne_repulsion_rows(y: torch.Tensor, n_valid: int):
     _check_kernel_device("tsne_repulsion", y)
     if y.data_ptr() % 8:
         raise ValueError("tsne_repulsion: y must be 8-byte aligned")
+    plan = repulsion_plan(n_valid, _sm_count(y.device))
     npad = y.shape[0]
     rep = torch.empty_like(y)
     zrow = torch.empty(npad, dtype=torch.float32, device=y.device)
+    scratch = (torch.empty((plan.splits, npad, 3), dtype=torch.float32,
+                           device=y.device) if plan.splits > 1 else None)
     _launch("tsne_repulsion", y.device, y.data_ptr(), npad, n_valid,
-            rep.data_ptr(), zrow.data_ptr())
+            plan.split_cols, plan.splits,
+            None if scratch is None else scratch.data_ptr(), rep.data_ptr(),
+            zrow.data_ptr())
     tsne_repulsion.launches += 1
     return rep, zrow
 

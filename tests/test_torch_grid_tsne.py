@@ -194,9 +194,19 @@ def test_grid_tier_1000_iterations_with_grid_repicks(grid_env, monkeypatch):
     packages, dispatch chunks of 16 iterations (SPH_TSNE_DISPATCH_BUDGET on
     the JAX side, the module constant here) and SPH_TSNE_GRID_MAX=256: the
     grid is picked at the same iterations with the same sizes (128, then
-    256).  Layouts part point by point, so they are compared by their KL
-    (within 1 %; measured 0.18 %), their spans (within 3 %; measured 2 %)
-    and their 10-NN sets (more than 3/4 shared; measured 0.85)."""
+    256).  Layouts part point by point, so they are compared by their KL,
+    their spans and their 10-NN sets.
+
+    The margins come from the measured spread of the two free-running
+    trajectories.  The JAX package's run is not reproducible from process
+    to process under load: four identical runs side by side ended at KLs
+    0.8596-0.8642, while the port's run ends at the same bits every time
+    (0.86866), and the test workers run side by side.  Over 25 runs (scene
+    seeds 1-8, the JAX package's native library on and off, alone and side
+    by side) the port and the JAX package differed by at most 1.13 % in KL
+    (0.52-1.13 % on this scene), 4.06 % in span and shared at least 0.803
+    of their 10-NN sets.  So KL within 2.5 % and spans within 8 %, about
+    twice the largest difference, and more than 3/4 of the 10-NN sets."""
     graph = _scene_graph()
     npad = ttsne.sparse_npad(graph[0].shape[0])
     grid_env.setenv("SPH_TSNE_GRID_MAX", "256")
@@ -225,9 +235,9 @@ def test_grid_tier_1000_iterations_with_grid_repicks(grid_env, monkeypatch):
     assert history == picks[:-1]               # the last is the KL's pick
     assert [it for it, _ in history[:6]] == [0, 16, 32, 48, 50, 66]
     assert {g for _, g in history} == {128, 256}
-    assert abs(ce_t.last_kl - ce_j.last_kl) <= 0.01 * ce_j.last_kl
+    assert abs(ce_t.last_kl - ce_j.last_kl) <= 0.025 * ce_j.last_kl
     span_j, span_t = np.ptp(emb_j, 0), np.ptp(emb_t, 0)
-    assert np.all(np.abs(span_t - span_j) <= 0.03 * span_j)
+    assert np.all(np.abs(span_t - span_j) <= 0.08 * span_j)
     a, b = _knn_sets(emb_j), _knn_sets(emb_t)
     shared = np.mean([len(set(a[i]) & set(b[i])) for i in range(len(a))])
     assert shared / 10 > 0.75

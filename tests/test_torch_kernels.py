@@ -1,7 +1,13 @@
 """tsne_forces_dense: the port's plain twin against the JAX package's Pallas
 kernel (interpret mode on the CPU) and against a numpy oracle; the CUDA
 kernel against the twin on the card.  The wrapper routes CPU tensors to the
-twin, so the CPU tests reach it through the public wrapper."""
+twin, so the CPU tests reach it through the public wrapper.
+
+tsne_repulsion: its launch plan (row tiles by column splits) covers every
+pair once, and the plan's sums over units and splits give the twin's
+result; on the card the kernel against the twin at odd sizes, bit-equal
+from call to call.  The twin's own parity tests are in
+test_torch_sparse_tsne.py."""
 
 import os
 
@@ -14,8 +20,16 @@ import jax.numpy as jnp
 
 from sph_tpu.ops.pallas.tsne_kernels import tsne_forces_dense as jax_forces
 from sph_tpu_torch.ops import tsne_kernels
-from sph_tpu_torch.ops.tsne_kernels import (tsne_forces_dense,
-                                            tsne_forces_dense_reference)
+from sph_tpu_torch.ops.tsne_kernels import (REPULSION_CHUNK,
+                                            REPULSION_TILE,
+                                            REPULSION_UNITS_PER_SM,
+                                            repulsion_plan,
+                                            tsne_forces_dense,
+                                            tsne_forces_dense_reference,
+                                            tsne_repulsion,
+                                            tsne_repulsion_blocks_per_sm,
+                                            tsne_repulsion_reference,
+                                            tsne_repulsion_rows)
 
 INTERPRET = jax.default_backend() != "tpu"
 
@@ -124,3 +138,161 @@ def test_forces_cuda_kernel_matches_twin(n, npad):
     assert tsne_forces_dense.launches == before + 1
     _assert_close(attr.cpu().numpy(), rep.cpu().numpy(), z.cpu(),
                   attr_r.cpu().numpy(), rep_r.cpu().numpy(), z_r.cpu(), n)
+
+
+# ---------------------------------------------------------------------------
+# tsne_repulsion: the launch plan
+# ---------------------------------------------------------------------------
+
+# (n_valid, Npad): the edges of a tile and a chunk, the paths' shapes (the
+# Pines KL at 5358 / 6144, grid_vs_exact at 65536, the 1M path), pads
+PLAN_SHAPES = [(0, 0), (0, 64), (1, 1), (1, 8), (2, 2), (511, 512),
+               (512, 512), (513, 513), (513, 1024), (5358, 6144),
+               (65536, 65536), (1_000_000, 1_000_448)]
+
+
+def _partition(ranges, n):
+    """The sorted distinct [lo, hi) ranges cut [0, n) into non-empty pieces
+    that meet end to end."""
+    ranges = sorted(set(ranges))
+    if n == 0:
+        return not ranges
+    return (ranges[0][0] == 0 and ranges[-1][1] == n
+            and all(lo < hi for lo, hi in ranges)
+            and all(a[1] == b[0] for a, b in zip(ranges, ranges[1:])))
+
+
+@pytest.mark.parametrize("sms", [132, 114])     # H100 SXM and PCIe
+@pytest.mark.parametrize("n,npad", PLAN_SHAPES)
+def test_repulsion_plan_covers_every_pair_once(n, npad, sms):
+    """The blocks are the product of a partition of the rows [0, n) into
+    tiles and of the columns [0, n) into splits, each pair in one block;
+    no block reaches a pad row; splits in whole chunks, as the kernel
+    requires."""
+    plan = repulsion_plan(n, sms)
+    units = [plan.unit(b) for b in range(plan.blocks)]
+    rows = [(a, b) for a, b, _, _ in units]
+    cols = [(c, d) for _, _, c, d in units]
+    assert len(set(units)) == len(units) == len(set(rows)) * len(set(cols))
+    assert _partition(rows, n) and _partition(cols, n)
+    assert all(b <= n <= npad for _, b, _, _ in units)
+    assert plan.tiles == -(-n // REPULSION_TILE)
+    assert plan.split_cols % REPULSION_CHUNK == 0
+    if n:
+        assert ((plan.splits - 1) * plan.split_cols < n
+                <= plan.splits * plan.split_cols)
+    if n <= 1024:                        # pair by pair where that is cheap
+        count = np.zeros((n, n), np.int32)
+        for a, b, c, d in units:
+            count[a:b, c:d] += 1
+        assert np.all(count == 1)
+
+
+@pytest.mark.parametrize("n", [5358, 65536, 1_000_000])
+def test_repulsion_plan_fills_the_card(n):
+    """Units for about three or more blocks an SM at the paths' sizes (the
+    old layout had 12 blocks at 5358 and 128 at 65536), and the target of
+    REPULSION_UNITS_PER_SM an SM where the columns allow it, less what
+    rounding the splits to whole chunks takes (32 splits, not 33, at
+    65536)."""
+    plan = repulsion_plan(n, sms=132)
+    assert plan.blocks >= 3 * 132
+    if n >= 65536:
+        assert plan.blocks >= 0.9 * REPULSION_UNITS_PER_SM * 132
+
+
+def _plan_sums(plan, y):
+    """The kernel's sums as the plan cuts them, in float64: each block's
+    partial (fx, fy, z) over its rows and columns, then the splits of each
+    row added in split order."""
+    n = plan.n_valid
+    y64 = y.astype(np.float64)
+    out = np.zeros((n, 3))
+    for b in range(plan.blocks):
+        r0, r1, c0, c1 = plan.unit(b)
+        d = y64[r0:r1, None, :] - y64[None, c0:c1, :]
+        w = 1.0 / (1.0 + (d * d).sum(-1))
+        w[np.arange(r0, r1)[:, None] == np.arange(c0, c1)[None, :]] = 0.0
+        out[r0:r1, :2] += ((w * w)[..., None] * d).sum(1)
+        out[r0:r1, 2] += w.sum(1)
+    return out
+
+
+@pytest.mark.parametrize("n,npad", [(1, 8), (2, 2), (513, 1024),
+                                    (1025, 1536)])
+def test_repulsion_plan_sums_give_the_twin(n, npad):
+    rng = np.random.default_rng(n)
+    y = rng.standard_normal((npad, 2)).astype(np.float32) * 50
+    y[:n] = rng.standard_normal((n, 2)).astype(np.float32) * 5
+    rep, zrow = tsne_repulsion_reference(torch.from_numpy(y), n)
+    sums = _plan_sums(repulsion_plan(n), y)
+    scale = max(float(rep.abs().max()), 1e-30)
+    assert np.abs(sums[:, :2] - rep[:n].numpy()).max() <= 1e-5 * scale
+    assert np.allclose(sums[:, 2], zrow[:n].numpy(), rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, 5358, 5632, 5633, 65536])
+def test_repulsion_plan_takes_4_rows_by_default(n):
+    """Tiles of 512 rows, 4 a thread; at most one split a chunk, so that a
+    split never holds less than a whole chunk; on one SM, no more splits
+    than REPULSION_UNITS_PER_SM units need."""
+    plan = repulsion_plan(n, sms=132)
+    assert plan.tiles == -(-n // 512)
+    assert plan.splits <= max(1, -(-n // REPULSION_CHUNK))
+    assert repulsion_plan(n, sms=1).splits <= max(
+        1, -(-REPULSION_UNITS_PER_SM // max(plan.tiles, 1)))
+
+
+def test_repulsion_plan_one_split_when_tiles_fill_the_card():
+    """With a tile for every unit the plan aims at, the columns are not
+    split and the kernel writes rep itself, with no scratch."""
+    plan = repulsion_plan(REPULSION_UNITS_PER_SM * 2 * REPULSION_TILE, sms=2)
+    assert plan.splits == 1 and plan.split_cols >= plan.n_valid
+
+
+# ---------------------------------------------------------------------------
+# tsne_repulsion on the card
+# ---------------------------------------------------------------------------
+
+def _repulsion_layout(n, npad, seed):
+    """n points (normal, scale 5) and garbage in the pad rows."""
+    rng = np.random.default_rng(seed)
+    y = rng.standard_normal((npad, 2)).astype(np.float32) * 50
+    y[:n] = rng.standard_normal((n, 2)).astype(np.float32) * 5
+    return torch.from_numpy(y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,npad", [(0, 16), (1, 1), (1, 8), (2, 2),
+                                    (2, 64), (513, 513), (513, 1024),
+                                    (1025, 1536), (5358, 6144)])
+def test_repulsion_cuda_kernel_odd_sizes(n, npad):
+    """Against the twin (rep within 1e-5 x max|ref|, zrow within 1e-5
+    relative, pad rows exactly 0), and two calls bit-equal: the splits are
+    summed in a fixed order, with no atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    y = _repulsion_layout(n, npad, seed=n + npad).cuda()
+    before = tsne_repulsion.launches
+    rep, zrow = tsne_repulsion_rows(y, n)
+    rep2, zrow2 = tsne_repulsion_rows(y, n)
+    rep_r, zrow_r = tsne_repulsion_reference(y, n)
+    torch.cuda.synchronize()
+    assert tsne_repulsion.launches == before + 2
+    assert torch.equal(rep, rep2) and torch.equal(zrow, zrow2)
+    assert torch.allclose(zrow, zrow_r, rtol=1e-5, atol=0)
+    scale = float(rep_r.abs().max())
+    assert float((rep - rep_r).abs().max()) <= 1e-5 * scale
+    assert torch.all(rep[n:] == 0) and torch.all(zrow[n:] == 0)
+
+
+@pytest.mark.cuda
+def test_repulsion_cuda_occupancy_and_input_checks():
+    """At least the 4 blocks an SM that the launch bounds ask for; y that
+    is not float32 is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    assert tsne_repulsion_blocks_per_sm() >= 4
+    y = _repulsion_layout(100, 128, seed=1).cuda()
+    with pytest.raises(TypeError):
+        tsne_repulsion_rows(y.double(), 100)

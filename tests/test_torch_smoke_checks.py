@@ -3,6 +3,7 @@ size: the same helpers with their device switched to the CPU, where each
 kernel's wrapper takes its twin.  They pass on a right result and raise on
 a wrong one."""
 
+import importlib.util
 import os
 import sys
 
@@ -15,6 +16,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke  # noqa: E402
 import sph_tpu_torch as T  # noqa: E402
 from sph_tpu_torch.ops import tsne_kernels  # noqa: E402
+
+_spec = importlib.util.spec_from_file_location(
+    "repulsion_readout", os.path.join(os.path.dirname(chip_smoke.__file__),
+                                      "scripts", "repulsion_readout.py"))
+readout = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(readout)
 
 
 @pytest.fixture(scope="module")
@@ -77,6 +84,9 @@ def test_repulsion_check_samples_rows_and_catches_a_wrong_result(
     y = torch.from_numpy(chip_smoke.repulsion_layout(3000, 4096, seed=1))
     out = chip_smoke.check_repulsion_kernel(y, 3000, sampled=True)
     assert out["rows_checked"] == 4096 and out["max_abs_err"] == 0
+    assert out["bits_equal_across_calls"]
+    assert out["plan"] == {"tile": 512, "splits": 24, "split_cols": 128,
+                           "blocks": 144}
     real = tsne_kernels.tsne_repulsion_rows
 
     def off_by_a_bit(y, n):
@@ -143,6 +153,71 @@ def test_kernel_bounds_from_the_shapes():
     rep = chip_smoke.repulsion_bound(10 ** 6, 1_000_448)
     assert rep["bound_by"] == "operations"
     assert abs(rep["bound_ms"] - 14e12 / 67e12 * 1e3) < 1e-6
+
+
+def test_repulsion_floors_at_1m():
+    """The SFU floor (one reciprocal a pair, 16 a clock on each of 132 SMs
+    at 1.98 GHz) and the issue floor at 9 slots a pair, as the kernel's
+    source note states them: 0.239 s and 0.27 s; both scale with the
+    card's SM count and clock."""
+    assert abs(chip_smoke.sfu_floor_ms(10 ** 6, 132, 1.98e9) - 239.13) < 0.01
+    assert abs(readout.issue_floor_ms(10 ** 6, 9.0, 132, 1.98e9)
+               - 269.03) < 0.01
+    assert abs(chip_smoke.sfu_floor_ms(10 ** 6, 66, 0.99e9)
+               - 4 * 239.13) < 0.04
+
+
+# the pair loop of a kernel as cuobjdump -sass prints it, cut short: an
+# outer loop (0x0040-0x0110) around an inner one (0x0050-0x00e0)
+SASS = """
+		Function : _Z15repulsion_unitsILi4EEvv
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   NOP ;
+        /*0040*/                   LDS.128 R4, [R2] ;
+        /*0050*/                   FADD R8, R5, -R6 ;
+        /*0060*/                   FFMA R9, R8, R8, 1 ;
+        /*0070*/                   MUFU.RCP R10, R9 ;
+        /*0080*/                   FMUL R11, R10, R10 ;
+        /*0090*/                   MUFU.RCP R12, R9 ;
+        /*00a0*/                   NOP ;
+        /*00b0*/                   FFMA R13, R11, R8, R13 ;
+        /*00c0*/                   IADD3 R2, R2, 0x10, RZ ;
+        /*00d0*/                   ISETP.NE.AND P0, PT, R2, R3, PT ;
+        /*00e0*/               @P0 BRA 0x50 ;
+        /*00f0*/                   FADD R14, R14, R13 ;
+        /*0100*/              @!P1 BRA 0x120 ;
+        /*0110*/                   BRA 0x40 ;
+        /*0120*/                   EXIT ;
+        /*0130*/                   BRA 0x130;
+		Function : _Z13reduce_splitsv
+        /*0000*/                   FADD R1, R2, R3 ;
+        /*0010*/                   BRA 0x0;
+"""
+
+
+def test_sass_loops_counts_the_innermost_reciprocal_loop():
+    loops = readout.sass_loops(SASS)
+    assert loops == {"_Z15repulsion_unitsILi4EEvv": [
+        {"instructions": 9, "rcp": 2, "slots_per_pair": 4.5}]}
+
+
+def test_resource_usage_reads_each_function():
+    text = """
+Resource usage:
+ Common:
+  GLOBAL:0
+ Function _Z13reduce_splitsPKfiiiP6float2Pf:
+  REG:16 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:400 TEXTURE:0 SURFACE:0
+ Function _Z15repulsion_unitsPK6float2iiiiPfPS_S2_:
+  REG:96 STACK:0 SHARED:16384 LOCAL:0 CONSTANT[0]:408 TEXTURE:0 SURFACE:0
+"""
+    assert readout.resource_usage(text) == {
+        "_Z13reduce_splitsPKfiiiP6float2Pf": {
+            "registers": 16, "stack": 0, "shared_bytes": 0,
+            "local_bytes": 0},
+        "_Z15repulsion_unitsPK6float2iiiiPfPS_S2_": {
+            "registers": 96, "stack": 0, "shared_bytes": 16384,
+            "local_bytes": 0}}
 
 
 def test_trustworthiness_matches_sklearn():
