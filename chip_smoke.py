@@ -30,26 +30,42 @@ Phases, each printing one JSON line, and each raising on failure:
    trustworthiness at k = 10 against the components' mean spectra, at
    least 0.99 x the JAX-on-CPU record in
    docs/torch_port_pines_umap_reference.json.
-7. large_graph — BASELINE config 4 (benchmarks/bench_1m.py): a
+7. scene_overlap — the same recipe at 256x256x200 on default level
+   settings (NEIGH_OVERLAP, exact_knn False) with knn_index =
+   index_heuristic(65536), IVF_FLAT: the levels against the JAX-on-CPU
+   record in docs/torch_port_scene_overlap_reference.json, level 1 above
+   SPH_APPROX_KNN_THRESHOLD on the approximate component kNN, its recall
+   against the exact knn_neighbor_overlap (at least the record's - 0.01),
+   stage 1's recall against the exact kNN, P's checks, and 2000 dense-tier
+   t-SNE iterations of level 1 with a falling KL; seconds by stage.
+8. large_graph — BASELINE config 4 (benchmarks/bench_1m.py): a
    1000x1000x100 synthetic stack and its exact kNN graph (k = 16, once for
    both tiers below); kNN invariants and exactness against float64
    distances on 1024 sampled rows.
-8. large_grid — t-SNE from that graph at perplexity 5 on the default tier,
+9. large_ivf — the same stack through compute_knn on its size tier
+   (HNSW, flat IVF) twice: seconds and peak memory beside the exact kNN's,
+   recall@16 over all rows against the exact graph, a complete graph, the
+   two results bit-equal.
+10. large_grid — t-SNE from that graph at perplexity 5 on the default tier,
    the grid, for the reference's 4000 iterations: seconds, iterations/s,
    the grid sizes, the KL at iterations 0, 250, 1000 and 4000, the grid's
    Z against tsne_repulsion's (at most 1e-3 apart) and the final KL with
    the exact Z, milliseconds an iteration by part, the scatter-add's
    run-to-run difference, peak memory; no kernel launches on this tier.
-9. large   — the same graph on the exact sparse-P tier (SPH_TSNE_GRID=0),
+11. large  — the same graph on the exact sparse-P tier (SPH_TSNE_GRID=0),
    cut to 10 iterations; the KL before and after, the launches.
-10. large_checks — a symmetric P whose conditional rows sum to 1, the
+12. large_checks — a symmetric P whose conditional rows sum to 1, the
    exact tier (tsne_repulsion on every iteration, tsne_forces_dense never),
    a falling KL, a finite embedding with zero pad rows, and tsne_repulsion
    against its twin at the embedding the path produced.
-11. grid_vs_exact — the 1M recipe at 256x256 (65536 points), 1000
+13. grid_vs_exact — the 1M recipe at 256x256 (65536 points), 1000
    iterations on the grid and the exact tier from the same P and initial
    layout, both scored under that P with the exact Z: KL_grid <= 1.001 x
    KL_exact.
+14. ivf_recall — benchmarks/bench_recall.py's clustered data at 10^6 x
+   100 (seed 0), a full self-kNN on HNSW, HNSWSQ and HNSW_IVFPQ, recall@16
+   on 1024 sampled rows against float64 distances, each at least the JAX
+   package's record less 0.01; seconds, peak memory and the IVF layout.
 
 Then the kernels line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -81,6 +97,12 @@ REPULSION_SHAPES = ((1000, 1024, 200, 100, False),
                     (65536, 65536, 100, 5, False),
                     (1_000_000, 1_000_448, 20, 0, True))
 UMAP_TRUST_SLACK = 0.99    # Pines UMAP trustworthiness vs the JAX-CPU record
+IVF_N = 1_000_000          # ivf_recall: bench_recall.py's clustered data
+# recall@16 gates of the approximate tiers on that data: the JAX package's
+# records (BASELINE.md:129-136, 263-267, on a TPU) less 0.01
+IVF_RECALL_GATES = {"hnsw": 0.9899, "hnswsq": 0.9238, "hnsw_ivfpq": 0.9679}
+SCENE_SIDE = 256           # scene_overlap: 65536 points, level 1 above 8192
+RECALL_SLACK = 0.01        # component kNN recall vs the JAX-CPU record
 # the switches of the t-SNE tier choice, all unset for the default path
 TSNE_SWITCHES = ("SPH_TSNE_DENSE_P", "SPH_TSNE_DENSE_P_MAX", "SPH_TSNE_GRID",
                  "SPH_TSNE_GRID_MIN", "SPH_TSNE_GRID_MAX",
@@ -368,6 +390,29 @@ def knn_exactness(data, idx, k: int, rows) -> dict:
             "max_f32_err_over_eps_norm": worst_err}
 
 
+def recall_at_k(idx, truth, block: int = 65536) -> float:
+    """benchmarks/bench_recall.py:116-119's count: the ids each row of
+    `idx` shares with the same row of `truth`, over rows x k.  A kNN row
+    holds distinct ids, so the shared ids are the entries of `idx` found in
+    `truth`'s row; counted in blocks of rows."""
+    hits = 0
+    for r0 in range(0, truth.shape[0], block):
+        a, b = idx[r0:r0 + block], truth[r0:r0 + block]
+        hits += int((a[:, :, None] == b[:, None, :]).any(2).sum())
+    return hits / truth.size
+
+
+def overlap_recall(ids, dists, kth) -> float:
+    """An approximate component kNN's recall against the exact one, counted
+    by distance: a neighbour counts when its distance (the exact pair
+    metric) is at most the exact kNN's k-th distance on its row, `kth`; over
+    rows x k.  NEIGH_OVERLAP distances tie in runs (1 - |A^B| / min), so
+    which of the tied components the exact kNN keeps is arbitrary."""
+    import numpy as np
+    hits = ((ids >= 0) & (dists <= np.asarray(kth)[:, None])).sum()
+    return float(hits) / ids.size
+
+
 def p_checks(p, idx, dist, perplexity: float) -> dict:
     """The kNN path's P as t-SNE holds it: (P + P^T) / 2 with rows cut to
     the width cap.  Every entry's mirror is there with the same value,
@@ -640,6 +685,204 @@ def grid_vs_exact(tsne_kernels, rows: int = 256, cols: int = 256,
     return out
 
 
+def exact_rows64(data, rows, k: int):
+    """The float64 top-k ids of `rows` against all of `data`, on DEV, 128
+    rows at a time: the ground truth of the recall phases."""
+    import numpy as np
+    import torch
+    x = torch.as_tensor(data, device=DEV).double()
+    sq = (x * x).sum(1)
+    out = []
+    for r0 in range(0, len(rows), 128):
+        q = torch.as_tensor(np.asarray(rows[r0:r0 + 128]), device=DEV).long()
+        d = sq[q, None] + sq[None, :] - 2.0 * (x[q] @ x.T)
+        out.append(torch.topk(d, k, dim=1, largest=False).indices.cpu())
+    return torch.cat(out).numpy()
+
+
+def graph_invariants(idx, dist, name: str) -> None:
+    """A complete kNN graph: the point itself in slot 0, no -1 left,
+    finite distances ascending along each row; raises otherwise."""
+    import numpy as np
+    if not np.array_equal(idx[:, 0], np.arange(idx.shape[0])):
+        raise AssertionError(f"{name}: slot 0 is not the point itself")
+    if np.any(idx < 0):
+        raise AssertionError(f"{name}: {int((idx < 0).sum())} slots are -1")
+    if not (np.all(np.isfinite(dist)) and np.all(np.diff(dist, axis=1) >= 0)):
+        raise AssertionError(f"{name}: distances not finite and ascending")
+
+
+def timed_knn(data, k: int, index, **kw):
+    """compute_knn on DEV with its seconds, peak memory and IVF layout."""
+    import torch
+    from sph_tpu_torch.ops.knn import compute_knn
+    stats = {}
+    sync()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    idx, dist = compute_knn(data, k, index, device=DEV, stats=stats, **kw)
+    sync()
+    stats["seconds"] = time.perf_counter() - t
+    stats["peak_memory_bytes"] = (torch.cuda.max_memory_allocated()
+                                  if DEV == "cuda" else "not measured")
+    return idx, dist, stats
+
+
+def ivf_recall(n: int = IVF_N, d: int = 100, k: int = 16,
+               queries: int = 1024, tiers=IVF_RECALL_GATES) -> dict:
+    """benchmarks/bench_recall.py's clustered data at n x d (seed 0), a full
+    self-kNN on each approximate tier in `tiers`, and recall@k on `queries`
+    rows (default_rng(1)) against float64 distances on DEV."""
+    import numpy as np
+    import sph_tpu_torch as T
+    from sph_tpu_torch.utils.testdata import create_clustered_points
+    t = time.perf_counter()
+    data = create_clustered_points(n, d, seed=0)
+    rows = np.random.default_rng(1).choice(n, queries, replace=False)
+    out = {"n": n, "d": d, "k": k, "queries": queries,
+           "data_seconds": time.perf_counter() - t}
+    t = time.perf_counter()
+    truth = exact_rows64(data, rows, k)
+    out["truth_seconds"] = time.perf_counter() - t
+    for index in tiers:
+        idx, dist, stats = timed_knn(data, k, T.KnnIndex(index))
+        graph_invariants(idx, dist, f"ivf_recall {index}")
+        out[index] = {**stats, "recall": recall_at_k(idx[rows], truth)}
+    return out
+
+
+def large_ivf(graph: dict, runs: int = 2) -> dict:
+    """The 1M scene of `graph` through compute_knn on its size tier
+    (index_heuristic: HNSW, flat IVF) `runs` times: seconds and peak memory
+    of each, recall@k over all rows against the exact graph, two results
+    bit-equal."""
+    import numpy as np
+    from sph_tpu_torch.ops.knn import index_heuristic
+    data, exact = graph["data"], graph["idx"]
+    index = index_heuristic(data.shape[0])
+    results, out = [], {"n": data.shape[0], "index": index.value,
+                        "exact_knn_seconds": graph["seconds"]["knn"],
+                        "exact_knn_peak_memory_bytes": graph["knn_peak"]}
+    for run in range(runs):
+        idx, dist, stats = timed_knn(data, exact.shape[1], index)
+        graph_invariants(idx, dist, f"large_ivf run {run}")
+        results.append((idx, dist))
+        out[f"run_{run}"] = stats
+    out["bits_equal_across_runs"] = all(
+        np.array_equal(i, results[0][0]) and np.array_equal(d, results[0][1])
+        for i, d in results[1:])
+    out["recall_all_rows"] = recall_at_k(results[0][0], exact)
+    return out
+
+
+def scene_hierarchy(side: int, device: str, k: int = 91):
+    """The bench.py:89-136 Pines recipe at side x side x 200 on default
+    level settings, as an initialised (not yet computed) ComputeHierarchy:
+    create_hyperspectral_scene(seed=7), Scaler.NONE, k neighbours
+    symmetrized and connected with knn_index = index_heuristic(side^2),
+    50 walks x 10 steps, ImageHierarchySettings() and
+    LevelSimilaritiesSettings(ks=[k]) (NEIGH_OVERLAP, exact_knn False).
+    Returns it and the data matrix."""
+    import sph_tpu_torch as T
+    from sph_tpu_torch.ops.knn import index_heuristic
+    from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
+    img = create_hyperspectral_scene(side, side, 200, seed=7)
+    data = T.scale(T.ImageStack.from_array(img, name="scene_overlap").data,
+                   T.Scaler.NONE)
+    ch = T.ComputeHierarchy(device=device).init(
+        data, side, side, ihs=T.ImageHierarchySettings(),
+        lss=T.LevelSimilaritiesSettings(ks=[k]),
+        rws=T.RandomWalkSettings(
+            num_random_walks=50, single_walk_length=10,
+            importance_weighting=T.ImportanceWeighting.NORMAL,
+            random_seed=1),
+        nns=T.NearestNeighborsSettings(
+            num_nearest_neighbors=k, knn_index=index_heuristic(side * side),
+            symmetric_neighbors=True, compute_connect_components=True,
+            neighbor_connect_components=True))
+    return ch, data
+
+
+def scene_overlap(tsne_kernels, side: int = SCENE_SIDE, iters: int = 2000,
+                  k: int = 91, sampled: int = 2048) -> dict:
+    """The user path on default level settings: `scene_hierarchy` through
+    ComputeHierarchy(device=DEV), then `iters` t-SNE iterations of level 1
+    through ComputeEmbedding.  Kernel counts are set to 0 before the
+    hierarchy and read after the t-SNE.  Also: stage 1's recall against the exact kNN (all rows, and the
+    `sampled` rows of the JAX record), level 1's component kNN recall
+    against the exact knn_neighbor_overlap, P's checks, the KL at
+    iterations 0, iters / 2 and iters."""
+    import numpy as np
+    import sph_tpu_torch as T
+    from sph_tpu_torch.ops.component_knn import knn_neighbor_overlap
+    from sph_tpu_torch.ops.knn import compute_knn, index_heuristic
+    from sph_tpu_torch.ops.similarities import build_union_neighborhoods
+    seconds = {}
+    t = time.perf_counter()
+    ch, data = scene_hierarchy(side, DEV, k)
+    seconds["data"] = time.perf_counter() - t
+    zero_launches(tsne_kernels)
+    for name, stage in (("stage1_knn", ch.compute_knn_graph),
+                        ("stage2_hierarchy", ch.compute_image_hierarchy),
+                        ("stage3_level_similarities",
+                         ch.compute_level_similarities)):
+        t = time.perf_counter()
+        stage()
+        sync()
+        seconds[name] = time.perf_counter() - t
+    h = ch.image_hierarchy.hierarchy
+    levels = [int(c) for c in h.num_components]
+    ls = ch.level_similarities
+    p1 = ls.get_prob_dist(1)
+    kls = {}
+
+    def progress(comp):
+        if comp.current_iteration in (0, iters // 2):
+            kls[comp.current_iteration] = comp.kl_divergence()
+
+    es = T.ComputeEmbeddingSettings()
+    es.tsne.num_iterations = iters
+    ce = T.ComputeEmbedding(es, device=DEV)
+    t = time.perf_counter()
+    with env(**{name: None for name in TSNE_SWITCHES}):
+        emb = ce.compute_tsne(p1, track_kl=True, progress=progress)
+    sync()
+    seconds["tsne"] = time.perf_counter() - t
+    launches = read_launches(tsne_kernels)
+    kls[iters] = float(ce.last_kl)
+
+    t = time.perf_counter()
+    exact_idx, _ = compute_knn(data, k, T.KnnIndex.BRUTE_FORCE, device=DEV)
+    seconds["exact_knn"] = time.perf_counter() - t
+    ivf_idx = ch.knn_stage.knn_graph.indices
+    rows = np.sort(np.random.default_rng(1).choice(side * side, sampled,
+                                                   replace=False))
+    ids, dists = ls.distance_graphs[1]
+    graph = ch.knn_stage.connected_graph
+    unions = build_union_neighborhoods(
+        np.where(graph.mask, graph.indices, -1), h.pixel_components[1],
+        levels[1], device=DEV)
+    t = time.perf_counter()
+    _, exact_d = knn_neighbor_overlap(unions, ids.shape[1])
+    seconds["exact_component_knn"] = time.perf_counter() - t
+    return {"n": side * side, "size": [side, side, 200],
+            "knn_index": index_heuristic(side * side).value,
+            "levels": levels,
+            "knn_tiers": ls.knn_tiers, "level_1_k": int(ids.shape[1]),
+            "stage1_recall_all_rows": recall_at_k(ivf_idx, exact_idx),
+            "stage1_recall_sampled_rows": recall_at_k(ivf_idx[rows],
+                                                      exact_idx[rows]),
+            "level_1_component_knn_recall": overlap_recall(
+                ids, dists, exact_d[:, -1]),
+            "p": p_checks(p1, ids, dists, ls.perplexity_on_level[1]),
+            "tsne_tier": ce.last_computation.tier, "tsne_iterations": iters,
+            "kl_at": {str(i): v for i, v in sorted(kls.items())},
+            "launches": launches, "seconds": seconds,
+            "embedding_finite": bool(np.all(np.isfinite(emb))),
+            "embedding_shape": list(emb.shape)}
+
+
 def trustworthiness(x, emb, k: int = 10, block: int = 512) -> float:
     """sklearn.manifold.trustworthiness in numpy (the card's machine has no
     sklearn): 1 - 2 / (n k (2n - 3k - 1)) times the sum, over each point's
@@ -903,6 +1146,54 @@ def main() -> int:
             f"{umap_ref['trustworthiness_k10']}")
     del ch, cond, dense, emb, ce, umap
 
+    # ---- default level settings: the approximate kNN tiers on the path ---
+    scene = scene_overlap(tsne_kernels)
+    with open(os.path.join(REPO, "docs",
+                           "torch_port_scene_overlap_reference.json")) as f:
+        scene_ref = json.load(f)
+    emit({"phase": "scene_overlap", **scene,
+          "jax_cpu_levels": scene_ref["levels"],
+          "jax_cpu_stage1_recall_sampled_rows":
+              scene_ref["stage1_recall_at_91"],
+          "jax_cpu_level_1_component_knn_recall":
+              scene_ref["level_1_component_knn_recall"],
+          "approx_knn_threshold": scene_ref["approx_knn_threshold"]})
+    s_levels, s_ref = scene["levels"], scene_ref["levels"]
+    if scene["size"] != scene_ref["size"]:
+        raise AssertionError(f"scene_overlap at {scene['size']}, the JAX "
+                             f"record at {scene_ref['size']}")
+    if abs(s_levels[1] - s_ref[1]) > LEVEL1_TOLERANCE * s_ref[1]:
+        raise AssertionError(f"scene_overlap level 1 {s_levels[1]} not "
+                             f"within 2 % of the JAX record {s_ref[1]}")
+    if abs(len(s_levels) - len(s_ref)) > 1:
+        raise AssertionError(f"scene_overlap: {len(s_levels)} levels vs "
+                             f"{len(s_ref)} in the JAX record")
+    if not (s_levels[1] > scene_ref["approx_knn_threshold"]
+            and scene["knn_tiers"][1] == "approximate"):
+        raise AssertionError("scene_overlap level 1 did not take the "
+                             "approximate component kNN: "
+                             f"{scene['knn_tiers']}")
+    if not scene["level_1_component_knn_recall"] >= (
+            scene_ref["level_1_component_knn_recall"] - RECALL_SLACK):
+        raise AssertionError(
+            f"level-1 component kNN recall "
+            f"{scene['level_1_component_knn_recall']} < the JAX record's "
+            f"{scene_ref['level_1_component_knn_recall']} - {RECALL_SLACK}")
+    s_kl = scene["kl_at"]
+    if scene["tsne_tier"] != "dense":
+        raise AssertionError(f"scene_overlap level 1 took the "
+                             f"{scene['tsne_tier']} t-SNE tier")
+    if scene["launches"]["tsne_forces_dense"] < scene["tsne_iterations"]:
+        raise AssertionError("tsne_forces_dense launched "
+                             f"{scene['launches']['tsne_forces_dense']} "
+                             f"times in {scene['tsne_iterations']} iterations")
+    if not (np.all(np.isfinite(list(s_kl.values())))
+            and s_kl[str(scene["tsne_iterations"])] < s_kl["0"]):
+        raise AssertionError(f"scene_overlap KL not finite and falling: "
+                             f"{s_kl}")
+    if not scene["embedding_finite"]:
+        raise AssertionError("the scene_overlap embedding is not finite")
+
     # ---- the 1M path: BASELINE config 4, one kNN graph for both tiers ----
     graph = scene_graph(1000, 1000)
     n_large = graph["idx"].shape[0]
@@ -910,16 +1201,20 @@ def main() -> int:
           "k": graph["idx"].shape[1], "seconds": graph["seconds"],
           "knn_peak_memory_bytes": graph["knn_peak"]})
     idx, dist = graph["idx"], graph["dist"]
-    if not np.array_equal(idx[:, 0], np.arange(n_large)):
-        raise AssertionError("kNN: slot 0 is not the point itself")
-    if not (np.all(dist[:, 0] == 0) and np.all(np.isfinite(dist))
-            and np.all(np.diff(dist, axis=1) >= 0)):
-        raise AssertionError("kNN: distances not 0-first, finite, ascending")
+    graph_invariants(idx, dist, "kNN")
+    if not np.all(dist[:, 0] == 0):
+        raise AssertionError("kNN: the self distance is not 0")
     sample = np.sort(np.random.default_rng(3).choice(n_large, 1024,
                                                      replace=False))
     exact = knn_exactness(graph["data"], idx, idx.shape[1], sample)
     emit({"phase": "large_graph_checks", "passed": True,
           "knn_exactness": exact})
+
+    # the same scene on its size tier, the approximate kNN (flat IVF)
+    livf = large_ivf(graph)
+    emit({"phase": "large_ivf", **livf})
+    if not livf["bits_equal_across_runs"]:
+        raise AssertionError("large_ivf: two runs differ")
 
     # the default tier (grid) at the reference's depth
     grid = grid_path(tsne_kernels, graph, GRID_ITERS, GRID_KL_AT)
@@ -1035,6 +1330,14 @@ def main() -> int:
         raise AssertionError(f"KL_grid / KL_exact = {mid['kl_ratio']} > "
                              f"{KL_RATIO_MAX} at 65536 points")
 
+    # ---- the approximate tiers' recall at 10^6 points --------------------
+    recall = ivf_recall()
+    emit({"phase": "ivf_recall", **recall})
+    for index, gate in IVF_RECALL_GATES.items():
+        if not recall[index]["recall"] >= gate:
+            raise AssertionError(f"ivf_recall {index}: recall@16 "
+                                 f"{recall[index]['recall']} < {gate}")
+
     main_shape = checks[-1]
     rep_main = rep_checks[1]            # the Pines KL's shape
     rep_timed = rep_checks[:len(REPULSION_SHAPES)]
@@ -1047,7 +1350,11 @@ def main() -> int:
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         **forces_bound(main_shape["n"], main_shape["npad"]),
         "library_ms": None,
-        "shape": [main_shape["n"], main_shape["npad"]]}, {
+        "shape": [main_shape["n"], main_shape["npad"]],
+        "launches_by_path": [
+            {"path": "pines", "launches": launches, "n": levels[1]},
+            {"path": "scene_overlap", "n": s_levels[1],
+             "launches": scene["launches"]["tsne_forces_dense"]}]}, {
         "name": "tsne_repulsion", "route": "cuda",
         "source": "sph_tpu_torch/csrc/tsne_repulsion.cu",
         "replaces": "sph_tpu/ops/pallas/tsne_kernels.py:80",
@@ -1062,6 +1369,8 @@ def main() -> int:
         "launches_by_path": [
             {"path": "pines_kl", "launches": main_rep_launches,
              "n": rep_main["n"]},
+            {"path": "scene_overlap_kl", "n": s_levels[1],
+             "launches": scene["launches"]["tsne_repulsion"]},
             {"path": "large_grid_z_gap", "n": n_large,
              "launches": gap["launches"]["tsne_repulsion"]},
             {"path": "large_exact", "n": n_large,

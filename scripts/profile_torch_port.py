@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Profile one of the PyTorch port's paths on one CUDA card.
 
-    python3 scripts/profile_torch_port.py [--path pines|large|grid] [--out FILE]
+    python3 scripts/profile_torch_port.py [--path pines|large|grid|scene|ivf]
+        [--out FILE]
 
 --path pines (the default) runs chip_smoke.py's Pines configuration
 (bench.py:89-136 at 145x145x200, then 2000 level-1 t-SNE iterations) once
@@ -13,7 +14,13 @@ SPH_TSNE_DENSE_P=0) once,
 after a warm-up at 64x64, with the kNN, the P and set-up, 10 t-SNE
 iterations and the KL each under its own window.  --path grid runs the
 same 1M path on its default tier, the grid (no SPH_TSNE_* switch set),
-with 50 iterations in the t-SNE window.
+with 50 iterations in the t-SNE window.  --path scene runs chip_smoke.py's
+scene_overlap configuration (the Pines recipe at 256x256x200 on default
+level settings: IVF_FLAT stage 1, level 1 on the approximate component
+kNN, 2000 level-1 t-SNE iterations), after a warm-up at 48x48, each stage
+under its own window.  --path ivf runs the flat (HNSW) and the PQ
+(HNSW_IVFPQ) tier on chip_smoke.py's ivf_recall data (10^6 x 100
+clustered points, k = 16), after a warm-up at 20000 points.
 
 Prints, per stage, the wall seconds, the device seconds (the sum of its
 kernels and copies, counted as torch.profiler counts its "Self CUDA time
@@ -106,10 +113,53 @@ def run_large_path(stage_context, rows: int = 1000, cols: int = 1000,
     return walls
 
 
+def run_scene_path(stage_context, side: int = 256):
+    """chip_smoke.py's scene_overlap configuration, stage by stage; returns
+    the stages' wall seconds."""
+    import torch
+    import chip_smoke
+    import sph_tpu_torch as T
+    ch, _ = chip_smoke.scene_hierarchy(side, "cuda")
+    es = T.ComputeEmbeddingSettings()
+    es.tsne.num_iterations = 2000
+    stages = (
+        ("stage1_knn", ch.compute_knn_graph),
+        ("stage2_hierarchy", ch.compute_image_hierarchy),
+        ("stage3_level_similarities", ch.compute_level_similarities),
+        ("tsne", lambda: T.ComputeEmbedding(es, device="cuda").compute_tsne(
+            ch.level_similarities.get_prob_dist(1), track_kl=True)))
+    walls = {}
+    for name, stage in stages:
+        t = time.perf_counter()
+        with stage_context(name):
+            stage()
+            torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t
+    return walls
+
+
+def run_ivf_path(stage_context, n: int = 1_000_000):
+    """The flat and the PQ IVF tier on chip_smoke.py's ivf_recall data;
+    returns each one's wall seconds."""
+    import torch
+    import sph_tpu_torch as T
+    from sph_tpu_torch.ops.knn import compute_knn
+    from sph_tpu_torch.utils.testdata import create_clustered_points
+    data = create_clustered_points(n, 100, seed=0)
+    walls = {}
+    for index in (T.KnnIndex.HNSW, T.KnnIndex.HNSW_IVFPQ):
+        t = time.perf_counter()
+        with stage_context(index.value):
+            compute_knn(data, 16, index, device="cuda")
+            torch.cuda.synchronize()
+        walls[index.value] = time.perf_counter() - t
+    return walls
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("pines", "large", "grid"),
-                    default="pines")
+    ap.add_argument("--path", choices=("pines", "large", "grid", "scene",
+                                       "ivf"), default="pines")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     args.out = args.out or os.path.join(
@@ -127,6 +177,12 @@ def main() -> int:
     if args.path == "pines":
         run = run_main_path
         run(lambda name: contextlib.nullcontext())
+    elif args.path == "scene":
+        run = run_scene_path
+        run(lambda name: contextlib.nullcontext(), 48)
+    elif args.path == "ivf":
+        run = run_ivf_path
+        run(lambda name: contextlib.nullcontext(), 20000)
     else:
         tier = "exact" if args.path == "large" else "grid"
         iters = 10 if tier == "exact" else 50

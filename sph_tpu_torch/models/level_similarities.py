@@ -8,11 +8,14 @@ Bhattacharyya; kNN-metric levels use Gaussian-perplexity rows) and TSNE
 symmetrization (:589-623)).
 
 Ported: NEIGH_WALKS with pairwise walk similarities, NEIGH_OVERLAP with its
-exact per-level kNN, the TSNE normalization and symmetrization.
+per-level kNN (exact, or the approximate tier above
+SPH_APPROX_KNN_THRESHOLD components unless exact_knn is set), the TSNE
+normalization and symmetrization.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -26,11 +29,20 @@ from ..utils.timer import phase
 from ..ops import component_knn
 from ..ops.distributions import gaussian_row_distributions
 from ..ops.graph import KnnGraph, PaddedGraph
-from ..ops.similarities import build_union_neighborhoods
+from ..ops.similarities import (build_union_neighborhoods,
+                                neighbor_overlap_distance)
 from ..ops.sparse import (SparseRows, drop_zero_entries,
                           pairwise_similarities, shrink_width,
                           symmetrize_tsne)
 from .hierarchy import WALK_SIMS, Hierarchy
+
+
+def _approx_knn_threshold() -> int:
+    """Component count above which the per-level kNN takes the approximate
+    tier (the JAX package's rule, sph_tpu/models/level_similarities.py:
+    35-40); exact_knn=True in LevelSimilaritiesSettings keeps the exact one
+    at any size."""
+    return int(os.environ.get("SPH_APPROX_KNN_THRESHOLD", "8192"))
 
 
 @dataclass
@@ -63,6 +75,9 @@ class LevelSimilarities:
         self.stats = LevelSimilaritiesStats()
         self.prob_dists: list[Optional[SparseRows]] = []
         self.distance_graphs: list[Optional[tuple]] = []
+        # per level, which component kNN gave its distance graph: "exact",
+        # "approximate", or None where the level has none
+        self.knn_tiers: list[Optional[str]] = []
         self.perplexity_on_level: list[float] = []
         self._symmetric: NormalizationScheme = NormalizationScheme.NONE
         self.init_output()
@@ -74,6 +89,7 @@ class LevelSimilarities:
         num_levels = self.hierarchy.num_levels
         self.prob_dists = [None] * num_levels
         self.distance_graphs = [None] * num_levels
+        self.knn_tiers = [None] * num_levels
         self.perplexity_on_level = [0.0] * num_levels
         self._symmetric = NormalizationScheme.NONE
         self.update_number_of_neighbors()
@@ -136,18 +152,32 @@ class LevelSimilarities:
 
     def _compute_knn_on_level(self, level: int):
         """Reference: computeNearestNeighborOnLevel (:191-442).  Walk levels
-        need no distance graph: their probdist comes from the walks."""
+        need no distance graph: their probdist comes from the walks.  Above
+        the approximate threshold, unless exact_knn is set, the approximate
+        tier (reference: computeApproximateKnn :254-334, hnswlib HNSW when
+        exactKnn is false) with the JAX package's seed, the level."""
         if level == 0 or self._lss.component_sim in WALK_SIMS:
             return
         if isinstance(self._graph, KnnGraph):
             knn_idx = self._graph.indices
         else:
             knn_idx = np.where(self._graph.mask, self._graph.indices, -1)
+        c = self.hierarchy.num_components[level]
+        k = self._current_k(level)
         unions = build_union_neighborhoods(
-            knn_idx, self.hierarchy.pixel_components[level],
-            self.hierarchy.num_components[level], device=self.device)
-        self.distance_graphs[level] = component_knn.knn_neighbor_overlap(
-            unions, self._current_k(level))
+            knn_idx, self.hierarchy.pixel_components[level], c,
+            device=self.device)
+        if not self._lss.exact_knn and c > _approx_knn_threshold():
+            feats = component_knn.project_sparse_rows(unions, seed=level)
+            self.distance_graphs[level] = (
+                component_knn.approx_pair_metric_knn(
+                    lambda a, b: neighbor_overlap_distance(unions, a, b),
+                    feats, k, seed=level, device=self.device))
+            self.knn_tiers[level] = "approximate"
+        else:
+            self.distance_graphs[level] = component_knn.knn_neighbor_overlap(
+                unions, k)
+            self.knn_tiers[level] = "exact"
 
     # ------------------------------------------------------------------
 

@@ -52,3 +52,16 @@ def create_checker_image(rows: int, cols: int, channels: int = 3,
     if noise:
         img = img + noise * rng.standard_normal(img.shape).astype(np.float32)
     return img
+
+
+def create_clustered_points(n: int, d: int, seed: int = 0) -> np.ndarray:
+    """Clustered points in the recipe of benchmarks/bench_recall.py (the data
+    behind the JAX package's recall records): max(32, sqrt(n) / 4) gaussian
+    blobs with centres of scale 4 and unit noise, [n, d] float32."""
+    rng = np.random.default_rng(seed)
+    ncl = max(32, int(np.sqrt(n) / 4))
+    centers = rng.standard_normal((ncl, d)).astype(np.float32) * 4.0
+    labels = rng.integers(0, ncl, n)
+    return (centers[labels]
+            + rng.standard_normal((n, d)).astype(np.float32)).astype(
+                np.float32)

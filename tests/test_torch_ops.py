@@ -137,9 +137,23 @@ def test_knn_exact_rows_matches_bruteforce():
     assert np.allclose(dt, dj, rtol=1e-6, atol=0)
 
 
-def test_compute_knn_rejects_unported_index():
-    with pytest.raises(NotImplementedError):
-        tknn.compute_knn(_knn_data(), 5, T.KnnIndex.HNSW, device=CPU)
+@pytest.mark.parametrize("index", ["ivf_flat", "hnsw", "hnswsq",
+                                   "hnsw_ivfpq"])
+def test_compute_knn_dispatches_approximate_index(index):
+    """Each approximate index runs its IVF tier at the default 100 clusters
+    and 10 probes (flat for IVF_FLAT and HNSW, SQ8 for HNSWSQ, PQ with a
+    512-wide shortlist for HNSW_IVFPQ) and returns a complete graph, self
+    first; tests/test_torch_knn_ivf.py holds each tier against the JAX
+    package."""
+    stats = {}
+    idx, dist = tknn.compute_knn(_knn_data(), 5, T.KnnIndex(index),
+                                 device=CPU, stats=stats)
+    assert idx.shape == (300, 5) and np.all(idx >= 0)
+    assert np.all(idx[:, 0] == np.arange(300))
+    assert np.all(np.diff(dist, axis=1) >= 0)
+    assert stats["nlist"] == 100 and stats["nprobe"] == 10
+    assert stats["shortlist"] == (512 if index == "hnsw_ivfpq" else 5)
+    assert not stats["exact_fallback"]
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_import_leaves_jax_out():
     code = ("import sys, sph_tpu_torch, sph_tpu_torch.interop, "
             "sph_tpu_torch.ops.tsne_kernels, sph_tpu_torch.ops.tsne_grid, "
-            "sph_tpu_torch.models.umap; "
+            "sph_tpu_torch.models.umap, sph_tpu_torch.ops.component_knn; "
             "sys.exit(1 if any(m == 'jax' or m.startswith('jax.') "
             "or m.startswith('sph_tpu.') or m == 'sph_tpu' "
             "for m in sys.modules) else 0)")
@@ -111,19 +111,26 @@ def test_default_device_is_cuda_or_a_clear_error():
     {"component_sim": "geo_centroid"},
     {"component_sim": "euclid_centroid"},
     {"rw_handling": "merge_rw_new_walks"},
+    {"level_sim": "euclid_centroid"},
 ])
-def test_unported_branches_raise(change):
+def test_unported_branches_raise(change, monkeypatch):
+    """The level_sim case: EUCLID_CENTROID level similarities with the
+    approximate threshold at 4 components, so its levels would take the
+    approximate tier, which is not ported."""
     from sph_tpu_torch.utils.testdata import create_checker_image
     img = create_checker_image(6, 6, channels=3, block=2, noise=0.02)
     data = T.scale(T.ImageStack.from_array(img).data, T.Scaler.STANDARD)
     kw = {"component_sim": T.ComponentSim.NEIGH_WALKS}
+    lss = T.LevelSimilaritiesSettings(ks=[6])
     if "component_sim" in change:
         kw["component_sim"] = T.ComponentSim(change["component_sim"])
+    elif "level_sim" in change:
+        lss.component_sim = T.ComponentSim(change["level_sim"])
+        monkeypatch.setenv("SPH_APPROX_KNN_THRESHOLD", "4")
     else:
         kw["rw_handling"] = T.RandomWalkHandling(change["rw_handling"])
     ch = T.ComputeHierarchy(device="cpu").init(
-        data, 6, 6, ihs=T.ImageHierarchySettings(**kw),
-        lss=T.LevelSimilaritiesSettings(ks=[6]),
+        data, 6, 6, ihs=T.ImageHierarchySettings(**kw), lss=lss,
         rws=T.RandomWalkSettings(num_random_walks=4, single_walk_length=3),
         nns=T.NearestNeighborsSettings(num_nearest_neighbors=6))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

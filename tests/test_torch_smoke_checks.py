@@ -250,3 +250,130 @@ def test_pines_umap_phase_on_the_fingerprint(monkeypatch):
     means = chip_smoke.component_means(
         data, ch.image_hierarchy.hierarchy.pixel_components[1], 19)
     assert means.shape == (19, 4)
+
+
+def _load_script(name, path):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(chip_smoke.__file__), *path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_recall_counts_as_bench_recall():
+    """recall_at_k gives bench_recall.py's intersect1d count in blocks of
+    rows; overlap_recall counts a neighbour by its distance against the
+    exact k-th, so a swap among tied components costs nothing and a far
+    neighbour does."""
+    rng = np.random.default_rng(0)
+    truth = np.stack([rng.choice(500, 16, replace=False) for _ in range(300)])
+    idx = np.stack([np.concatenate([t[:8], rng.choice(
+        np.setdiff1d(np.arange(500), t[:8]), 8, replace=False)])
+        for t in truth])
+    want = sum(len(np.intersect1d(a, b)) for a, b in zip(idx, truth))
+    assert chip_smoke.recall_at_k(idx, truth, block=64) == want / truth.size
+    ids = np.array([[0, 5, 7, -1], [1, 2, 9, 4]])
+    dists = np.array([[0.0, 0.5, 0.5, np.inf], [0.0, 0.2, 0.6, 0.9]],
+                     np.float32)
+    kth = np.array([0.5, 0.6], np.float32)
+    assert chip_smoke.overlap_recall(ids, dists, kth) == 6 / 8
+
+
+def test_clustered_points_are_bench_recalls_data():
+    bench = _load_script("bench_recall", ("benchmarks", "bench_recall.py"))
+    from sph_tpu_torch.utils.testdata import create_clustered_points
+    assert np.array_equal(create_clustered_points(5000, 24, seed=0),
+                          bench.make_data("clustered", 5000, 24, seed=0))
+
+
+def test_graph_invariants_catch_a_hole_and_a_disorder():
+    idx = np.array([[0, 1, 2], [1, 0, 2]])
+    dist = np.array([[0.0, 1.0, 2.0], [0.0, 1.0, 1.5]], np.float32)
+    chip_smoke.graph_invariants(idx, dist, "ok")
+    with pytest.raises(AssertionError, match="-1"):
+        chip_smoke.graph_invariants(np.array([[0, -1, 2], [1, 0, 2]]), dist,
+                                    "hole")
+    with pytest.raises(AssertionError, match="ascending"):
+        chip_smoke.graph_invariants(idx, dist[:, ::-1].copy(), "disorder")
+
+
+def test_ivf_recall_phase_small(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    out = chip_smoke.ivf_recall(n=3000, d=16, queries=64)
+    for index in chip_smoke.IVF_RECALL_GATES:
+        run = out[index]
+        assert 0.9 <= run["recall"] <= 1.0
+        assert run["nlist"] == 100 and run["nprobe"] == 10
+        assert run["seg"] == 256 and run["refilled_rows"] == 0
+        assert run["peak_memory_bytes"] == "not measured"
+    assert out["hnsw_ivfpq"]["shortlist"] == 512
+
+
+def test_large_ivf_phase_small(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    graph = chip_smoke.scene_graph(30, 40)
+    out = chip_smoke.large_ivf(graph)
+    assert out["index"] == "brute_force" or out["bits_equal_across_runs"]
+    assert out["bits_equal_across_runs"] and out["n"] == 1200
+    assert 0.9 <= out["recall_all_rows"] <= 1.0
+
+
+def test_scene_overlap_phase_small(monkeypatch):
+    """The phase at 24 x 24 with the threshold at 60 components, so level
+    1 takes the approximate component kNN: its recall against the exact
+    one, P's checks, a falling KL; no kernel launches on the CPU."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setenv("SPH_APPROX_KNN_THRESHOLD", "60")
+    out = chip_smoke.scene_overlap(tsne_kernels, side=24, iters=100,
+                                   sampled=100)
+    assert out["levels"][1] > 60 and out["knn_tiers"][1] == "approximate"
+    assert 0.5 < out["level_1_component_knn_recall"] <= 1.0
+    assert out["stage1_recall_all_rows"] == 1.0     # 576 points: exact
+    assert out["p"]["conditional_row_sum_err"] <= 1e-3
+    assert out["tsne_tier"] == "dense" and sorted(out["kl_at"]) == [
+        "0", "100", "50"]
+    assert out["kl_at"]["100"] < out["kl_at"]["0"]
+    assert out["launches"] == {"tsne_forces_dense": 0, "tsne_repulsion": 0}
+
+
+def test_reference_kth_distances_equal_the_exact_kernel():
+    """scripts/scene_overlap_reference.py takes the exact NEIGH_OVERLAP
+    k-th distances from a scipy sparse product; they equal the port's
+    exact knn_neighbor_overlap's (itself equal to the JAX package's)."""
+    ref = _load_script("scene_overlap_reference",
+                       ("scripts", "scene_overlap_reference.py"))
+    from sph_tpu_torch.ops.component_knn import knn_neighbor_overlap
+    from sph_tpu_torch.ops.similarities import build_union_neighborhoods
+    rng = np.random.default_rng(2)
+    n, c = 2000, 500
+    comp = np.concatenate([np.arange(c), rng.integers(0, c, n - c)])
+    knn = (rng.integers(0, n, (40, 10))[comp % 40]
+           + rng.integers(0, 25, (n, 10))) % n
+    unions = build_union_neighborhoods(knn, comp, c, device="cpu")
+    for k in (5, 40):
+        _, d = knn_neighbor_overlap(unions, k)
+        assert np.array_equal(ref.overlap_kth_distances(
+            unions.indices, unions.num_cols, k), d[:, k - 1])
+
+
+def test_reference_pair_metric_equals_the_jax_package():
+    """The sparse-product pair metric that scripts/scene_overlap_reference.py
+    swaps into the JAX package's stage 3 gives the JAX package's
+    neighbor_overlap_distance bit for bit, on pairs with and without shared
+    members and with an empty row."""
+    from sph_tpu.ops.similarities import (build_union_neighborhoods,
+                                          neighbor_overlap_distance)
+    ref = _load_script("scene_overlap_reference",
+                       ("scripts", "scene_overlap_reference.py"))
+    rng = np.random.default_rng(3)
+    n, c = 2000, 400
+    comp = np.concatenate([np.arange(c), rng.integers(0, c, n - c)])
+    knn = (rng.integers(0, n, (30, 10))[comp % 30]
+           + rng.integers(0, 25, (n, 10))) % n
+    knn[comp == 7] = -1
+    unions = build_union_neighborhoods(knn, comp, c)
+    a, b = rng.integers(0, c, 20000), rng.integers(0, c, 20000)
+    a[:5] = 7
+    assert np.array_equal(
+        ref.overlap_distance_by_sparse_product(unions, a, b, chunk=4096),
+        neighbor_overlap_distance(unions, a, b))

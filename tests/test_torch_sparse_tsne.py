@@ -368,7 +368,7 @@ def _full_row_sort_knn(data, k, metric):
     """The port's kNN before the repair: each block of query rows scored
     against all columns, whole rows stable-sorted."""
     base = torch.from_numpy(tknn._prepare(data, metric))
-    sq = tknn.row_sum(base * base)
+    sq = tknn.row_dot(base, base)
     ip = base @ base.T
     n = base.shape[0]
     if metric == T.KnnMetric.L2:
