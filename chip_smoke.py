@@ -33,36 +33,51 @@ Phases, each printing one JSON line, and each raising on failure:
 7. scene_overlap — the same recipe at 256x256x200 on default level
    settings (NEIGH_OVERLAP, exact_knn False) with knn_index =
    index_heuristic(65536), IVF_FLAT: the levels against the JAX-on-CPU
-   record in docs/torch_port_scene_overlap_reference.json, level 1 above
+   record in docs/torch_port_scene_overlap_reference.json (level 1 within
+   2 %, later levels of at least 100 components within 10 %), level 1 above
    SPH_APPROX_KNN_THRESHOLD on the approximate component kNN, its recall
    against the exact knn_neighbor_overlap (at least the record's - 0.01),
    stage 1's recall against the exact kNN, P's checks, and 2000 dense-tier
-   t-SNE iterations of level 1 with a falling KL; seconds by stage.
-8. large_graph — BASELINE config 4 (benchmarks/bench_1m.py): a
+   t-SNE iterations of level 1 with a falling KL; seconds by stage; the
+   exact knn_neighbor_overlap's own peak memory (at most 2 GiB); then
+   tsne_forces_dense against its twin at level 1's shape.
+8. salinas_euclid — EUCLID_CENTROID in both stages on the Salinas-shaped
+   scene (512x217x224, bench_salinas.py:41-75; run_evaluation.py's
+   ImageHierarchySettings with 100 samples): the levels against the
+   JAX-on-CPU record in docs/torch_port_salinas_euclid_reference.json,
+   level 1 on the approximate Hausdorff kNN and its recall against the
+   exact Hausdorff (at least the record's - 0.01), level 2's exact kNN
+   against float64 on 64 rows, P's checks, 2000 dense-tier t-SNE
+   iterations of levels 1, 2 and 3 (each after the first from the level
+   below's layout) with falling KLs, UMAP of level 1 for 500 epochs;
+   seconds and peak memory by stage and part; tsne_forces_dense against
+   its twin at level 1's shape.
+9. large_graph — BASELINE config 4 (benchmarks/bench_1m.py): a
    1000x1000x100 synthetic stack and its exact kNN graph (k = 16, once for
    both tiers below); kNN invariants and exactness against float64
    distances on 1024 sampled rows.
-9. large_ivf — the same stack through compute_knn on its size tier
+10. large_ivf — the same stack through compute_knn on its size tier
    (HNSW, flat IVF) twice: seconds and peak memory beside the exact kNN's,
    recall@16 over all rows against the exact graph, a complete graph, the
    two results bit-equal.
-10. large_grid — t-SNE from that graph at perplexity 5 on the default tier,
+11. large_grid — t-SNE from that graph at perplexity 5 on the default tier,
    the grid, for the reference's 4000 iterations: seconds, iterations/s,
    the grid sizes, the KL at iterations 0, 250, 1000 and 4000, the grid's
    Z against tsne_repulsion's (at most 1e-3 apart) and the final KL with
-   the exact Z, milliseconds an iteration by part, the scatter-add's
-   run-to-run difference, peak memory; no kernel launches on this tier.
-11. large  — the same graph on the exact sparse-P tier (SPH_TSNE_GRID=0),
+   the exact Z, milliseconds an iteration by part, two calls of the
+   grid's repulsion bit-equal (the deposit sums in a fixed order), peak
+   memory; no kernel launches on this tier.
+12. large  — the same graph on the exact sparse-P tier (SPH_TSNE_GRID=0),
    cut to 10 iterations; the KL before and after, the launches.
-12. large_checks — a symmetric P whose conditional rows sum to 1, the
+13. large_checks — a symmetric P whose conditional rows sum to 1, the
    exact tier (tsne_repulsion on every iteration, tsne_forces_dense never),
    a falling KL, a finite embedding with zero pad rows, and tsne_repulsion
    against its twin at the embedding the path produced.
-13. grid_vs_exact — the 1M recipe at 256x256 (65536 points), 1000
+14. grid_vs_exact — the 1M recipe at 256x256 (65536 points), 1000
    iterations on the grid and the exact tier from the same P and initial
    layout, both scored under that P with the exact Z: KL_grid <= 1.001 x
    KL_exact.
-14. ivf_recall — benchmarks/bench_recall.py's clustered data at 10^6 x
+15. ivf_recall — benchmarks/bench_recall.py's clustered data at 10^6 x
    100 (seed 0), a full self-kNN on HNSW, HNSWSQ and HNSW_IVFPQ, recall@16
    on 1024 sampled rows against float64 distances, each at least the JAX
    package's record less 0.01; seconds, peak memory and the IVF layout.
@@ -84,10 +99,17 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 KL_SLACK = 1.01            # bench.py:344-360: KL <= 1.01 x sklearn anchor
 LEVEL1_TOLERANCE = 0.02    # level-1 count within 2 % of the JAX record
+# scene_overlap's levels past 1 with at least DEEP_LEVEL_MIN components in
+# the record: within 10 % of it (the card's k-means sums part from XLA-CPU's
+# by ulps, which moves the stage-1 IVF graph and so the later merges; with
+# the JAX clustering replayed the levels are equal, PERF.md)
+DEEP_LEVEL_TOLERANCE = 0.10
+DEEP_LEVEL_MIN = 100
 LARGE_ITERS = 10           # 1M exact tier: a depth cut (0.6 s an iteration)
 GRID_ITERS = 4000          # 1M grid tier: the reference's schedule above 200k
 GRID_KL_AT = (0, 250, 1000)
 MID_ITERS = 1000           # 65536 points: the reference's schedule below 100k
+GRID_STEP_MS_INDEX_ADD = (7.37, 7.43)   # 1M grid step, index_add_ deposit
 Z_GAP_MAX = 1e-3           # grid Z against the exact Z at 1M, relative
 KL_RATIO_MAX = 1.001       # 65536 points: KL_grid / KL_exact
 # tsne_repulsion against its twin: (n, Npad, calls timed, twin calls timed,
@@ -103,6 +125,12 @@ IVF_N = 1_000_000          # ivf_recall: bench_recall.py's clustered data
 IVF_RECALL_GATES = {"hnsw": 0.9899, "hnswsq": 0.9238, "hnsw_ivfpq": 0.9679}
 SCENE_SIDE = 256           # scene_overlap: 65536 points, level 1 above 8192
 RECALL_SLACK = 0.01        # component kNN recall vs the JAX-CPU record
+SALINAS_SHAPE = (512, 217, 224)    # bench_salinas.py:42, 111104 pixels
+SALINAS_K = 31                     # bench_salinas.py:44
+SALINAS_TSNE_LEVELS = (1, 2, 3)    # each from the level below's layout
+SALINAS_SAMPLED_ROWS = 1024        # level-1 component kNN recall rows
+SALINAS_EXACT_ROWS = 64            # level-2 exact kNN rows vs float64
+EXACT_OVERLAP_PEAK_MAX = 2 << 30   # exact NEIGH_OVERLAP kNN's own peak bytes
 # the switches of the t-SNE tier choice, all unset for the default path
 TSNE_SWITCHES = ("SPH_TSNE_DENSE_P", "SPH_TSNE_DENSE_P_MAX", "SPH_TSNE_GRID",
                  "SPH_TSNE_GRID_MIN", "SPH_TSNE_GRID_MAX",
@@ -213,8 +241,10 @@ def random_joint_p(n: int, npad: int, seed: int):
     return y, p
 
 
-def check_forces_kernel(n: int, npad: int, seed: int) -> dict:
-    """tsne_forces_dense against its twin; raises on disagreement."""
+def check_forces_kernel(n: int, npad: int, seed: int, calls: int = 200
+                        ) -> dict:
+    """tsne_forces_dense against its twin, each timed over `calls` calls,
+    with the bound of the shape; raises on disagreement."""
     import torch
     from sph_tpu_torch.ops.tsne_kernels import (tsne_forces_dense,
                                                 tsne_forces_dense_reference)
@@ -238,12 +268,12 @@ def check_forces_kernel(n: int, npad: int, seed: int) -> dict:
             raise AssertionError(f"tsne_forces_dense n={n}: {name} pad rows "
                                  "are not 0")
         err = max(err, e)
-    calls = 200
     ms = cuda_ms(lambda: tsne_forces_dense(y, p, n), calls)
     plain_ms = cuda_ms(lambda: tsne_forces_dense_reference(y, p, n), calls)
     return {"n": n, "npad": npad, "max_abs_err": err,
             "z_rel_err": abs(z - z_r) / abs(z_r), "ms": ms,
-            "plain_ms": plain_ms, "calls_timed": calls}
+            "plain_ms": plain_ms, "calls_timed": calls,
+            **forces_bound(n, npad)}
 
 
 def repulsion_layout(n: int, npad: int, seed: int):
@@ -604,8 +634,10 @@ def z_gap(comp) -> dict:
 def grid_split(comp, calls: int = 10) -> dict:
     """Milliseconds of one grid-tier iteration by part at the computation's
     layout, CUDA events: the attraction, the box and taps, the deposit
-    (scatter-add), the FFT convolution, the interpolation (gather), the
-    update, and the whole step.  The state is put back afterwards."""
+    (sorted segment sums), the FFT convolution, the interpolation (gather),
+    the update, and the whole step; and the points in the fullest base
+    cell.  The state is put back afterwards."""
+    import torch
     from sph_tpu_torch.models.tsne import attractive_forces
     from sph_tpu_torch.ops import tsne_grid as G
     y, n, g = comp._y, comp._n, comp._grid
@@ -633,12 +665,15 @@ def grid_split(comp, calls: int = 10) -> dict:
         "update": cuda_ms(update, calls, 2)}
     ms["step"] = cuda_ms(comp._step, calls, 2)
     comp._y, comp._vel, comp._gain, comp._iteration = state
+    # the deposit sums each base cell's points in sequence
+    ms["points_in_fullest_cell"] = int(torch.bincount(cells[:, 0]).max())
     return ms
 
 
 def scatter_repeatability(comp) -> dict:
-    """Two grid_repulsion calls on the same layout: how far the unordered
-    scatter-add moves the result from one call to the next."""
+    """Two grid_repulsion calls on the same layout: whether they give the
+    same bits (the deposit sums in a fixed order), and how far apart they
+    are if not."""
     from sph_tpu_torch.ops.tsne_grid import grid_repulsion
     g = comp._current_grid()
     r1, z1 = grid_repulsion(comp._y, comp._n, g)
@@ -814,6 +849,7 @@ def scene_overlap(tsne_kernels, side: int = SCENE_SIDE, iters: int = 2000,
     against the exact knn_neighbor_overlap, P's checks, the KL at
     iterations 0, iters / 2 and iters."""
     import numpy as np
+    import torch
     import sph_tpu_torch as T
     from sph_tpu_torch.ops.component_knn import knn_neighbor_overlap
     from sph_tpu_torch.ops.knn import compute_knn, index_heuristic
@@ -863,9 +899,15 @@ def scene_overlap(tsne_kernels, side: int = SCENE_SIDE, iters: int = 2000,
     unions = build_union_neighborhoods(
         np.where(graph.mask, graph.indices, -1), h.pixel_components[1],
         levels[1], device=DEV)
+    sync()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
     t = time.perf_counter()
     _, exact_d = knn_neighbor_overlap(unions, ids.shape[1])
     seconds["exact_component_knn"] = time.perf_counter() - t
+    exact_peak = (torch.cuda.max_memory_allocated() - held
+                  if DEV == "cuda" else "not measured")
     return {"n": side * side, "size": [side, side, 200],
             "knn_index": index_heuristic(side * side).value,
             "levels": levels,
@@ -875,12 +917,318 @@ def scene_overlap(tsne_kernels, side: int = SCENE_SIDE, iters: int = 2000,
                                                       exact_idx[rows]),
             "level_1_component_knn_recall": overlap_recall(
                 ids, dists, exact_d[:, -1]),
+            "exact_component_knn_peak_bytes": exact_peak,
             "p": p_checks(p1, ids, dists, ls.perplexity_on_level[1]),
             "tsne_tier": ce.last_computation.tier, "tsne_iterations": iters,
             "kl_at": {str(i): v for i, v in sorted(kls.items())},
             "launches": launches, "seconds": seconds,
             "embedding_finite": bool(np.all(np.isfinite(emb))),
             "embedding_shape": list(emb.shape)}
+
+
+def deep_levels_gate(levels, ref_levels, name: str) -> None:
+    """Levels 2 and up whose record has at least DEEP_LEVEL_MIN components
+    within DEEP_LEVEL_TOLERANCE of the record; raises otherwise."""
+    for level in range(2, min(len(levels), len(ref_levels))):
+        want = ref_levels[level]
+        if want >= DEEP_LEVEL_MIN and (
+                abs(levels[level] - want) > DEEP_LEVEL_TOLERANCE * want):
+            raise AssertionError(
+                f"{name} level {level}: {levels[level]} components, not "
+                f"within {DEEP_LEVEL_TOLERANCE:.0%} of the JAX record {want}")
+
+
+def salinas_settings(P, level_to_compute: int = -1):
+    """The salinas_euclid configuration for package P (sph_tpu_torch here;
+    the JAX package in scripts/salinas_euclid_reference.py): stage 1 the
+    exact kNN (FLAT), k = 31, symmetric and connected (bench_salinas.py:44,
+    70-73); stage 2 run_evaluation.py's ImageHierarchySettings
+    (sph_tpu/evaluation/run_evaluation.py:150-159) with EUCLID_CENTROID and
+    num_geodesic_samples 100, FOUR connectivity, random_seed 1; stage 3
+    EUCLID_CENTROID, ks = [31], TSNE normalisation and symmetrisation
+    (bench_salinas.py:61-65).  Returns (ihs, lss, rws, nns)."""
+    euclid = P.ComponentSim.EUCLID_CENTROID
+    ihs = P.ImageHierarchySettings(
+        component_sim=euclid, neighbor_connection=P.NeighConnection.FOUR,
+        merge_multiple=False, use_percentile=False, max_dist=0.0,
+        min_num_comp=1, min_reduction=98.0, num_geodesic_samples=100,
+        max_levels=10)
+    lss = P.LevelSimilaritiesSettings(
+        component_sim=euclid, ks=[SALINAS_K],
+        normalize_prob_dist=P.NormalizationScheme.TSNE,
+        compute_symmetric_prob_dist=P.NormalizationScheme.TSNE,
+        level_to_compute=level_to_compute)
+    rws = P.RandomWalkSettings(random_seed=1)
+    nns = P.NearestNeighborsSettings(
+        num_nearest_neighbors=SALINAS_K, knn_index=P.KnnIndex.FLAT,
+        symmetric_neighbors=True, compute_connect_components=True,
+        neighbor_connect_components=True)
+    return ihs, lss, rws, nns
+
+
+def hausdorff_kth(data, rep, rows, k: int):
+    """The exact Hausdorff kNN's k-th distance of each of `rows` over every
+    component (self at 0 included), from the port's pair metric on DEV;
+    rep [C, S] holds the components' sampled points."""
+    import numpy as np
+    from sph_tpu_torch.ops.similarities import component_hausdorff
+    c = rep.shape[0]
+    rows = np.asarray(rows, np.int64)
+    d = component_hausdorff(data, rep, np.repeat(rows, c),
+                            np.tile(np.arange(c), len(rows)), device=DEV)
+    d = d.reshape(len(rows), c)
+    d[np.arange(len(rows)), rows] = 0.0
+    return np.partition(d, k - 1, axis=1)[:, k - 1]
+
+
+def hausdorff_exactness(data, rep, ids, dists, rows) -> dict:
+    """An exact Hausdorff kNN's `rows` against float64 on DEV; raises unless
+    each row differs from the float64 top k only by swapping a component e
+    in for a component m with h(e)^2 - h(m)^2 <= b(e) + b(m), and each
+    squared distance lies within b of its float64 value.  b is the float32
+    band sqrt(D) eps (|x|^2 + |y|^2) of the expansion (knn_exactness) at the
+    largest squared norms among the two sets' samples, plus the float32
+    root's own rounding."""
+    import numpy as np
+    import torch
+    eps = float(np.finfo(np.float32).eps)
+    x = torch.as_tensor(np.asarray(data, np.float32), device=DEV).double()
+    rep_t = torch.as_tensor(np.asarray(rep, np.int64), device=DEV)
+    ok = rep_t >= 0
+    pts = x[rep_t.clamp(min=0)]                         # [C, S, D]
+    c, s, d = pts.shape
+    sq = (pts * pts).sum(2)
+    top = torch.where(ok, sq, 0.0).amax(1)              # [C]
+    sq = torch.where(ok, sq, torch.inf)
+    flat = pts.reshape(c * s, d)
+    root_d = float(np.sqrt(d))
+    differ, worst_swap, worst_dist = 0, 0.0, 0.0
+    k = ids.shape[1]
+    for r in np.asarray(rows, np.int64):
+        d2 = (sq[r][:, None] + sq.reshape(1, -1)
+              - 2.0 * (pts[r] @ flat.T)).view(s, c, s)
+        h1 = torch.where(ok[r][:, None], d2.amin(2), -torch.inf).amax(0)
+        h2 = torch.where(ok, d2.amin(0), -torch.inf).amax(1)
+        h = torch.maximum(h1, h2).clamp(min=0.0)
+        h[r] = 0.0
+        band = root_d * eps * (top[r] + top) + 2.0 * eps * h
+        got = torch.as_tensor(np.asarray(ids[r], np.int64), device=DEV)
+        got_d2 = torch.as_tensor(np.asarray(dists[r], np.float64),
+                                 device=DEV) ** 2
+        worst_dist = max(worst_dist, float(
+            ((got_d2 - h[got]).abs() / band[got]).max()))
+        want = torch.sort(h, stable=True).indices[:k]
+        extra = sorted(set(got.tolist()) - set(want.tolist()))
+        missed = sorted(set(want.tolist()) - set(got.tolist()))
+        if not extra:
+            continue
+        differ += 1
+        e = torch.tensor(extra, device=DEV)
+        m = torch.tensor(missed, device=DEV)
+        swap = float(((h[e][:, None] - h[m][None, :])
+                      / (band[e][:, None] + band[m][None, :])).max())
+        worst_swap = max(worst_swap, swap)
+        if swap > 1.0:
+            raise AssertionError(
+                f"Hausdorff kNN row {int(r)}: neighbours differ from the "
+                f"float64 top-{k} by {swap} x the float32 band")
+    if worst_dist > 1.0:
+        raise AssertionError(f"Hausdorff kNN distances off float64 by "
+                             f"{worst_dist} x the float32 band")
+    return {"rows": len(rows), "rows_differing": differ,
+            "max_swap_over_band": worst_swap,
+            "max_dist2_err_over_band": worst_dist}
+
+
+def salinas_euclid(tsne_kernels, shape=SALINAS_SHAPE, iters: int = 2000,
+                   tsne_levels=SALINAS_TSNE_LEVELS, umap_epochs: int = 500,
+                   sampled: int = SALINAS_SAMPLED_ROWS,
+                   exact_rows: int = SALINAS_EXACT_ROWS) -> dict:
+    """EUCLID_CENTROID in both stages on the Salinas-shaped scene
+    (create_hyperspectral_scene(*shape, seed=13), Scaler.NONE,
+    ``salinas_settings``) through ComputeHierarchy(device=DEV); then `iters`
+    t-SNE iterations of each level in `tsne_levels`, each after the first
+    starting from average_position_of_children of the level below scaled
+    to a largest coordinate of 1 (run_evaluation.py's
+    init_level_emb_with_previous), and UMAP
+    of level 1 for `umap_epochs` epochs.  Kernel counts are set to 0 before
+    the hierarchy and read after each embedding.  Also: seconds and peak
+    memory by stage and part (the SPH_PHASE_TIMERS phases), level 1's
+    component kNN recall on `sampled` rows against the exact Hausdorff over
+    all components, level 2's exact kNN against float64 on `exact_rows`
+    rows, P's checks on the embedded levels."""
+    import numpy as np
+    import torch
+    import sph_tpu_torch as T
+    from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
+    from sph_tpu_torch.utils.timer import phase_totals
+    rows, cols, bands = shape
+    seconds, parts, peaks = {}, {}, {}
+    t = time.perf_counter()
+    img = create_hyperspectral_scene(rows, cols, bands, seed=13)
+    data = T.scale(T.ImageStack.from_array(img, name="salinas_euclid").data,
+                   T.Scaler.NONE)
+    seconds["data"] = time.perf_counter() - t
+    ihs, lss, rws, nns = salinas_settings(T)
+    ch = T.ComputeHierarchy(device=DEV).init(data, rows, cols, ihs=ihs,
+                                             lss=lss, rws=rws, nns=nns)
+    zero_launches(tsne_kernels)
+    with env(SPH_PHASE_TIMERS="1"):
+        phase_totals()
+        for name, stage in (("stage1_knn", ch.compute_knn_graph),
+                            ("stage2_hierarchy", ch.compute_image_hierarchy),
+                            ("stage3_level_similarities",
+                             ch.compute_level_similarities)):
+            if DEV == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            stage()
+            sync()
+            seconds[name] = time.perf_counter() - t
+            parts[name] = phase_totals()
+            peaks[name] = (torch.cuda.max_memory_allocated()
+                           if DEV == "cuda" else "not measured")
+    h = ch.image_hierarchy.hierarchy
+    levels = [int(c) for c in h.num_components]
+    ls = ch.level_similarities
+
+    tsne, prev = {}, None
+    for level in tsne_levels:
+        if level >= len(levels):
+            break
+        n = levels[level]
+        es = T.ComputeEmbeddingSettings()
+        es.tsne.num_iterations = iters
+        ce = T.ComputeEmbedding(es, device=DEV)
+        if prev is not None:     # run_evaluation.py:253-261
+            ce.init_embedding(n, T.scale_embedding_to_one(
+                T.average_position_of_children(prev, h.parents[level - 1],
+                                               n)))
+        kls = {}
+
+        def progress(comp, kls=kls):
+            if comp.current_iteration == 0:
+                kls[0] = comp.kl_divergence()
+
+        before = read_launches(tsne_kernels)
+        t = time.perf_counter()
+        with env(**{name: None for name in TSNE_SWITCHES}):
+            emb = ce.compute_tsne(ls.get_prob_dist(level), track_kl=True,
+                                  progress=progress)
+        sync()
+        wall = time.perf_counter() - t
+        kls[iters] = float(ce.last_kl)
+        after = read_launches(tsne_kernels)
+        comp = ce.last_computation
+        tsne[level] = {
+            "n": n, "npad": int(comp._y.shape[0]), "tier": comp.tier,
+            "init": ("random disk" if prev is None
+                     else "average_position_of_children"),
+            "seconds": wall, "iterations_seconds": ce.seconds["iterations"],
+            "iters_per_s": iters / ce.seconds["iterations"],
+            "kl_at": {str(i): v for i, v in sorted(kls.items())},
+            "launches": {kk: after[kk] - before[kk] for kk in after},
+            "embedding_finite": bool(np.all(np.isfinite(emb))),
+            "embedding_shape": list(emb.shape)}
+        prev = emb
+    before = read_launches(tsne_kernels)
+    umap = pines_umap(ch, data, umap_epochs)
+    after = read_launches(tsne_kernels)
+    umap_out = {kk: v for kk, v in umap.items() if kk != "emb"}
+    umap_out["embedding_finite"] = bool(np.all(np.isfinite(umap["emb"])))
+    umap_out["launches"] = {kk: after[kk] - before[kk] for kk in after}
+    launches = read_launches(tsne_kernels)
+
+    ids1, d1 = ls.distance_graphs[1]
+    rep1 = ls._rep_samples(1)
+    pick = np.sort(np.random.default_rng(1).choice(
+        levels[1], min(sampled, levels[1]), replace=False))
+    t = time.perf_counter()
+    kth = hausdorff_kth(data, rep1, pick, ids1.shape[1])
+    seconds["exact_kth_sampled_rows"] = time.perf_counter() - t
+    exact2 = None
+    if len(levels) > 2 and ls.knn_tiers[2] == "exact":
+        pick2 = np.sort(np.random.default_rng(2).choice(
+            levels[2], min(exact_rows, levels[2]), replace=False))
+        t = time.perf_counter()
+        exact2 = hausdorff_exactness(data, ls._rep_samples(2),
+                                     *ls.distance_graphs[2], pick2)
+        seconds["level_2_exactness"] = time.perf_counter() - t
+    p = {level: p_checks(ls.get_prob_dist(level),
+                         *ls.distance_graphs[level],
+                         ls.perplexity_on_level[level])
+         for level in tsne}
+    return {"n": rows * cols, "size": list(shape), "levels": levels,
+            "largest_set_by_level": [
+                int(np.bincount(h.pixel_components[lv]).max())
+                for lv in range(len(levels))],
+            "knn_tiers": ls.knn_tiers, "level_1_k": int(ids1.shape[1]),
+            "level_1_samples": int(rep1.shape[1]),
+            "level_1_component_knn_recall": overlap_recall(
+                ids1[pick], d1[pick], kth),
+            "level_2_exactness": exact2, "p": p, "tsne": tsne,
+            "umap": umap_out, "launches": launches, "seconds": seconds,
+            "seconds_by_part": parts, "peak_memory_bytes": peaks}
+
+
+def salinas_gates(sal: dict, ref: dict) -> None:
+    """salinas_euclid's gates against the JAX-CPU record `ref`; raises on
+    the first that fails."""
+    import numpy as np
+    levels, ref_levels = sal["levels"], ref["levels"]
+    if sal["size"] != ref["size"]:
+        raise AssertionError(f"salinas_euclid at {sal['size']}, the JAX "
+                             f"record at {ref['size']}")
+    if abs(levels[1] - ref_levels[1]) > LEVEL1_TOLERANCE * ref_levels[1]:
+        raise AssertionError(f"salinas_euclid level 1 {levels[1]} not "
+                             f"within 2 % of the JAX record {ref_levels[1]}")
+    if abs(len(levels) - len(ref_levels)) > 1:
+        raise AssertionError(f"salinas_euclid: {len(levels)} levels vs "
+                             f"{len(ref_levels)} in the JAX record")
+    threshold = ref["approx_knn_threshold"]
+    for level in range(1, len(levels)):
+        want = "approximate" if levels[level] > threshold else "exact"
+        if sal["knn_tiers"][level] != want:
+            raise AssertionError(f"salinas_euclid level {level} "
+                                 f"({levels[level]} components) took the "
+                                 f"{sal['knn_tiers'][level]} kNN")
+    if not levels[1] > threshold:
+        raise AssertionError("salinas_euclid level 1 is not above the "
+                             "approximate threshold")
+    recall = sal["level_1_component_knn_recall"]
+    if not recall >= ref["level_1_component_knn_recall"] - RECALL_SLACK:
+        raise AssertionError(
+            f"salinas_euclid level-1 component kNN recall {recall} < the "
+            f"JAX record's {ref['level_1_component_knn_recall']} - "
+            f"{RECALL_SLACK}")
+    if len(levels) > 2 and sal["level_2_exactness"] is None:
+        raise AssertionError("salinas_euclid level 2 was not checked "
+                             "against float64")
+    for level, run in sal["tsne"].items():
+        kl = run["kl_at"]
+        if not (np.all(np.isfinite(list(kl.values())))
+                and kl[max(kl, key=int)] < kl["0"]):
+            raise AssertionError(f"salinas_euclid level {level}: KL not "
+                                 f"finite and falling: {kl}")
+        if not run["embedding_finite"]:
+            raise AssertionError(f"salinas_euclid level {level}: the "
+                                 "embedding is not finite")
+        iters = int(max(kl, key=int))
+        if run["tier"] == "dense" and (
+                run["launches"]["tsne_forces_dense"] < iters):
+            raise AssertionError(
+                f"salinas_euclid level {level}: tsne_forces_dense "
+                f"launched {run['launches']['tsne_forces_dense']} times in "
+                f"{iters} iterations")
+        if run["launches"]["tsne_repulsion"] < 1:
+            raise AssertionError(f"salinas_euclid level {level}: the KL's "
+                                 "Z did not come from tsne_repulsion")
+    if sal["tsne"][1]["tier"] != "dense":
+        raise AssertionError("salinas_euclid level 1 did not take the "
+                             "dense t-SNE tier")
+    if not sal["umap"]["embedding_finite"]:
+        raise AssertionError("the salinas_euclid UMAP embedding is not "
+                             "finite")
 
 
 def trustworthiness(x, emb, k: int = 10, block: int = 512) -> float:
@@ -1065,6 +1413,7 @@ def main() -> int:
     from sph_tpu_torch.models.tsne import dense_npad
     checks.append(check_forces_kernel(levels[1], dense_npad(levels[1]),
                                       seed=13))
+    main_shape = checks[-1]
     emit({"phase": "kernel_vs_twin", "kernel": "tsne_forces_dense",
           "main_path_shape": True, **checks[-1]})
 
@@ -1168,6 +1517,7 @@ def main() -> int:
     if abs(len(s_levels) - len(s_ref)) > 1:
         raise AssertionError(f"scene_overlap: {len(s_levels)} levels vs "
                              f"{len(s_ref)} in the JAX record")
+    deep_levels_gate(s_levels, s_ref, "scene_overlap")
     if not (s_levels[1] > scene_ref["approx_knn_threshold"]
             and scene["knn_tiers"][1] == "approximate"):
         raise AssertionError("scene_overlap level 1 did not take the "
@@ -1193,6 +1543,35 @@ def main() -> int:
                              f"{s_kl}")
     if not scene["embedding_finite"]:
         raise AssertionError("the scene_overlap embedding is not finite")
+    if not scene["exact_component_knn_peak_bytes"] <= EXACT_OVERLAP_PEAK_MAX:
+        raise AssertionError(
+            "the exact NEIGH_OVERLAP kNN of level 1 held "
+            f"{scene['exact_component_knn_peak_bytes']} bytes above what "
+            f"was allocated before it, over {EXACT_OVERLAP_PEAK_MAX}")
+
+    # tsne_forces_dense at the level-1 shape scene_overlap gave it
+    checks.append(check_forces_kernel(s_levels[1], dense_npad(s_levels[1]),
+                                      seed=14, calls=50))
+    emit({"phase": "kernel_vs_twin", "kernel": "tsne_forces_dense",
+          "path_shape": "scene_overlap", **checks[-1]})
+
+    # ---- EUCLID_CENTROID in both stages, Salinas-shaped -----------------
+    sal = salinas_euclid(tsne_kernels)
+    with open(os.path.join(REPO, "docs",
+                           "torch_port_salinas_euclid_reference.json")) as f:
+        sal_ref = json.load(f)
+    emit({"phase": "salinas_euclid", **sal,
+          "jax_cpu_levels": sal_ref["levels"],
+          "jax_cpu_level_1_component_knn_recall":
+              sal_ref["level_1_component_knn_recall"],
+          "approx_knn_threshold": sal_ref["approx_knn_threshold"]})
+    sal_levels = sal["levels"]
+    checks.append(check_forces_kernel(sal_levels[1],
+                                      dense_npad(sal_levels[1]), seed=15,
+                                      calls=50))
+    emit({"phase": "kernel_vs_twin", "kernel": "tsne_forces_dense",
+          "path_shape": "salinas_euclid", **checks[-1]})
+    salinas_gates(sal, sal_ref)
 
     # ---- the 1M path: BASELINE config 4, one kNN graph for both tiers ----
     graph = scene_graph(1000, 1000)
@@ -1234,10 +1613,14 @@ def main() -> int:
           "kl_at": {str(i): v for i, v in sorted(kls.items())},
           "kl_final_exact_z": kls[GRID_ITERS] + gap["log_z_ratio"],
           "z": gap, "ms_per_iteration_by_part": split,
+          "step_ms_with_index_add_deposit": GRID_STEP_MS_INDEX_ADD,
           "scatter_repeatability": repeat,
           "peak_memory_bytes": grid["peak_memory_bytes"],
           "embedding_max_abs": float(np.abs(grid["emb"]).max()),
           "launches": grid["launches"]})
+    if not repeat["bits_equal"]:
+        raise AssertionError(f"the grid tier's repulsion differs from call "
+                             f"to call: {repeat}")
     if gcomp.tier != "grid":
         raise AssertionError(f"the 1M default took the {gcomp.tier} tier")
     if any(grid["launches"].values()):
@@ -1338,7 +1721,6 @@ def main() -> int:
             raise AssertionError(f"ivf_recall {index}: recall@16 "
                                  f"{recall[index]['recall']} < {gate}")
 
-    main_shape = checks[-1]
     rep_main = rep_checks[1]            # the Pines KL's shape
     rep_timed = rep_checks[:len(REPULSION_SHAPES)]
     emit({"kernels": [{
@@ -1354,7 +1736,14 @@ def main() -> int:
         "launches_by_path": [
             {"path": "pines", "launches": launches, "n": levels[1]},
             {"path": "scene_overlap", "n": s_levels[1],
-             "launches": scene["launches"]["tsne_forces_dense"]}]}, {
+             "launches": scene["launches"]["tsne_forces_dense"]},
+            *({"path": f"salinas_euclid_level_{level}", "n": run["n"],
+               "launches": run["launches"]["tsne_forces_dense"]}
+              for level, run in sal["tsne"].items())],
+        "at_shapes": [{
+            "shape": [c["n"], c["npad"]], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"]} for c in checks]}, {
         "name": "tsne_repulsion", "route": "cuda",
         "source": "sph_tpu_torch/csrc/tsne_repulsion.cu",
         "replaces": "sph_tpu/ops/pallas/tsne_kernels.py:80",
@@ -1371,6 +1760,9 @@ def main() -> int:
              "n": rep_main["n"]},
             {"path": "scene_overlap_kl", "n": s_levels[1],
              "launches": scene["launches"]["tsne_repulsion"]},
+            *({"path": f"salinas_euclid_level_{level}_kl", "n": run["n"],
+               "launches": run["launches"]["tsne_repulsion"]}
+              for level, run in sal["tsne"].items()),
             {"path": "large_grid_z_gap", "n": n_large,
              "launches": gap["launches"]["tsne_repulsion"]},
             {"path": "large_exact", "n": n_large,

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Profile one of the PyTorch port's paths on one CUDA card.
 
-    python3 scripts/profile_torch_port.py [--path pines|large|grid|scene|ivf]
-        [--out FILE]
+    python3 scripts/profile_torch_port.py
+        [--path pines|large|grid|scene|ivf|salinas] [--out FILE]
 
 --path pines (the default) runs chip_smoke.py's Pines configuration
 (bench.py:89-136 at 145x145x200, then 2000 level-1 t-SNE iterations) once
@@ -20,7 +20,12 @@ level settings: IVF_FLAT stage 1, level 1 on the approximate component
 kNN, 2000 level-1 t-SNE iterations), after a warm-up at 48x48, each stage
 under its own window.  --path ivf runs the flat (HNSW) and the PQ
 (HNSW_IVFPQ) tier on chip_smoke.py's ivf_recall data (10^6 x 100
-clustered points, k = 16), after a warm-up at 20000 points.
+clustered points, k = 16), after a warm-up at 20000 points.  --path
+salinas runs chip_smoke.py's salinas_euclid configuration (EUCLID_CENTROID
+in both stages on the Salinas-shaped 512x217x224 scene: level 1 on the
+approximate Hausdorff kNN, the levels below on the exact one), then 2000
+t-SNE iterations and 500 UMAP epochs of level 1, after a warm-up at
+64x54x224, each stage under its own window.
 
 Prints, per stage, the wall seconds, the device seconds (the sum of its
 kernels and copies, counted as torch.profiler counts its "Self CUDA time
@@ -138,6 +143,42 @@ def run_scene_path(stage_context, side: int = 256):
     return walls
 
 
+def run_salinas_path(stage_context, shape=None):
+    """chip_smoke.py's salinas_euclid configuration, stage by stage, then
+    level 1's t-SNE and UMAP; returns the stages' wall seconds."""
+    import torch
+    import chip_smoke
+    import sph_tpu_torch as T
+    from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
+    rows, cols, bands = shape or chip_smoke.SALINAS_SHAPE
+    img = create_hyperspectral_scene(rows, cols, bands, seed=13)
+    data = T.scale(T.ImageStack.from_array(img).data, T.Scaler.NONE)
+    ihs, lss, rws, nns = chip_smoke.salinas_settings(T)
+    ch = T.ComputeHierarchy(device="cuda").init(data, rows, cols, ihs=ihs,
+                                                lss=lss, rws=rws, nns=nns)
+    es = T.ComputeEmbeddingSettings()
+    es.tsne.num_iterations = 2000
+    es.umap.num_epochs = 500
+    stages = (
+        ("stage1_knn", ch.compute_knn_graph),
+        ("stage2_hierarchy", ch.compute_image_hierarchy),
+        ("stage3_level_similarities", ch.compute_level_similarities),
+        ("tsne_level_1", lambda: T.ComputeEmbedding(
+            es, device="cuda").compute_tsne(
+                ch.level_similarities.get_prob_dist(1), track_kl=True)),
+        ("umap_level_1", lambda: T.ComputeEmbedding(
+            es, device="cuda").compute_umap(
+                ch.level_similarities.get_prob_dist(1))))
+    walls = {}
+    for name, stage in stages:
+        t = time.perf_counter()
+        with stage_context(name):
+            stage()
+            torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t
+    return walls
+
+
 def run_ivf_path(stage_context, n: int = 1_000_000):
     """The flat and the PQ IVF tier on chip_smoke.py's ivf_recall data;
     returns each one's wall seconds."""
@@ -159,7 +200,7 @@ def run_ivf_path(stage_context, n: int = 1_000_000):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", choices=("pines", "large", "grid", "scene",
-                                       "ivf"), default="pines")
+                                       "ivf", "salinas"), default="pines")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     args.out = args.out or os.path.join(
@@ -180,6 +221,9 @@ def main() -> int:
     elif args.path == "scene":
         run = run_scene_path
         run(lambda name: contextlib.nullcontext(), 48)
+    elif args.path == "salinas":
+        run = run_salinas_path
+        run(lambda name: contextlib.nullcontext(), (64, 54, 224))
     elif args.path == "ivf":
         run = run_ivf_path
         run(lambda name: contextlib.nullcontext(), 20000)

@@ -22,6 +22,8 @@ from .settings import (CacheSettings, ComponentSim, EmbeddingInit,
                        RandomWalkReduction, RandomWalkSettings, Scaler)
 from .models.compute_embedding import (ComputeEmbedding,
                                        ComputeEmbeddingSettings,
+                                       average_position_of_children,
+                                       broadcast_parent_positions,
                                        scale_embedding_to_one)
 from .models.compute_hierarchy import ComputeHierarchy
 from .models.hierarchy import Hierarchy
@@ -46,5 +48,6 @@ __all__ = [
     "LevelSimilaritiesSettings", "NearestNeighborsSettings",
     "NeighConnection", "NormalizationScheme", "NormType",
     "RandomWalkHandling", "RandomWalkReduction", "RandomWalkSettings",
-    "Scaler", "scale_embedding_to_one",
+    "Scaler", "scale_embedding_to_one", "average_position_of_children",
+    "broadcast_parent_positions",
 ]

@@ -162,3 +162,28 @@ def scale_embedding_to_one(emb: np.ndarray) -> np.ndarray:
     """Reference: utils/Embedding.cpp scaleEmbeddingToOne (:88)."""
     mx = np.abs(emb).max()
     return emb / mx if mx > 0 else emb
+
+
+def average_position_of_children(emb_fine: np.ndarray,
+                                 parents: np.ndarray,
+                                 num_parents: Optional[int] = None
+                                 ) -> np.ndarray:
+    """Fine-to-coarse init: each coarse component starts at the mean of its
+    children's embedded positions (reference:
+    averageEmbeddingPositionOfChildren, utils/Embedding.cpp:131; the
+    run_evaluation.py seeds level L from level L-1's embedding).  Sums in
+    float64, as the JAX package's numpy does: [num_parents, 2] float32."""
+    parents = np.asarray(parents)
+    if num_parents is None:
+        num_parents = int(parents.max()) + 1
+    sums = np.zeros((num_parents, emb_fine.shape[1]), dtype=np.float64)
+    np.add.at(sums, parents, emb_fine)
+    counts = np.bincount(parents, minlength=num_parents)[:, None]
+    return (sums / np.maximum(counts, 1)).astype(np.float32)
+
+
+def broadcast_parent_positions(emb_coarse: np.ndarray,
+                               parents: np.ndarray) -> np.ndarray:
+    """Coarse-to-fine init: each fine component starts at its parent's
+    position (the inverse warm start, for embedding coarse levels first)."""
+    return emb_coarse[parents]

@@ -9,7 +9,8 @@ stagnation / min-comp / max-level stopping rules (:418-453)).
 Each level evaluates the component distances of all spatial-neighbor edges
 in one batched device call (ops/similarities); the level loop, the merge
 selection and its numpy RNG stay on the host, as in the JAX package.  The
-NEIGH_WALKS and NEIGH_OVERLAP metrics are ported; the others raise.
+NEIGH_WALKS, NEIGH_OVERLAP and EUCLID_CENTROID metrics are ported; the
+others raise.
 """
 
 from __future__ import annotations
@@ -76,6 +77,7 @@ class ImageHierarchy:
                  graph_has_wcc: bool = False, device=None):
         self._graph = data_knn_graph
         self._data = np.ascontiguousarray(data, dtype=np.float32)
+        self._data_on_device: Optional[torch.Tensor] = None
         self._rows = rows
         self._cols = cols
         self._graph_has_wcc = graph_has_wcc
@@ -105,7 +107,8 @@ class ImageHierarchy:
                 rws: Optional[RandomWalkSettings] = None):
         self.set_settings(ihs, rws)
         cs = self._ihs.component_sim
-        if cs not in (ComponentSim.NEIGH_WALKS, ComponentSim.NEIGH_OVERLAP):
+        if cs not in (ComponentSim.NEIGH_WALKS, ComponentSim.NEIGH_OVERLAP,
+                      ComponentSim.EUCLID_CENTROID):
             raise NotImplementedError(
                 f"component similarity {cs.value} not ported yet; see "
                 "ROADMAP")
@@ -243,13 +246,37 @@ class ImageHierarchy:
         dst = adj.ravel()
         ok = dst >= 0
         src, dst = src[ok], dst[ok]
-        if self._ihs.component_sim == ComponentSim.NEIGH_WALKS:
+        cs = self._ihs.component_sim
+        if cs == ComponentSim.NEIGH_WALKS:
             dist = sims.walks_bhattacharyya_distance(
                 self.hierarchy.random_walks[level], src, dst)
+        elif cs == ComponentSim.EUCLID_CENTROID:
+            dist = self._hausdorff_distances(level, src, dst)
         else:
             dist = sims.neighbor_overlap_distance(
                 self._union_neighborhoods(level), src, dst)
         return src, dst, dist.astype(np.float32)
+
+    def _hausdorff_distances(self, level: int, a: np.ndarray,
+                             b: np.ndarray) -> np.ndarray:
+        """EUCLID_CENTROID: the Hausdorff distance of each pair's represented
+        pixels, each set sampled to S = min(the level's largest set,
+        num_geodesic_samples when > 0) points with the JAX package's seeds
+        (random_seed + level for the first sets, + level + 1 for the
+        second)."""
+        reps = self.hierarchy.represented_points(level)
+        s = max(len(r) for r in reps)
+        samples = self._ihs.num_geodesic_samples or 0
+        if samples > 0:
+            s = min(s, samples)
+        seed = self._rws.random_seed + level
+        rep_a = sims.sample_represented(reps, a, s, seed=seed)
+        rep_b = sims.sample_represented(reps, b, s, seed=seed + 1)
+        if self._data_on_device is None:
+            self._data_on_device = torch.as_tensor(self._data,
+                                                   device=self.device)
+        return sims.hausdorff_point_set_distance(self._data_on_device,
+                                                 rep_a, rep_b)
 
     def _union_neighborhoods(self, level: int) -> SparseRows:
         knn_idx, _, mask = _graph_rows(self._graph)

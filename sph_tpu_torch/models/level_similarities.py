@@ -7,10 +7,11 @@ ImageHierarchy data-level probdist; WALKS levels use pairwise random-walk
 Bhattacharyya; kNN-metric levels use Gaussian-perplexity rows) and TSNE
 symmetrization (:589-623)).
 
-Ported: NEIGH_WALKS with pairwise walk similarities, NEIGH_OVERLAP with its
-per-level kNN (exact, or the approximate tier above
-SPH_APPROX_KNN_THRESHOLD components unless exact_knn is set), the TSNE
-normalization and symmetrization.
+Ported: NEIGH_WALKS with pairwise walk similarities (and, with
+force_compute_distances, the walks as the level's distance graph),
+NEIGH_OVERLAP and EUCLID_CENTROID with their per-level kNN (exact, or the
+approximate tier above SPH_APPROX_KNN_THRESHOLD components unless exact_knn
+is set), the TSNE normalization and symmetrization.
 """
 
 from __future__ import annotations
@@ -30,7 +31,9 @@ from ..ops import component_knn
 from ..ops.distributions import gaussian_row_distributions
 from ..ops.graph import KnnGraph, PaddedGraph
 from ..ops.similarities import (build_union_neighborhoods,
-                                neighbor_overlap_distance)
+                                component_hausdorff,
+                                neighbor_overlap_distance,
+                                sample_represented)
 from ..ops.sparse import (SparseRows, drop_zero_entries,
                           pairwise_similarities, shrink_width,
                           symmetrize_tsne)
@@ -117,7 +120,8 @@ class LevelSimilarities:
         if lss is not None:
             self._lss = lss
         cs = self._lss.component_sim
-        if cs not in (ComponentSim.NEIGH_WALKS, ComponentSim.NEIGH_OVERLAP):
+        if cs not in (ComponentSim.NEIGH_WALKS, ComponentSim.NEIGH_OVERLAP,
+                      ComponentSim.EUCLID_CENTROID):
             raise NotImplementedError(
                 f"level similarity {cs.value} not ported yet; see ROADMAP")
         if cs == ComponentSim.NEIGH_WALKS and not (
@@ -152,32 +156,90 @@ class LevelSimilarities:
 
     def _compute_knn_on_level(self, level: int):
         """Reference: computeNearestNeighborOnLevel (:191-442).  Walk levels
-        need no distance graph: their probdist comes from the walks.  Above
-        the approximate threshold, unless exact_knn is set, the approximate
+        take their probdist from the walks; with force_compute_distances
+        the walks also become the level's distance graph.  Above the
+        approximate threshold, unless exact_knn is set, the approximate
         tier (reference: computeApproximateKnn :254-334, hnswlib HNSW when
         exactKnn is false) with the JAX package's seed, the level."""
-        if level == 0 or self._lss.component_sim in WALK_SIMS:
+        if level == 0:
             return
+        if self._lss.component_sim in WALK_SIMS:
+            if self._lss.force_compute_distances:
+                self._use_walks_as_knn_distances(level)
+            return
+        c = self.hierarchy.num_components[level]
+        k = self._current_k(level)
+        approximate = not self._lss.exact_knn and c > _approx_knn_threshold()
+        if self._lss.component_sim == ComponentSim.EUCLID_CENTROID:
+            graph = self._hausdorff_knn(level, k, approximate)
+        else:
+            graph = self._overlap_knn(level, k, approximate)
+        self.distance_graphs[level] = graph
+        self.knn_tiers[level] = "approximate" if approximate else "exact"
+
+    def _overlap_knn(self, level: int, k: int, approximate: bool):
         if isinstance(self._graph, KnnGraph):
             knn_idx = self._graph.indices
         else:
             knn_idx = np.where(self._graph.mask, self._graph.indices, -1)
-        c = self.hierarchy.num_components[level]
-        k = self._current_k(level)
         unions = build_union_neighborhoods(
-            knn_idx, self.hierarchy.pixel_components[level], c,
-            device=self.device)
-        if not self._lss.exact_knn and c > _approx_knn_threshold():
-            feats = component_knn.project_sparse_rows(unions, seed=level)
-            self.distance_graphs[level] = (
-                component_knn.approx_pair_metric_knn(
-                    lambda a, b: neighbor_overlap_distance(unions, a, b),
-                    feats, k, seed=level, device=self.device))
-            self.knn_tiers[level] = "approximate"
-        else:
-            self.distance_graphs[level] = component_knn.knn_neighbor_overlap(
-                unions, k)
-            self.knn_tiers[level] = "exact"
+            knn_idx, self.hierarchy.pixel_components[level],
+            self.hierarchy.num_components[level], device=self.device)
+        if not approximate:
+            return component_knn.knn_neighbor_overlap(unions, k)
+        feats = component_knn.project_sparse_rows(unions, seed=level)
+        return component_knn.approx_pair_metric_knn(
+            lambda a, b: neighbor_overlap_distance(unions, a, b), feats, k,
+            seed=level, device=self.device)
+
+    def _hausdorff_knn(self, level: int, k: int, approximate: bool):
+        """EUCLID_CENTROID: the Hausdorff kNN of the components' sampled
+        points; the approximate tier's sketch is each component's centroid
+        of its samples (the JAX package's numpy expression, in chunks of
+        components)."""
+        rep = self._rep_samples(level)
+        data = torch.as_tensor(np.asarray(self._data, np.float32),
+                               device=self.device)
+        if not approximate:
+            return component_knn.knn_hausdorff(data, rep, k)
+        feats = np.empty((rep.shape[0], self._data.shape[1]), np.float32)
+        # components a chunk: about 2^26 gathered floats (256 MB)
+        step = max(1, (1 << 26) // (rep.shape[1] * self._data.shape[1]))
+        for c0 in range(0, rep.shape[0], step):
+            r = rep[c0:c0 + step]
+            mask = (r >= 0)[:, :, None]
+            pts = self._data[np.maximum(r, 0)]
+            feats[c0:c0 + step] = (np.where(mask, pts, 0.0).sum(1)
+                                   / np.maximum(mask.sum(1), 1))
+        return component_knn.approx_pair_metric_knn(
+            lambda a, b: component_hausdorff(data, rep, a, b), feats, k,
+            seed=level, device=self.device)
+
+    def _rep_samples(self, level: int) -> np.ndarray:
+        """Each component's represented pixels, sampled to S = min(the
+        level's largest set, num_geodesic_samples when > 0) with seed
+        `level`: [C, S] int64, -1 padded."""
+        reps = self.hierarchy.represented_points(level)
+        s = max(len(r) for r in reps)
+        samples = self.hierarchy.settings.num_geodesic_samples or 0
+        if samples > 0:
+            s = min(s, samples)
+        return sample_represented(
+            reps, np.arange(self.hierarchy.num_components[level]), s,
+            seed=level)
+
+    def _use_walks_as_knn_distances(self, level: int):
+        """Reference: useRandomWalksAsKnnDistances (:346-389): each row's
+        walk entries as distances 1 - value, stably sorted ascending, with
+        -1 / +inf where a row has no more entries."""
+        walks = self.hierarchy.random_walks[level]
+        dist = torch.where((walks.idx >= 0) & (walks.val != 0),
+                           1.0 - walks.val, torch.inf)
+        dist, order = torch.sort(dist, dim=1, stable=True)
+        ids = torch.where(torch.isfinite(dist), walks.idx.gather(1, order),
+                          -1)
+        self.distance_graphs[level] = (ids.to(torch.int32).cpu().numpy(),
+                                       dist.cpu().numpy())
 
     # ------------------------------------------------------------------
 

@@ -1,20 +1,23 @@
-"""kNN in component metric spaces: the exact NEIGH_OVERLAP tier and the
-approximate tier.
+"""kNN in component metric spaces: the exact NEIGH_OVERLAP and
+EUCLID_CENTROID tiers and the approximate tier.
 
 Port of sph_tpu/ops/component_knn.py (reference:
 sph/LevelSimilarities.cpp computeNearestNeighborOnLevel :191-442 with
 NeighborOverlapSpace.hpp:31-42, and computeApproximateKnn :254-334).
-``knn_neighbor_overlap`` is exact: the 0/1 membership matrix M gives every
-intersection count at once as M M^T (exact in float32: counts << 2^24).
-``approx_pair_metric_knn`` is the approximate tier: k-means cluster pruning
-over a JL sketch of each component (``project_sparse_rows``,
-``ivf_candidate_table``), then the exact pair metric on the candidates only.
-The exact Hausdorff and walk metrics are not ported yet.
+``knn_neighbor_overlap`` is exact: the intersection counts of a block of
+components with all others are one sparse product of the 0/1 membership
+rows with the block's dense membership columns (exact in float32: counts
+<< 2^24).  ``knn_hausdorff`` is exact: blocked products of the components'
+sampled points.  ``approx_pair_metric_knn`` is the approximate tier:
+k-means cluster pruning over a sketch of each component
+(``project_sparse_rows``, ``ivf_candidate_table``), then the exact pair
+metric on the candidates only.  The walk metrics are not ported yet.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -22,33 +25,149 @@ import torch
 from ..device import resolve_device
 from . import knn
 from .graph import ensure_self_first
+from .numerics import row_dot, sqrt
 from .sparse import SparseRows
 
 
-def knn_neighbor_overlap(unions: SparseRows, k: int, block: int = 1024
+# bytes of the exact NEIGH_OVERLAP kNN's blocks: a block's dense membership
+# columns [N, block] and its [block, C] counts, distances and selection
+OVERLAP_MEMORY_BUDGET = 1 << 30
+
+
+def overlap_block(c: int, n: int,
+                  memory_budget: int = OVERLAP_MEMORY_BUDGET) -> int:
+    """Row components per block of `knn_neighbor_overlap`: the block's
+    float32 membership columns [n, block] and its [block, c] float32
+    counts and distances and int64 keys within `memory_budget` bytes."""
+    return max(1, min(c, memory_budget // (4 * n + 24 * c)))
+
+
+def knn_neighbor_overlap(unions: SparseRows, k: int,
+                         memory_budget: int = OVERLAP_MEMORY_BUDGET
                          ) -> tuple[np.ndarray, np.ndarray]:
     """Per component, the k nearest components by 1 - |A^B| / min(|A|,|B|):
     (ids [C, k] int32, dists [C, k] f32), ascending with ties to the lower
-    id, self first."""
+    id, self first.
+
+    The intersection counts of a block of components with all C come from
+    one sparse product: the 0/1 membership rows of all components (CSR,
+    [C, N]) times the block's membership as dense columns [N, block].
+    Every count is a sum of 1.0s below 2^24, exact in float32 in any
+    order, so the counts are the JAX package's int8 membership product's.
+    No [C, N] matrix is built; blocks are sized from `memory_budget`
+    (``overlap_block``)."""
     c, n = unions.num_rows, unions.num_cols
     dev = unions.device
     ok = unions.idx >= 0
-    members = torch.zeros((c, n), dtype=torch.float32, device=dev)
-    rows = torch.arange(c, device=dev)[:, None].expand_as(unions.idx)
-    members[rows[ok], unions.idx[ok]] = 1.0
-    counts = members.sum(1)
+    counts = ok.sum(1).to(torch.float32)
+    cols = unions.idx[ok]
+    crow = torch.zeros(c + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(ok.sum(1), 0)
+    with warnings.catch_warnings():       # CSR support is marked beta
+        warnings.simplefilter("ignore")
+        members = torch.sparse_csr_tensor(
+            crow, cols, torch.ones(cols.numel(), device=dev), (c, n))
     kk = min(k, c)
+    block = overlap_block(c, n, memory_budget)
     ids = torch.arange(c, device=dev)
     out_i, out_d = [], []
     for r0 in range(0, c, block):
-        inter = members[r0:r0 + block] @ members.T
-        m = torch.minimum(counts[r0:r0 + block, None], counts[None, :])
+        r1 = min(r0 + block, c)
+        rok = ok[r0:r1]
+        dense = torch.zeros((n, r1 - r0), dtype=torch.float32, device=dev)
+        dense[unions.idx[r0:r1][rok],
+              torch.nonzero(rok, as_tuple=True)[0]] = 1.0
+        inter = (members @ dense).T                     # [block, C]
+        del dense
+        m = torch.minimum(counts[r0:r1, None], counts[None, :])
         sim = torch.where(m > 0, inter / torch.clamp(m, min=1.0), 0.0)
-        dist = torch.where(ids[None, :] == ids[r0:r0 + block, None], 0.0,
-                           1.0 - sim)
-        sd, si = torch.sort(dist, dim=1, stable=True)
-        out_d.append(sd[:, :kk])
-        out_i.append(si[:, :kk])
+        dist = torch.where(ids[None, :] == ids[r0:r1, None], 0.0, 1.0 - sim)
+        del inter, m, sim
+        top = knn._bottom_k(dist, kk, memory_budget)
+        out_d.append(dist.gather(1, top))
+        out_i.append(top)
+    idx, dist, _ = ensure_self_first(
+        torch.cat(out_i).to(torch.int32).cpu().numpy(),
+        torch.cat(out_d).cpu().numpy())
+    return idx.astype(np.int32), dist.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# EUCLID_CENTROID: sampled-point Hausdorff matrix
+# ---------------------------------------------------------------------------
+
+# bytes held for each (row sample, column sample) pair of a tile: the float32
+# product and the float32 squared distances built from it
+_HAUSDORFF_BYTES_PER_PAIR = 8
+
+
+def hausdorff_blocks(c: int, s: int,
+                     memory_budget: int = knn.KNN_MEMORY_BUDGET
+                     ) -> tuple[int, int]:
+    """(row components, column components) of one tile of `knn_hausdorff`:
+    about 4096 row samples, and as many columns as the tile's
+    [rows * s, cols * s] buffers fit in `memory_budget` bytes."""
+    rows = max(1, min(c, 4096 // s))
+    cols = memory_budget // (_HAUSDORFF_BYTES_PER_PAIR * rows * s * s)
+    return rows, max(1, min(c, cols))
+
+
+def knn_hausdorff(data, rep_samples: np.ndarray, k: int, device=None,
+                  memory_budget: int = knn.KNN_MEMORY_BUDGET
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """Per component, the k nearest components by the symmetric Hausdorff
+    distance of their sampled points (rep_samples [C, S] data point ids, -1
+    padded): (ids [C, k] int32, dists [C, k] f32), ascending with ties to
+    the lower id, self first (reference: EuclidSpace over the components'
+    represented points).
+
+    The JAX package's arithmetic (_hausdorff_knn): the squared distances
+    (|a|^2 + |b|^2) - 2 a.b of all sample pairs from one 2-D product, the
+    max over each set's samples of the min over the other's, floored at 0
+    and square-rooted (monotone, so taken after the min and max: same
+    values), 0 on the diagonal, then the bottom k.  Blocked over row
+    components and, where a row block's [rows * S, C * S] tile exceeds
+    `memory_budget`, over column components (``hausdorff_blocks``)."""
+    c, s = rep_samples.shape
+    if isinstance(data, torch.Tensor):
+        x = data.to(torch.float32)
+    else:
+        x = torch.as_tensor(np.asarray(data, np.float32),
+                            device=resolve_device(device))
+    dev = x.device
+    rep = torch.as_tensor(np.asarray(rep_samples, np.int64), device=dev)
+    ok = rep >= 0
+    ids = rep.clamp(min=0)
+    # a pad sample's norm is +inf, which drops it from the minima
+    norms = torch.where(ok, row_dot(x, x)[ids], torch.inf)
+    points = x[ids]                                     # [C, S, D]
+    kk = min(k, c)
+    rb, cb = hausdorff_blocks(c, s, memory_budget)
+    cols = torch.arange(c, device=dev)
+    out_i, out_d = [], []
+    for r0 in range(0, c, rb):
+        r1 = min(r0 + rb, c)
+        rows = points[r0:r1].reshape(-1, x.shape[1])
+        h = torch.empty((r1 - r0, c), dtype=torch.float32, device=dev)
+        for c0 in range(0, c, cb):
+            c1 = min(c0 + cb, c)
+            ip = rows @ points[c0:c1].reshape(-1, x.shape[1]).T
+            d2 = torch.add(norms[r0:r1].reshape(-1, 1),
+                           norms[c0:c1].reshape(1, -1))
+            d2.sub_(ip.mul_(2.0))
+            del ip
+            d2 = d2.view(r1 - r0, s, c1 - c0, s)
+            h1 = torch.where(ok[r0:r1, :, None], d2.amin(3),
+                             -torch.inf).amax(1)
+            h2 = torch.where(ok[None, c0:c1, :], d2.amin(1),
+                             -torch.inf).amax(2)
+            h[:, c0:c1] = torch.maximum(h1, h2)
+            del d2
+        h = sqrt(torch.clamp(h, min=0.0))
+        h[torch.arange(r1 - r0, device=dev), cols[r0:r1]] = 0.0
+        top = knn._bottom_k(h, kk, memory_budget)
+        out_d.append(h.gather(1, top))
+        out_i.append(top)
     idx, dist, _ = ensure_self_first(
         torch.cat(out_i).to(torch.int32).cpu().numpy(),
         torch.cat(out_d).cpu().numpy())

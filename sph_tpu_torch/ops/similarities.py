@@ -1,11 +1,11 @@
 """Batched component-pair distances for the Borůvka merge step.
 
-Port of the NEIGH_WALKS and NEIGH_OVERLAP metrics of
+Port of the NEIGH_WALKS, NEIGH_OVERLAP and EUCLID_CENTROID metrics of
 sph_tpu/ops/similarities.py (reference: sph/utils/Similarities.cpp —
 componentDistance :123-156, NEIGH_OVERLAP :174-228, NEIGH_WALKS
-Bhattacharyya :353-396).  Every metric evaluates all requested (a, b) pairs
-in one batched call on the rows' device.  The geodesic, Hausdorff and
-single-overlap metrics are not ported yet.
+Bhattacharyya :353-396, EUCLID_CENTROID Hausdorff :414-483).  Every metric
+evaluates all requested (a, b) pairs in batched calls on one device.  The
+geodesic and single-overlap metrics are not ported yet.
 """
 
 from __future__ import annotations
@@ -13,9 +13,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
+from .numerics import row_dot, sqrt
 from .sparse import PAD, SparseRows, bhattacharyya_pairs
 
 _BIG = torch.iinfo(torch.int64).max
+# bytes of one chunk of Hausdorff pairs: both gathered point sets and the
+# [S, S] product of each pair
+HAUSDORFF_MEMORY_BUDGET = 2 << 30
 
 
 def walks_bhattacharyya_distance(walks: SparseRows, pairs_a: np.ndarray,
@@ -78,3 +83,107 @@ def neighbor_overlap_distance(unions: SparseRows, pairs_a: np.ndarray,
                           0.0)
         out[i0:i0 + chunk] = 1.0 - sim
     return out.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# EUCLID_CENTROID: symmetric Hausdorff of represented point sets
+# ---------------------------------------------------------------------------
+
+def sample_represented(rep_lists: list[np.ndarray], comp_ids: np.ndarray,
+                       max_samples: int, seed: int) -> np.ndarray:
+    """[E, max_samples] int64 data point ids of each component in
+    `comp_ids`, -1 padded (reference: geodesic/euclid sampling,
+    Similarities.cpp:286-305).  A set of at most `max_samples` points is
+    taken whole; a larger one is drawn uniformly with replacement by the
+    JAX package's ``rng.choice`` calls, in the same order from the same
+    seed, so the draws are the same numbers."""
+    comp_ids = np.asarray(comp_ids, np.int64)
+    sizes = np.fromiter((len(r) for r in rep_lists), np.int64,
+                        len(rep_lists))
+    starts = np.zeros(len(rep_lists) + 1, np.int64)
+    np.cumsum(sizes, out=starts[1:])
+    flat = (np.concatenate(rep_lists).astype(np.int64) if len(rep_lists)
+            else np.zeros(1, np.int64))
+    size = sizes[comp_ids]
+    slot = np.arange(max_samples)
+    pos = np.minimum(starts[comp_ids][:, None] + slot, max(flat.size - 1, 0))
+    out = np.where(slot < size[:, None], flat[pos], -1)
+    rng = np.random.default_rng(seed)
+    for i in np.nonzero(size > max_samples)[0]:
+        out[i] = rng.choice(rep_lists[comp_ids[i]], size=max_samples,
+                            replace=True)
+    return out
+
+
+def hausdorff_chunk(samples: int, dim: int,
+                    memory_budget: int = HAUSDORFF_MEMORY_BUDGET) -> int:
+    """Pairs per chunk: the two gathered [S, D] sets and the [S, S] product
+    and distances of each pair within `memory_budget` bytes."""
+    per_pair = 4 * (2 * samples * dim + 2 * samples * samples)
+    return max(1, memory_budget // per_pair)
+
+
+def _hausdorff_sets(x: torch.Tensor, sq: torch.Tensor, ra: torch.Tensor,
+                    rb: torch.Tensor) -> torch.Tensor:
+    """Symmetric Hausdorff distance of the point sets x[ra[e]] and x[rb[e]]
+    ([E, S] ids, -1 padded; `sq` the points' squared norms): the larger of
+    the two directed distances, each the max over one set's points of the
+    min over the other's.  The JAX package's arithmetic (_hausdorff_device):
+    (|a|^2 + |b|^2) - 2 a.b per point pair, floored at 0, square-rooted.
+    The root and the floor are monotone, so they are taken after the min
+    and max, which leaves every value as it was; a pad point's norm is
+    +inf, which drops it from the minima."""
+    ma, mb = ra >= 0, rb >= 0
+    ia, ib = ra.clamp(min=0), rb.clamp(min=0)
+    na = torch.where(ma, sq[ia], torch.inf)
+    nb = torch.where(mb, sq[ib], torch.inf)
+    ip = torch.bmm(x[ia], x[ib].transpose(1, 2))
+    d2 = torch.add(na[:, :, None], nb[:, None, :])
+    d2.sub_(ip.mul_(2.0))
+    del ip
+    h1 = torch.where(ma, d2.amin(2), -torch.inf).amax(1)
+    h2 = torch.where(mb, d2.amin(1), -torch.inf).amax(1)
+    return sqrt(torch.clamp(torch.maximum(h1, h2), min=0.0))
+
+
+def component_hausdorff(data, rep, pairs_a, pairs_b, device=None,
+                        memory_budget: int = HAUSDORFF_MEMORY_BUDGET
+                        ) -> np.ndarray:
+    """Symmetric Hausdorff distance between the sample sets rep[a] and
+    rep[b] of each component pair (a, b): [E] float32.  `rep` [C, S] holds
+    each component's data point ids, -1 padded; `data` [N, D] is a numpy
+    array or a tensor.  The pairs' sets are gathered on the device chunk by
+    chunk (``hausdorff_chunk``), so no [E, S] array is built."""
+    e = len(pairs_a)
+    if e == 0:
+        return np.empty(0, np.float32)
+    if isinstance(data, torch.Tensor):
+        x = data.to(torch.float32)
+    else:
+        x = torch.as_tensor(np.asarray(data, np.float32),
+                            device=resolve_device(device))
+    dev = x.device
+    sq = row_dot(x, x)
+    rep = torch.as_tensor(np.asarray(rep, np.int64), device=dev)
+    a = torch.as_tensor(np.asarray(pairs_a, np.int64), device=dev)
+    b = torch.as_tensor(np.asarray(pairs_b, np.int64), device=dev)
+    chunk = hausdorff_chunk(rep.shape[1], x.shape[1], memory_budget)
+    out = torch.empty(e, dtype=torch.float32, device=dev)
+    for i0 in range(0, e, chunk):
+        out[i0:i0 + chunk] = _hausdorff_sets(x, sq, rep[a[i0:i0 + chunk]],
+                                             rep[b[i0:i0 + chunk]])
+    return out.cpu().numpy()
+
+
+def hausdorff_point_set_distance(data, rep_a: np.ndarray,
+                                 rep_b: np.ndarray, device=None,
+                                 memory_budget: int = HAUSDORFF_MEMORY_BUDGET
+                                 ) -> np.ndarray:
+    """Symmetric Hausdorff over represented data points (reference:
+    euclidDistance, Similarities.cpp:414-483 + symmetricHausdorffDistance):
+    rep_a / rep_b [E, S] data point ids, -1 padded (sampling to S is the
+    caller's job, ``sample_represented``) -> [E] float32."""
+    e = rep_a.shape[0]
+    idx = np.arange(e)
+    return component_hausdorff(data, np.concatenate([rep_a, rep_b]), idx,
+                               idx + e, device, memory_budget)

@@ -17,17 +17,21 @@ interpolation error of the smooth kernels, O(h^4).
 The JAX package writes the spreading and the interpolation as dense
 [c, G] Lagrange-weight matmuls, 14 N G^2 flops an iteration, because
 scatters serialize on a TPU.  Here each point has its 4 x 4 taps: the
-charges go onto the grid with one ``index_add_`` over flat cell ids, and
-the fields come back with one 16-tap gather; the convolution is
-``torch.fft.rfft2`` / ``irfft2``.  These are torch ops (the JAX program has
-no Pallas source); a hand-written kernel waits until a profile names one.
+charges go onto the grid by sorted segment sums (below), and the fields
+come back with one 16-tap gather; the convolution is ``torch.fft.rfft2`` /
+``irfft2``.  These are torch ops (the JAX program has no Pallas source); a
+hand-written kernel waits until a profile names one.
 
-Order of the sums: on the card ``index_add_`` adds with atomics, in no
-fixed order, so two calls on the same input may differ in the last bits of
-the grid charges, and so of the forces and Z.  The port accepts that, as
-the exact tier accepts float32 sums in another order than the JAX package;
-``chip_smoke.py`` measures the run-to-run difference at 10^6 points.  On
-the CPU the sum order is fixed.
+Order of the sums: the deposit adds in a fixed order, so two calls on the
+same input give the same bits.  A point's 16 taps are its base cell (the
+tap u0, v0) shifted by (du, dv), du, dv in 0..3.  The points are stably
+sorted by base cell once; each base cell's 48 weighted tap charges are
+summed over its points in that order, in pieces of at most 64 points
+whose sums are then added in turn (``torch.segment_reduce`` twice: one
+sequential sum a segment and column), and each grid node then sums the
+taps of the base cells that cover it (``torch.nn.functional.fold``: a
+gather over the covering cells in a fixed order).  A scatter-add
+(``index_add_``) would add with atomics on the card, in no fixed order.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ import torch
 # map into grid coordinates [3, G-4] and every tap stays on the grid
 _MARGIN = 3
 _BIG = 3.4e38
+# the most points of one base cell that the deposit sums in one sequence
+_PIECE = 64
 
 
 def pick_grid_size(span: float, target_h: float = 0.35,
@@ -92,20 +98,51 @@ def grid_taps(y: torch.Tensor, lo: torch.Tensor, h: torch.Tensor,
     return cells.reshape(-1, 16), wx, wy
 
 
+def cell_sums(y: torch.Tensor, cells: torch.Tensor, wx: torch.Tensor,
+              wy: torch.Tensor, grid: int) -> torch.Tensor:
+    """[G*G, 48] the weighted tap charges of each base cell's points,
+    laid out (charge, du, dv), summed in a fixed order (see the module
+    doc): segment sums in the points' stably sorted order, in pieces."""
+    c = y.shape[0]
+    base = cells[:, 0].to(torch.int32)                       # u0 * G + v0
+    bases, order = torch.sort(base, stable=True)
+    # each point's charges and weights, gathered once in that order
+    ones = torch.ones((c, 1), dtype=y.dtype, device=y.device)
+    packed = torch.index_select(torch.cat([ones, y, wx, wy], 1), 0, order)
+    q, wxs, wys = packed[:, :3], packed[:, 3:7], packed[:, 7:]
+    # weight order of the JAX package's rows: wy * (q * wx)
+    qx = q[:, :, None] * wxs[:, None, :]                     # [c, 3, 4(v)]
+    src = (wys[:, None, :, None] * qx[:, :, None, :]).reshape(c, 48)
+    # each cell's points in pieces of at most _PIECE: the sums of the pieces
+    # (level 1), then of each cell's pieces (level 2), so that no thread of
+    # segment_reduce walks a whole crowded cell alone
+    rank = torch.arange(c, device=y.device) - torch.searchsorted(bases, bases)
+    piece = torch.cumsum(rank % _PIECE == 0, 0) - 1
+    pieces = grid * grid + c // _PIECE            # at least the pieces made
+    bounds = torch.searchsorted(piece, torch.arange(pieces + 1,
+                                                    device=y.device))
+    # unsafe: the bounds are valid by construction, and the checks of the
+    # safe call would wait on the card twice
+    part = torch.segment_reduce(src, "sum", offsets=bounds, axis=0,
+                                unsafe=True, initial=0.0)
+    made = bounds[:-1] < c                        # unused pieces stay empty
+    cell = torch.where(made, bases[bounds[:-1].clamp(max=c - 1)],
+                       grid * grid)
+    bounds = torch.searchsorted(cell, torch.arange(
+        grid * grid + 1, dtype=torch.int32, device=y.device))
+    return torch.segment_reduce(part, "sum", offsets=bounds, axis=0,
+                                unsafe=True, initial=0.0)
+
+
 def deposit_charges(y: torch.Tensor, cells: torch.Tensor, wx: torch.Tensor,
                     wy: torch.Tensor, grid: int) -> torch.Tensor:
     """[3, G, G] charge grids (unit, y_x, y_y), laid out [u, v], from the
-    points y [c, 2] with their taps: one scatter-add of 16 c weighted
-    charges."""
-    c = y.shape[0]
-    q = torch.cat([torch.ones((c, 1), dtype=y.dtype, device=y.device), y], 1)
-    # weight order of the JAX package's rows: wy * (q * wx)
-    qx = q[:, :, None] * wx[:, None, :]                      # [c, 3, 4(v)]
-    src = wy[:, :, None, None] * qx[:, None, :, :]           # [c, 4, 3, 4]
-    src = src.permute(0, 1, 3, 2).reshape(c * 16, 3)
-    charges = torch.zeros((grid * grid, 3), dtype=y.dtype, device=y.device)
-    charges.index_add_(0, cells.reshape(-1), src)
-    return charges.T.reshape(3, grid, grid)
+    points y [c, 2] with their taps: each base cell's summed tap charges
+    (``cell_sums``) folded onto the grid."""
+    sums = cell_sums(y, cells, wx, wy, grid)
+    out = torch.nn.functional.fold(sums.T[None], (grid + 3, grid + 3),
+                                   kernel_size=4)
+    return out[0, :, :grid, :grid]
 
 
 def _kernel_spectra(h: torch.Tensor, grid: int):

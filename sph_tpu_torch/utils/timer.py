@@ -51,6 +51,14 @@ def phase_report(reset: bool = True, min_s: float = 0.0) -> str:
     return "\n".join(lines)
 
 
+def phase_totals(reset: bool = True) -> dict[str, float]:
+    """Seconds accumulated by each phase name (see ``phase``)."""
+    out = {name: tot for name, (tot, _) in _PHASES.items()}
+    if reset:
+        _PHASES.clear()
+    return out
+
+
 @contextmanager
 def scoped_timer(name: str, verbose: bool = True):
     """RAII-style timer (reference: Timer.hpp:48-60)."""

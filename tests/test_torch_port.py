@@ -109,14 +109,14 @@ def test_default_device_is_cuda_or_a_clear_error():
 
 @pytest.mark.parametrize("change", [
     {"component_sim": "geo_centroid"},
-    {"component_sim": "euclid_centroid"},
+    {"component_sim": "neigh_walks_single_overlap"},
     {"rw_handling": "merge_rw_new_walks"},
-    {"level_sim": "euclid_centroid"},
+    {"level_sim": "neigh_walks_single_overlap"},
 ])
 def test_unported_branches_raise(change, monkeypatch):
-    """The level_sim case: EUCLID_CENTROID level similarities with the
-    approximate threshold at 4 components, so its levels would take the
-    approximate tier, which is not ported."""
+    """The level_sim case: NEIGH_WALKS_SINGLE_OVERLAP level similarities
+    (with the approximate threshold at 4 components, as for any level
+    metric), which are not ported."""
     from sph_tpu_torch.utils.testdata import create_checker_image
     img = create_checker_image(6, 6, channels=3, block=2, noise=0.02)
     data = T.scale(T.ImageStack.from_array(img).data, T.Scaler.STANDARD)

@@ -377,3 +377,163 @@ def test_reference_pair_metric_equals_the_jax_package():
     assert np.array_equal(
         ref.overlap_distance_by_sparse_product(unions, a, b, chunk=4096),
         neighbor_overlap_distance(unions, a, b))
+
+
+@pytest.fixture(scope="module")
+def small_salinas():
+    """The salinas_euclid phase at 24 x 20 x 16 with the approximate
+    threshold at 60 components, so level 1 (118 components) takes the
+    approximate Hausdorff kNN and the levels below it the exact one."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(chip_smoke, "DEV", "cpu")
+    mp.setenv("SPH_APPROX_KNN_THRESHOLD", "60")
+    try:
+        yield chip_smoke.salinas_euclid(tsne_kernels, shape=(24, 20, 16),
+                                        iters=100, umap_epochs=30,
+                                        sampled=100, exact_rows=16)
+    finally:
+        mp.undo()
+
+
+def test_salinas_euclid_phase_small(small_salinas):
+    out = small_salinas
+    levels = out["levels"]
+    assert levels[0] == 480 and levels[1] > 60 and len(levels) >= 4
+    assert out["knn_tiers"][1] == "approximate"
+    assert all(out["knn_tiers"][lv] == "exact" for lv in range(2, len(levels)))
+    assert out["level_1_samples"] == out["largest_set_by_level"][1]
+    assert 0.5 < out["level_1_component_knn_recall"] <= 1.0
+    assert out["level_2_exactness"]["rows"] == 16
+    assert out["level_2_exactness"]["max_dist2_err_over_band"] <= 1.0
+    assert sorted(out["tsne"]) == [1, 2, 3] and sorted(out["p"]) == [1, 2, 3]
+    for level, run in out["tsne"].items():
+        assert run["n"] == levels[level] and run["tier"] == "dense"
+        assert run["init"] == ("random disk" if level == 1
+                               else "average_position_of_children")
+        assert run["embedding_finite"] and sorted(run["kl_at"]) == ["0", "100"]
+        assert out["p"][level]["p_asymmetry"] == 0
+        assert out["p"][level]["conditional_row_sum_err"] <= 1e-3
+    assert out["launches"] == {"tsne_forces_dense": 0, "tsne_repulsion": 0}
+    assert out["umap"]["n"] == levels[1] and out["umap"]["embedding_finite"]
+    assert set(out["seconds"]) >= {"stage1_knn", "stage2_hierarchy",
+                                   "stage3_level_similarities"}
+    assert out["seconds_by_part"]["stage2_hierarchy"]
+    assert out["peak_memory_bytes"]["stage1_knn"] == "not measured"
+
+
+def test_salinas_gates_pass_and_catch_each_fault(small_salinas):
+    """The gates on the small run, its kernel counts set as the card's
+    would be and the record made from the run itself; each fault raises."""
+    import copy
+    ok = copy.deepcopy(small_salinas)
+    for run in ok["tsne"].values():
+        run["launches"] = {"tsne_forces_dense": 100, "tsne_repulsion": 1}
+        run["kl_at"] = {"0": 2.0, "100": 1.0}
+    ref = {"size": ok["size"], "levels": list(ok["levels"]),
+           "approx_knn_threshold": 60,
+           "level_1_component_knn_recall": ok["level_1_component_knn_recall"]}
+    chip_smoke.salinas_gates(ok, ref)
+
+    def broken(change):
+        bad = copy.deepcopy(ok)
+        change(bad)
+        return bad
+
+    faults = {
+        "within 2 %": lambda s: s["levels"].__setitem__(1, 130),
+        "levels vs": lambda s: s["levels"].extend([1, 1]),
+        "took the exact": lambda s: s["knn_tiers"].__setitem__(1, "exact"),
+        "recall": lambda s: s.__setitem__(
+            "level_1_component_knn_recall",
+            ref["level_1_component_knn_recall"] - 0.02),
+        "float64": lambda s: s.__setitem__("level_2_exactness", None),
+        "falling": lambda s: s["tsne"][2]["kl_at"].__setitem__("100", 3.0),
+        "launched": lambda s: s["tsne"][1]["launches"].__setitem__(
+            "tsne_forces_dense", 99),
+        "Z did not": lambda s: s["tsne"][3]["launches"].__setitem__(
+            "tsne_repulsion", 0),
+    }
+    for match, change in faults.items():
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.salinas_gates(broken(change), ref)
+
+
+def test_hausdorff_exactness_passes_and_catches_a_wrong_neighbour(
+        monkeypatch):
+    from sph_tpu_torch.ops.component_knn import knn_hausdorff
+    from sph_tpu_torch.ops.similarities import (component_hausdorff,
+                                                sample_represented)
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    rng = np.random.default_rng(6)
+    data = (rng.standard_normal((900, 24)) * 3).astype(np.float32)
+    comp = np.concatenate([np.arange(80), rng.integers(0, 80, 820)])
+    reps = [np.nonzero(comp == c)[0] for c in range(80)]
+    rep = sample_represented(reps, np.arange(80), 9, seed=3)
+    ids, dists = knn_hausdorff(data, rep, 10, device="cpu")
+    rows = np.arange(0, 80, 3)
+    out = chip_smoke.hausdorff_exactness(data, rep, ids, dists, rows)
+    assert out["rows"] == rows.size and out["max_swap_over_band"] <= 1.0
+    assert out["max_dist2_err_over_band"] <= 1.0
+    kth = chip_smoke.hausdorff_kth(data, rep, rows, 10)
+    assert np.allclose(kth, dists[rows, -1], rtol=1e-5)
+    wrong = ids.copy()
+    wrong[0, -1] = np.argmax(component_hausdorff(
+        data, rep, np.zeros(80, np.int64), np.arange(80), device="cpu"))
+    with pytest.raises(AssertionError, match="float32 band"):
+        chip_smoke.hausdorff_exactness(data, rep, wrong, dists, [0])
+
+
+def test_reference_chunked_pair_fn_equals_the_whole_call():
+    """scripts/salinas_euclid_reference.py evaluates the JAX package's
+    Hausdorff pair function on chunks of pairs: the same values as one
+    call over all pairs, E not a multiple of the chunk."""
+    from sph_tpu.ops.similarities import (hausdorff_point_set_distance,
+                                          sample_represented)
+    ref = _load_script("salinas_euclid_reference",
+                       ("scripts", "salinas_euclid_reference.py"))
+    rng = np.random.default_rng(4)
+    data = (rng.standard_normal((600, 20)) * 2).astype(np.float32)
+    comp = np.concatenate([np.arange(50), rng.integers(0, 12, 550)])
+    reps = [np.nonzero(comp == c)[0] for c in range(50)]
+    rep = sample_represented(reps, np.arange(50), 7, seed=2)
+    a, b = rng.integers(0, 50, 1000), rng.integers(0, 50, 1000)
+
+    def pair(a, b):
+        return hausdorff_point_set_distance(data, rep[a], rep[b])
+
+    got = ref.chunked_pair_fn(pair, threads=3, chunk=96)(a, b)
+    assert np.array_equal(got, pair(a, b))
+    assert ref.chunked_pair_fn(pair, 2, 96)(a[:0], b[:0]).shape == (0,)
+
+
+def test_reference_stage1_knn_equals_the_jax_package():
+    """scripts/salinas_euclid_reference.py gives the JAX package's
+    NearestNeighbors the port's CPU exact kNN: the same ids and distances
+    as the JAX package's own, on the record's band count and k."""
+    from sph_tpu.ops.knn import compute_knn
+    from sph_tpu.settings import KnnIndex
+    from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
+    ref = _load_script("salinas_euclid_reference",
+                       ("scripts", "salinas_euclid_reference.py"))
+    data = create_hyperspectral_scene(24, 30, 224, seed=13).reshape(
+        -1, 224).astype(np.float32)
+    swapped = ref.port_exact_knn(compute_knn)
+    for index in (KnnIndex.FLAT, KnnIndex.BRUTE_FORCE):
+        ij, dj = compute_knn(data, 31, index)
+        it, dt = swapped(data, 31, index)
+        assert np.array_equal(it, ij) and np.array_equal(dt, dj)
+        assert it.dtype == ij.dtype and dt.dtype == dj.dtype
+
+
+def test_deep_levels_gate_holds_scene_overlaps_levels():
+    """The card's levels (PERF.md) pass against the JAX-CPU record; a
+    level 2 off by more than 10 % fails; levels below 100 components are
+    not gated."""
+    record = [65536, 16174, 2040, 197, 20, 5, 2, 1]
+    chip_smoke.deep_levels_gate([65536, 16198, 1984, 182, 21, 5, 1], record,
+                                "scene_overlap")
+    chip_smoke.deep_levels_gate([65536, 16174, 2040, 197, 40, 9], record, "s")
+    with pytest.raises(AssertionError, match="level 2"):
+        chip_smoke.deep_levels_gate([65536, 16174, 1800, 197], record, "s")
+    with pytest.raises(AssertionError, match="level 3"):
+        chip_smoke.deep_levels_gate([65536, 16174, 2040, 220], record, "s")
