@@ -8,7 +8,8 @@ Phases, each printing one JSON line, and each raising on failure:
 1. device  — CUDA and exactly one visible card; its name and the
    ``nvidia-smi --query-gpu=name,power.limit`` line.
 2. build   — compile every CUDA kernel from csrc/ (one nvcc each, started
-   together), and the host graph ops from sph_tpu/native/graphops.cpp.
+   together), and the host graph ops from the port's own
+   sph_tpu_torch/native/graphops.cpp.
 3. kernel_vs_twin — each kernel against its plain PyTorch twin on the card
    at the paths' shapes, with the time per call of both (CUDA events):
    tsne_forces_dense at the Pines level-1 shapes, tsne_repulsion at
@@ -52,32 +53,52 @@ Phases, each printing one JSON line, and each raising on failure:
    below's layout) with falling KLs, UMAP of level 1 for 500 epochs;
    seconds and peak memory by stage and part; tsne_forces_dense against
    its twin at level 1's shape.
-9. large_graph — BASELINE config 4 (benchmarks/bench_1m.py): a
+9. rgb_geo — GEO_CENTROID in both stages on a 240x240 RGB scene
+   (create_hyperspectral_scene(240, 240, 3, seed=13), 57600 pixels;
+   configs/rgb_bus_geo.json through run_evaluation.py's wiring, 100
+   samples): stages 1-3 (level 1 takes the geodesic sketch in stage 2 and
+   the contracted component graph in stage 3), 2000 dense-tier t-SNE
+   iterations of levels 1, 2 and 3 from random layouts (tsne_forces_dense
+   launched 3 x 2000 times) with falling KLs and P's checks; the port's
+   fields from 64 pixels against scipy's float64 Dijkstra within hops x
+   2^-23 relative; the level-1 sketch path's values against the exact
+   fields on 200 pairs (Spearman >= 0.99, argmin agreement >= 0.95), and
+   the sketch alone on every level-1 neighbour pair where it meets (at
+   least 100 pairs, none below exact x (1 - 16 x 2^-23), the same two
+   rank gates); levels strictly falling over at least 4; seconds, peak
+   memory and the geodesic log (field batches, sweeps, unresolved level-0
+   pairs, the sketch build) by stage; both kernels against their twins at
+   the shapes of levels 1-3.  Then rgb_geo_record: GEO_CENTROID and
+   GEO_WALKS at 96x80x3 with CONTRACT_THRESHOLD 512 against the JAX-on-CPU
+   record in docs/torch_port_rgb_geo_reference.json (levels; where the
+   level count agrees, the kNN ids of 64 rows of levels 1-2 and the sketch
+   Hausdorff of the record's 200 sampled pixel sets within 1e-5).
+10. large_graph — BASELINE config 4 (benchmarks/bench_1m.py): a
    1000x1000x100 synthetic stack and its exact kNN graph (k = 16, once for
    both tiers below); kNN invariants and exactness against float64
    distances on 1024 sampled rows.
-10. large_ivf — the same stack through compute_knn on its size tier
+11. large_ivf — the same stack through compute_knn on its size tier
    (HNSW, flat IVF) twice: seconds and peak memory beside the exact kNN's,
    recall@16 over all rows against the exact graph, a complete graph, the
    two results bit-equal.
-11. large_grid — t-SNE from that graph at perplexity 5 on the default tier,
+12. large_grid — t-SNE from that graph at perplexity 5 on the default tier,
    the grid, for the reference's 4000 iterations: seconds, iterations/s,
    the grid sizes, the KL at iterations 0, 250, 1000 and 4000, the grid's
    Z against tsne_repulsion's (at most 1e-3 apart) and the final KL with
    the exact Z, milliseconds an iteration by part, two calls of the
    grid's repulsion bit-equal (the deposit sums in a fixed order), peak
    memory; no kernel launches on this tier.
-12. large  — the same graph on the exact sparse-P tier (SPH_TSNE_GRID=0),
+13. large  — the same graph on the exact sparse-P tier (SPH_TSNE_GRID=0),
    cut to 10 iterations; the KL before and after, the launches.
-13. large_checks — a symmetric P whose conditional rows sum to 1, the
+14. large_checks — a symmetric P whose conditional rows sum to 1, the
    exact tier (tsne_repulsion on every iteration, tsne_forces_dense never),
    a falling KL, a finite embedding with zero pad rows, and tsne_repulsion
    against its twin at the embedding the path produced.
-14. grid_vs_exact — the 1M recipe at 256x256 (65536 points), 1000
+15. grid_vs_exact — the 1M recipe at 256x256 (65536 points), 1000
    iterations on the grid and the exact tier from the same P and initial
    layout, both scored under that P with the exact Z: KL_grid <= 1.001 x
    KL_exact.
-15. ivf_recall — benchmarks/bench_recall.py's clustered data at 10^6 x
+16. ivf_recall — benchmarks/bench_recall.py's clustered data at 10^6 x
    100 (seed 0), a full self-kNN on HNSW, HNSWSQ and HNSW_IVFPQ, recall@16
    on 1024 sampled rows against float64 distances, each at least the JAX
    package's record less 0.01; seconds, peak memory and the IVF layout.
@@ -131,6 +152,18 @@ SALINAS_TSNE_LEVELS = (1, 2, 3)    # each from the level below's layout
 SALINAS_SAMPLED_ROWS = 1024        # level-1 component kNN recall rows
 SALINAS_EXACT_ROWS = 64            # level-2 exact kNN rows vs float64
 EXACT_OVERLAP_PEAK_MAX = 2 << 30   # exact NEIGH_OVERLAP kNN's own peak bytes
+RGB_GEO_SIDE = 240                 # rgb_geo: docs/geo_rgb_scale.json's scene
+RGB_GEO_K = 51                     # configs/rgb_bus_geo.json: nKnns 50 + self
+RGB_GEO_RECORD_SHAPE = (96, 80)    # rgb_geo_record: the JAX-CPU record's scene
+RGB_GEO_RECORD_THRESHOLD = 512     # its SPH_CONTRACT_THRESHOLD
+RGB_GEO_KNN_ROWS = 64
+RGB_GEO_SKETCH_PAIRS = 200
+SKETCH_SPEARMAN_MIN = 0.99         # docs/geo_salinas_validation.json: 1.0
+SKETCH_ARGMIN_MIN = 0.95           # (the JAX package's, at 7680 px)
+SKETCH_MET_MIN = 100               # level-1 pairs where the sketch meets
+SKETCH_PATH_EDGES = 16             # a sketch path's most edges: 2 x 2^3
+RECORD_KNN_IDS_MIN = 0.95
+RECORD_SKETCH_RTOL = 1e-5
 # the switches of the t-SNE tier choice, all unset for the default path
 TSNE_SWITCHES = ("SPH_TSNE_DENSE_P", "SPH_TSNE_DENSE_P_MAX", "SPH_TSNE_GRID",
                  "SPH_TSNE_GRID_MIN", "SPH_TSNE_GRID_MAX",
@@ -966,6 +999,369 @@ def salinas_settings(P, level_to_compute: int = -1):
     return ihs, lss, rws, nns
 
 
+def rgb_geo_settings(P, component_sim=None):
+    """The rgb_geo configuration for package P: configs/rgb_bus_geo.json
+    through run_evaluation.py's wiring (sph_tpu/evaluation/
+    run_evaluation.py:141-180, with the grid's defaults
+    of sph_tpu/evaluation/settings.py:50-66 for the walk axes): stage 1 the
+    exact L2 kNN (FLAT), nKnns 50 (k = 51 with self), symmetric and
+    connected; stage 2 `component_sim` (GEO_CENTROID by default) with
+    num_geodesic_samples 100, FOUR connectivity, TSNE-normalised kNN
+    distances, min_reduction 98, max_levels 10, random_seed 1; stage 3 the
+    same similarity, ks = [51], TSNE normalisation and symmetrisation (as
+    salinas_settings).  Returns (ihs, lss, rws, nns)."""
+    cs = component_sim or P.ComponentSim.GEO_CENTROID
+    ihs = P.ImageHierarchySettings(
+        component_sim=cs, neighbor_connection=P.NeighConnection.FOUR,
+        merge_multiple=False, use_percentile=False, max_dist=0.0,
+        min_num_comp=1, min_reduction=98.0, num_geodesic_samples=100,
+        max_levels=10, rw_handling=P.RandomWalkHandling.MERGE_RW_ONLY,
+        rw_weight_merge_by_size=True,
+        rw_reduction=P.RandomWalkReduction.PROPORTIONAL_COMPONENT_REDUCTION,
+        norm_knn_distances=P.NormalizationScheme.TSNE)
+    lss = P.LevelSimilaritiesSettings(
+        component_sim=cs, ks=[RGB_GEO_K], random_walk_pair_sims=True,
+        weight_transition_by_size=False,
+        normalize_prob_dist=P.NormalizationScheme.TSNE,
+        compute_symmetric_prob_dist=P.NormalizationScheme.TSNE)
+    rws = P.RandomWalkSettings(
+        num_random_walks=90, single_walk_length=15,
+        importance_weighting=P.ImportanceWeighting.CONSTANT, random_seed=1)
+    nns = P.NearestNeighborsSettings(
+        num_nearest_neighbors=RGB_GEO_K, knn_index=P.KnnIndex.FLAT,
+        knn_metric=P.KnnMetric.L2, symmetric_neighbors=True,
+        compute_connect_components=True, neighbor_connect_components=True)
+    return ihs, lss, rws, nns
+
+
+def geo_knn_rows(ls, level: int) -> dict:
+    """The ids of RGB_GEO_KNN_ROWS rows (np.random.default_rng(1)) of a
+    level's stage-3 kNN."""
+    import numpy as np
+    ids = ls.distance_graphs[level][0]
+    c = ids.shape[0]
+    rows = np.sort(np.random.default_rng(1).choice(
+        c, min(RGB_GEO_KNN_ROWS, c), replace=False))
+    return {"components": int(c), "rows": rows.tolist(),
+            "ids": np.asarray(ids)[rows].tolist()}
+
+
+def sketch_samples(sims, h, level: int, a, b, num_samples: int,
+                   seed: int):
+    """Each side's sampled pixels [E, S] (-1 padded) of component pairs
+    (a, b) of `level`, drawn as sketch_geodesic_pairs draws them:
+    ``sample_represented`` of module `sims` over the pairs' components, S
+    the largest set capped at `num_samples`, seed + level."""
+    import numpy as np
+    reps = h.represented_points(level)
+    s = min(max(len(r) for r in reps), num_samples)
+    comp = np.unique(np.concatenate([a, b]))
+    samples = sims.sample_represented(reps, comp, s, seed=seed + level)
+    return (samples[np.searchsorted(comp, a)],
+            samples[np.searchsorted(comp, b)])
+
+
+def geo_sketch_pairs(P, ch, level: int = 1) -> dict:
+    """The sketch Hausdorff (package P's sketch_hausdorff_pairs) of
+    RGB_GEO_SKETCH_PAIRS spatial-neighbour component pairs a < b of `level`
+    (np.random.default_rng(2)), with each side's sampled pixels, so that
+    another run can query its own sketch with the same pixels."""
+    import importlib
+    import numpy as np
+    sp = importlib.import_module(P.__name__ + ".ops.shortest_path")
+    sims = importlib.import_module(P.__name__ + ".ops.similarities")
+    gs = importlib.import_module(P.__name__ + ".ops.geo_sketch")
+    ih = ch.image_hierarchy
+    a, b = neighbour_pairs(ih.hierarchy, level)
+    pick = np.sort(np.random.default_rng(2).choice(
+        len(a), min(RGB_GEO_SKETCH_PAIRS, len(a)), replace=False))
+    a, b = a[pick], b[pick]
+    ra, rb = sketch_samples(sims, ih.hierarchy, level, a, b,
+                            ih._ihs.num_geodesic_samples, ih._rws.random_seed)
+    kw = {"device": DEV} if P.__name__ == "sph_tpu_torch" else {}
+    si, sd = sp.get_geo_sketch(ih._graph, **kw)
+    return {"level": level, "a": a.tolist(), "b": b.tolist(),
+            "rep_a": [r[r >= 0].tolist() for r in ra],
+            "rep_b": [r[r >= 0].tolist() for r in rb],
+            "sketch_hausdorff": [float(v) for v in
+                                 gs.sketch_hausdorff_pairs(si, sd, ra, rb)]}
+
+
+def neighbour_pairs(h, level: int):
+    """Every spatial-neighbour component pair a < b of `level`."""
+    import numpy as np
+    adj = h.spatial_neighbors_of(level)
+    a = np.repeat(np.arange(adj.shape[0]), adj.shape[1])
+    b = adj.ravel()
+    ok = (b >= 0) & (a < b)
+    return a[ok], b[ok]
+
+
+def geo_record_run(P, cs: str, shape=RGB_GEO_RECORD_SHAPE, replay=None,
+                   **kw) -> dict:
+    """Stages 1-3 of rgb_geo_settings with similarity `cs` through package
+    P's ComputeHierarchy(**kw) on create_hyperspectral_scene(*shape, 3,
+    seed=13), Scaler.UNIFORM: the levels, each level's largest set, the
+    kNN rows of levels 1 and 2 (where the level has a kNN), the level-1
+    sketch pairs, the seconds of each stage.  With `replay` (a record's
+    sketch pairs), this run's sketch Hausdorff of the record's sampled
+    pixels ("replayed_sketch_hausdorff") in place of its own sketch
+    pairs."""
+    import importlib
+    import numpy as np
+    testdata = importlib.import_module(P.__name__ + ".utils.testdata")
+    rows, cols = shape
+    img = testdata.create_hyperspectral_scene(rows, cols, 3, seed=13)
+    data = P.scale(P.ImageStack.from_array(img).data, P.Scaler.UNIFORM)
+    ihs, lss, rws, nns = rgb_geo_settings(P, P.ComponentSim(cs))
+    ch = P.ComputeHierarchy(**kw).init(data, rows, cols, ihs=ihs, lss=lss,
+                                       rws=rws, nns=nns)
+    seconds = {}
+    for name, stage in (("stage1_knn", ch.compute_knn_graph),
+                        ("stage2_hierarchy", ch.compute_image_hierarchy),
+                        ("stage3_level_similarities",
+                         ch.compute_level_similarities)):
+        t = time.perf_counter()
+        stage()
+        seconds[name] = time.perf_counter() - t
+    h = ch.image_hierarchy.hierarchy
+    levels = [int(c) for c in h.num_components]
+    ls = ch.level_similarities
+    knn = {str(level): geo_knn_rows(ls, level) for level in (1, 2)
+           if level < len(levels) and ls.distance_graphs[level] is not None}
+    pairs = None
+    if replay is None and len(levels) > 1:
+        t = time.perf_counter()
+        pairs = geo_sketch_pairs(P, ch)
+        seconds["sketch_pairs"] = time.perf_counter() - t
+    out = {"levels": levels,
+           "largest_set_by_level": [
+               int(np.bincount(h.pixel_components[lv]).max())
+               for lv in range(len(levels))],
+           "knn": knn, "sketch_pairs": pairs, "seconds": seconds}
+    if replay is not None:
+        sp = importlib.import_module(P.__name__ + ".ops.shortest_path")
+        gs = importlib.import_module(P.__name__ + ".ops.geo_sketch")
+        si, sd = sp.get_geo_sketch(ch.image_hierarchy._graph, **kw)
+        rep_a, rep_b = padded_lists(replay["rep_a"], replay["rep_b"])
+        out["replayed_sketch_hausdorff"] = [
+            float(v) for v in gs.sketch_hausdorff_pairs(si, sd, rep_a,
+                                                        rep_b)]
+    return out
+
+
+def padded_lists(*groups) -> list:
+    """Each group of id lists -> [len, longest of all groups] int64, -1
+    padded (sketch_hausdorff_pairs takes both sides at one width)."""
+    import numpy as np
+    width = max(len(r) for lists in groups for r in lists)
+    out = []
+    for lists in groups:
+        arr = np.full((len(lists), width), -1, np.int64)
+        for i, r in enumerate(lists):
+            arr[i, :len(r)] = r
+        out.append(arr)
+    return out
+
+
+def geo_log_summary(log) -> list:
+    """shortest_path.LOG grouped by call (each geodesic entry point logs
+    its name and level first): the field batches, the fields, the sweeps
+    per batch (max and mean), and what the call logged besides (the level-0
+    unresolved pairs and unique sources, the sketch's build and fallback
+    pairs)."""
+    import numpy as np
+    calls, cur = [], None
+    for e in log:
+        if e["what"] == "call" or cur is None:
+            cur = {"fn": e.get("fn", "other"), "level": e.get("level"),
+                   "batches": 0, "fields": 0, "sweeps": []}
+            calls.append(cur)
+            if e["what"] == "call":
+                continue
+        if "sweeps" in e:
+            cur["batches"] += 1
+            cur["fields"] += e["fields"]
+            cur["nodes"] = e["nodes"]
+            cur["sweeps"].append(e["sweeps"])
+        else:
+            cur[e["what"]] = {k: v for k, v in e.items() if k != "what"}
+    for c in calls:
+        sw = c.pop("sweeps")
+        c["sweeps_max"] = int(max(sw)) if sw else 0
+        c["sweeps_mean"] = float(np.mean(sw)) if sw else 0.0
+        c["sweeps_total"] = int(sum(sw))
+    return calls
+
+
+def path_hops(pred) -> "np.ndarray":
+    """Hop counts of the shortest-path trees of scipy's predecessor rows
+    [S, N] (-9999 at sources and unreachable nodes)."""
+    import numpy as np
+    hops = np.zeros(pred.shape, np.int64)
+    has = pred >= 0
+    safe = np.where(has, pred, 0)
+    while True:
+        nxt = np.where(has, np.take_along_axis(hops, safe, 1) + 1, 0)
+        if np.array_equal(nxt, hops):
+            return hops
+        hops = nxt
+
+
+def geodesic_exactness(graph, sources, fields) -> dict:
+    """The port's fields [S, N] from `sources` over a graph (KnnGraph or
+    PaddedGraph) against scipy's float64 Dijkstra on the same float32
+    weights: unreachable must match, and each reachable value lie within
+    hops * 2^-23 of the float64 distance, relative, where hops is the
+    float64 path's edge count (each float32 add rounds by at most 2^-24 of
+    its partial sum).  Raises otherwise."""
+    import numpy as np
+    import scipy.sparse as sps
+    from scipy.sparse.csgraph import dijkstra
+    idx = np.asarray(graph.indices)
+    mask = idx >= 0
+    n = idx.shape[0]
+    rows = np.broadcast_to(np.arange(n)[:, None], idx.shape)
+    keep = mask & (idx != rows)
+    r, c = rows[keep], idx[keep].astype(np.int64)
+    w = np.asarray(graph.distances)[keep].astype(np.float64)
+    first = np.lexsort((w, c, r))             # one edge per (r, c): the least
+    r, c, w = r[first], c[first], w[first]
+    uniq = np.ones(len(r), bool)
+    uniq[1:] = (r[1:] != r[:-1]) | (c[1:] != c[:-1])
+    m = sps.csr_matrix((w[uniq], (r[uniq], c[uniq])), shape=(n, n))
+    d64, pred = dijkstra(m, directed=True, indices=np.asarray(sources),
+                         return_predecessors=True)
+    hops = path_hops(pred)
+    got = np.asarray(fields, np.float64)
+    reach = np.isfinite(d64)
+    if not np.array_equal(reach, np.isfinite(got)):
+        raise AssertionError(
+            f"geodesics: {int((reach != np.isfinite(got)).sum())} nodes "
+            "reachable in one of the port and float64 Dijkstra only")
+    err = np.abs(got[reach] - d64[reach])
+    bound = hops[reach] * 2.0 ** -23 * d64[reach]
+    if not np.all(err <= bound):
+        worst = int(np.argmax(err - bound))
+        raise AssertionError(
+            f"geodesics off float64 Dijkstra by {err[worst]} > "
+            f"{hops[reach][worst]} hops x 2^-23 x {d64[reach][worst]}")
+    ratio = err[bound > 0] / bound[bound > 0]
+    return {"sources": len(sources),
+            "reachable_fraction": float(reach.mean()),
+            "max_hops": int(hops.max()),
+            "max_err_over_bound": float(ratio.max()) if ratio.size else 0.0,
+            "bit_equal_fraction": float((err == 0).mean())}
+
+
+def sketch_fidelity(sketch, exact, a) -> dict:
+    """The sketch's geodesic Hausdorff against the exact fields' on the
+    same component pairs (sources `a`): the Spearman rank correlation over
+    the pairs where both are finite (below FLOAT_MAX), and the share of
+    sources (with at least two such pairs) whose nearest neighbour is the
+    same under both."""
+    import numpy as np
+    from scipy.stats import spearmanr
+    fmax = np.finfo(np.float32).max
+    sketch, exact, a = map(np.asarray, (sketch, exact, a))
+    fin = (sketch < fmax) & (exact < fmax)
+    rho = float(spearmanr(sketch[fin], exact[fin])[0]) if fin.sum() > 1 \
+        else float("nan")
+    agree = total = 0
+    for s in np.unique(a):
+        m = (a == s) & fin
+        if m.sum() < 2:
+            continue
+        total += 1
+        agree += int(np.argmin(sketch[m]) == np.argmin(exact[m]))
+    return {"pairs": int(len(a)), "finite_pairs": int(fin.sum()),
+            "finite_fraction": float(fin.mean()), "spearman": rho,
+            "argmin_sources": total,
+            "argmin_agreement": agree / total if total else float("nan")}
+
+
+def sketch_fidelity_gate(fid: dict) -> None:
+    """Spearman >= SKETCH_SPEARMAN_MIN and argmin agreement >=
+    SKETCH_ARGMIN_MIN (NaN, where nothing could be compared, fails)."""
+    if not (fid["spearman"] >= SKETCH_SPEARMAN_MIN
+            and fid["argmin_agreement"] >= SKETCH_ARGMIN_MIN):
+        raise AssertionError(f"sketch fidelity below the gates: {fid}")
+
+
+def met_sketch_fidelity(raw, path, exact, a, b) -> dict:
+    """The sketch where it meets (raw sketch_hausdorff_pairs values that
+    are finite) against the exact fields' Hausdorff of the same pairs
+    (a, b): how many met; whether the path's values (sketch_geodesic_pairs)
+    equal the raw ones there bit for bit, that is, no fallback touched
+    them; the met pairs whose sketch lies below exact x (1 -
+    SKETCH_PATH_EDGES x 2^-23), which none may (a met value is the float32
+    length of a real path of at most 16 edges, summed in at most 4 rounds,
+    and the exact field is at most that path's left-to-right float32 sum,
+    at most 15 roundings above it; Hausdorff's max and min keep the bound);
+    the Spearman rank correlation; the argmin agreement over the
+    components that have at least two met pairs, on either side."""
+    import numpy as np
+    from scipy.stats import spearmanr
+    raw, path, exact, a, b = map(np.asarray, (raw, path, exact, a, b))
+    met = np.isfinite(raw)
+    r = raw[met].astype(np.float64)
+    x = exact[met].astype(np.float64)
+    am, bm = a[met], b[met]
+    low = r < x * (1 - SKETCH_PATH_EDGES * 2.0 ** -23)
+    pos = x > 0
+    rho = float(spearmanr(r, x)[0]) if met.sum() > 1 else float("nan")
+    agree = total = 0
+    for c in np.unique(np.concatenate([am, bm])):
+        m = (am == c) | (bm == c)
+        if m.sum() < 2:
+            continue
+        total += 1
+        agree += int(np.argmin(r[m]) == np.argmin(x[m]))
+    return {"pairs": int(len(raw)), "met_pairs": int(met.sum()),
+            "path_equals_sketch": bool(np.array_equal(path[met], raw[met])),
+            "below_bound": int(low.sum()),
+            "min_ratio": float((r[pos] / x[pos]).min()) if pos.any()
+            else float("nan"),
+            "spearman": rho, "argmin_sources": total,
+            "argmin_agreement": agree / total if total else float("nan")}
+
+
+def met_sketch_gate(met: dict) -> None:
+    """At least SKETCH_MET_MIN met pairs, the path's values there the
+    sketch's, none below the bound, Spearman >= SKETCH_SPEARMAN_MIN and,
+    where components have two met pairs or more, argmin agreement >=
+    SKETCH_ARGMIN_MIN."""
+    if not met["met_pairs"] >= SKETCH_MET_MIN:
+        raise AssertionError(f"the sketch met on {met['met_pairs']} pairs, "
+                             f"fewer than {SKETCH_MET_MIN}")
+    if not met["path_equals_sketch"]:
+        raise AssertionError("sketch_geodesic_pairs changed a met pair's "
+                             "sketch value")
+    if met["below_bound"]:
+        raise AssertionError(f"{met['below_bound']} met sketch values below "
+                             "the exact geodesic Hausdorff's bound")
+    if not (met["spearman"] >= SKETCH_SPEARMAN_MIN and (
+            met["argmin_sources"] == 0
+            or met["argmin_agreement"] >= SKETCH_ARGMIN_MIN)):
+        raise AssertionError(f"met sketch fidelity below the gates: {met}")
+
+
+def fidelity_pairs(h, level: int, count: int, seed: int = 7):
+    """Spatial-neighbour pairs (a, b) of `level` for the sketch-fidelity
+    check: sources in a random order (default_rng(seed)), each with all
+    its neighbours, until `count` pairs."""
+    import numpy as np
+    adj = h.spatial_neighbors_of(level)
+    a, b = [], []
+    for s in np.random.default_rng(seed).permutation(adj.shape[0]):
+        nb = adj[s][adj[s] >= 0]
+        a.extend([s] * len(nb))
+        b.extend(nb.tolist())
+        if len(a) >= count:
+            break
+    return np.asarray(a[:count], np.int64), np.asarray(b[:count], np.int64)
+
+
 def hausdorff_kth(data, rep, rows, k: int):
     """The exact Hausdorff kNN's k-th distance of each of `rows` over every
     component (self at 0 included), from the port's pair metric on DEV;
@@ -1169,6 +1565,276 @@ def salinas_euclid(tsne_kernels, shape=SALINAS_SHAPE, iters: int = 2000,
             "level_2_exactness": exact2, "p": p, "tsne": tsne,
             "umap": umap_out, "launches": launches, "seconds": seconds,
             "seconds_by_part": parts, "peak_memory_bytes": peaks}
+
+
+def rgb_geo(tsne_kernels, side: int = RGB_GEO_SIDE, iters: int = 2000,
+            tsne_levels=(1, 2, 3), sources: int = 64,
+            fidelity: int = RGB_GEO_SKETCH_PAIRS) -> dict:
+    """GEO_CENTROID in both stages on create_hyperspectral_scene(side,
+    side, 3, seed=13), Scaler.UNIFORM, ``rgb_geo_settings``, through
+    ComputeHierarchy(device=DEV); then `iters` t-SNE iterations of each of
+    `tsne_levels` from a random layout (the config's initEmbeddingDataLevel
+    RANDOM).  Kernel counts are set to 0 before the hierarchy and read after
+    each embedding.  Also: seconds, peak memory and the geodesic log
+    (``geo_log_summary``) of each stage; the port's fields from `sources`
+    sampled pixels against float64 Dijkstra (``geodesic_exactness``); the
+    path's sketch values against the exact fields on `fidelity` level-1
+    pairs (``sketch_fidelity``), and the sketch alone on every level-1 pair
+    where it meets (``met_sketch_run``); P's checks on the embedded
+    levels."""
+    import numpy as np
+    import torch
+    import sph_tpu_torch as T
+    from sph_tpu_torch.ops import shortest_path as sp
+    from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
+    from sph_tpu_torch.utils.timer import phase_totals
+    seconds, parts, peaks, geo = {}, {}, {}, {}
+    t0 = time.perf_counter()
+    img = create_hyperspectral_scene(side, side, 3, seed=13)
+    data = T.scale(T.ImageStack.from_array(img, name="rgb_geo").data,
+                   T.Scaler.UNIFORM)
+    seconds["data"] = time.perf_counter() - t0
+    ihs, lss, rws, nns = rgb_geo_settings(T)
+    ch = T.ComputeHierarchy(device=DEV).init(data, side, side, ihs=ihs,
+                                             lss=lss, rws=rws, nns=nns)
+    zero_launches(tsne_kernels)
+    with env(SPH_PHASE_TIMERS="1"):
+        phase_totals()
+        for name, stage in (("stage1_knn", ch.compute_knn_graph),
+                            ("stage2_hierarchy", ch.compute_image_hierarchy),
+                            ("stage3_level_similarities",
+                             ch.compute_level_similarities)):
+            if DEV == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            sp.LOG.clear()
+            t = time.perf_counter()
+            stage()
+            sync()
+            seconds[name] = time.perf_counter() - t
+            parts[name] = phase_totals()
+            geo[name] = geo_log_summary(sp.LOG)
+            peaks[name] = (torch.cuda.max_memory_allocated()
+                           if DEV == "cuda" else "not measured")
+    h = ch.image_hierarchy.hierarchy
+    levels = [int(c) for c in h.num_components]
+    ls = ch.level_similarities
+
+    tsne = {}
+    for level in tsne_levels:
+        if level >= len(levels):
+            break
+        es = T.ComputeEmbeddingSettings()
+        es.tsne.num_iterations = iters
+        ce = T.ComputeEmbedding(es, device=DEV)
+        kls = {}
+
+        def progress(comp, kls=kls):
+            if comp.current_iteration == 0:
+                kls[0] = comp.kl_divergence()
+
+        before = read_launches(tsne_kernels)
+        t = time.perf_counter()
+        with env(**{name: None for name in TSNE_SWITCHES}):
+            emb = ce.compute_tsne(ls.get_prob_dist(level), track_kl=True,
+                                  progress=progress)
+        sync()
+        wall = time.perf_counter() - t
+        kls[iters] = float(ce.last_kl)
+        after = read_launches(tsne_kernels)
+        comp = ce.last_computation
+        tsne[level] = {
+            "n": levels[level], "npad": int(comp._y.shape[0]),
+            "tier": comp.tier, "init": "random", "seconds": wall,
+            "iterations_seconds": ce.seconds["iterations"],
+            "kl_at": {str(i): v for i, v in sorted(kls.items())},
+            "launches": {kk: after[kk] - before[kk] for kk in after},
+            "embedding_finite": bool(np.all(np.isfinite(emb))),
+            "embedding_shape": list(emb.shape)}
+    launches = read_launches(tsne_kernels)
+    seconds["path"] = time.perf_counter() - t0
+
+    graph = ch.image_hierarchy._graph
+    src = np.sort(np.random.default_rng(3).choice(levels[0], sources,
+                                                  replace=False))
+    t = time.perf_counter()
+    fields = sp.shortest_path_fields(graph, src, device=DEV)
+    seconds["exact_fields"] = time.perf_counter() - t
+    t = time.perf_counter()
+    exact = geodesic_exactness(graph, src, fields)
+    seconds["dijkstra_check"] = time.perf_counter() - t
+
+    a, b = fidelity_pairs(h, 1, fidelity)
+    kw = dict(num_samples=ihs.num_geodesic_samples,
+              component_labels=ch.image_hierarchy.component_labels,
+              seed=rws.random_seed, device=DEV)
+    sp.LOG.clear()
+    t = time.perf_counter()
+    sk = sp.sketch_geodesic_pairs(graph, h, data, 1, a, b, **kw)
+    ex = sp.geodesic_component_distances(graph, data, h, 1, a, b, **kw)
+    seconds["sketch_fidelity"] = time.perf_counter() - t
+    fid = sketch_fidelity(sk, ex, a)
+    fid["fallback_pairs"] = next((e["fallback_pairs"] for e in sp.LOG
+                                  if e["what"] == "sketch_pairs"), None)
+    # the sketch alone: every level-1 neighbour pair where it meets
+    t = time.perf_counter()
+    fid["met"] = met_sketch_run(graph, data, h, ihs, rws, kw)
+    seconds["met_sketch_fidelity"] = time.perf_counter() - t
+    p = {level: p_checks(ls.get_prob_dist(level),
+                         *ls.distance_graphs[level],
+                         ls.perplexity_on_level[level])
+         for level in tsne}
+    return {"n": side * side, "size": [side, side, 3], "levels": levels,
+            "largest_set_by_level": [
+                int(np.bincount(h.pixel_components[lv]).max())
+                for lv in range(len(levels))],
+            "knn_tiers": ls.knn_tiers,
+            "contract_threshold": sp.CONTRACT_THRESHOLD,
+            "geodesic_log": geo, "exact_geodesics": exact,
+            "sketch_fidelity": fid, "p": p, "tsne": tsne,
+            "launches": launches, "seconds": seconds,
+            "seconds_by_part": parts, "peak_memory_bytes": peaks}
+
+
+def met_sketch_run(graph, data, h, ihs, rws, kw: dict) -> dict:
+    """met_sketch_fidelity on the level-1 spatial-neighbour pairs where the
+    port's sketch meets (its raw sketch_hausdorff_pairs finite), against
+    geodesic_component_distances of those pairs; `kw` the two functions'
+    sampling and device keywords."""
+    import numpy as np
+    from sph_tpu_torch.ops import geo_sketch as gs
+    from sph_tpu_torch.ops import shortest_path as sp
+    from sph_tpu_torch.ops import similarities as sims
+    a, b = neighbour_pairs(h, 1)
+    si, sd = sp.get_geo_sketch(graph, device=DEV)
+
+    def raw(a, b):
+        ra, rb = sketch_samples(sims, h, 1, a, b, ihs.num_geodesic_samples,
+                                rws.random_seed)
+        return gs.sketch_hausdorff_pairs(si, sd, ra, rb)
+
+    met = np.isfinite(raw(a, b))
+    out = {"neighbour_pairs": int(len(a)), "met_pairs": int(met.sum())}
+    if out["met_pairs"]:
+        am, bm = a[met], b[met]
+        out.update(met_sketch_fidelity(
+            raw(am, bm), sp.sketch_geodesic_pairs(graph, h, data, 1, am, bm,
+                                                  **kw),
+            sp.geodesic_component_distances(graph, data, h, 1, am, bm, **kw),
+            am, bm))
+    return out
+
+
+def rgb_geo_gates(run: dict, iters: int) -> None:
+    """rgb_geo's gates; raises on the first that fails (the Dijkstra gate
+    raises inside geodesic_exactness)."""
+    import numpy as np
+    levels = run["levels"]
+    if len(levels) < 4 or any(x <= y for x, y in zip(levels, levels[1:])):
+        raise AssertionError(f"rgb_geo levels not strictly falling over at "
+                             f"least 4 levels: {levels}")
+    if not levels[1] > run["contract_threshold"] or (
+            run["knn_tiers"][1] != "contracted"):
+        raise AssertionError("rgb_geo level 1 did not take the sketch and "
+                             f"the contracted graph: {run['knn_tiers']}")
+    sketch_fidelity_gate(run["sketch_fidelity"])
+    met_sketch_gate(run["sketch_fidelity"]["met"])
+    if len(run["tsne"]) != 3:
+        raise AssertionError("rgb_geo did not embed levels 1-3")
+    for level, t in run["tsne"].items():
+        kl = t["kl_at"]
+        if not (np.all(np.isfinite(list(kl.values())))
+                and kl[str(iters)] < kl["0"]):
+            raise AssertionError(f"rgb_geo level {level}: KL not finite "
+                                 f"and falling: {kl}")
+        if not t["embedding_finite"]:
+            raise AssertionError(f"rgb_geo level {level}: the embedding is "
+                                 "not finite")
+        if t["tier"] != "dense":
+            raise AssertionError(f"rgb_geo level {level} took the "
+                                 f"{t['tier']} t-SNE tier")
+        if t["launches"]["tsne_repulsion"] < 1:
+            raise AssertionError(f"rgb_geo level {level}: the KL's Z did "
+                                 "not come from tsne_repulsion")
+    if run["launches"]["tsne_forces_dense"] != 3 * iters:
+        raise AssertionError(
+            f"rgb_geo: tsne_forces_dense launched "
+            f"{run['launches']['tsne_forces_dense']} times, not 3 x {iters}")
+
+
+def rgb_geo_record(ref: dict) -> dict:
+    """The record's scene and settings on the card for GEO_CENTROID and
+    GEO_WALKS (the port's CONTRACT_THRESHOLD set to the record's for the
+    runs), each with the record's sketch pairs replayed."""
+    from sph_tpu_torch.ops import shortest_path as sp
+    import sph_tpu_torch as T
+    kept = sp.CONTRACT_THRESHOLD
+    sp.CONTRACT_THRESHOLD = ref["contract_threshold"]
+    try:
+        out = {}
+        for cs in ("geo_centroid", "geo_walks"):
+            t = time.perf_counter()
+            out[cs] = geo_record_run(T, cs, tuple(ref["size"][:2]),
+                                     replay=ref[cs]["sketch_pairs"],
+                                     device=DEV)
+            out[cs]["seconds"]["total"] = time.perf_counter() - t
+    finally:
+        sp.CONTRACT_THRESHOLD = kept
+    return out
+
+
+def rgb_geo_record_gates(run: dict, ref: dict) -> dict:
+    """Each similarity against the JAX-CPU record: level 1 within 2 %,
+    levels of at least 100 components within 10 %, the level count within
+    one; where the level counts agree, the kNN rows' ids (levels whose
+    component count agrees) at least RECORD_KNN_IDS_MIN equal as sets, and
+    the replayed sketch Hausdorff within RECORD_SKETCH_RTOL of the record's
+    (and infinite where it is).  Raises on failure; returns what it
+    compared."""
+    import numpy as np
+    out = {}
+    for cs in ("geo_centroid", "geo_walks"):
+        got, want = run[cs], ref[cs]
+        levels, ref_levels = got["levels"], want["levels"]
+        name = f"rgb_geo_record {cs}"
+        if abs(levels[1] - ref_levels[1]) > LEVEL1_TOLERANCE * ref_levels[1]:
+            raise AssertionError(f"{name} level 1 {levels[1]} not within "
+                                 f"2 % of the JAX record {ref_levels[1]}")
+        if abs(len(levels) - len(ref_levels)) > 1:
+            raise AssertionError(f"{name}: {len(levels)} levels vs "
+                                 f"{len(ref_levels)} in the JAX record")
+        deep_levels_gate(levels, ref_levels, name)
+        res = {"levels": levels, "jax_cpu_levels": ref_levels}
+        if len(levels) == len(ref_levels):
+            for level, rk in want["knn"].items():
+                gk = got["knn"].get(level)
+                if gk is None or gk["components"] != rk["components"]:
+                    res[f"knn_level_{level}"] = "component counts differ"
+                    continue
+                same = sum(len(set(x) & set(y))
+                           for x, y in zip(gk["ids"], rk["ids"]))
+                share = same / sum(len(y) for y in rk["ids"])
+                res[f"knn_level_{level}_ids_equal"] = share
+                if share < RECORD_KNN_IDS_MIN:
+                    raise AssertionError(f"{name} level {level}: kNN ids "
+                                         f"{share} equal to the record's")
+            g = np.asarray(got["replayed_sketch_hausdorff"], np.float64)
+            w = np.asarray(want["sketch_pairs"]["sketch_hausdorff"],
+                           np.float64)
+            if not np.array_equal(np.isfinite(g), np.isfinite(w)):
+                raise AssertionError(f"{name}: the sketch meets other pairs "
+                                     "than the record's")
+            fin = np.isfinite(w)
+            rel = np.abs(g[fin] - w[fin]) / np.maximum(np.abs(w[fin]),
+                                                       1e-30)
+            res["sketch_pairs"] = int(len(w))
+            res["sketch_max_rel_err"] = float(rel.max()) if rel.size else 0.0
+            res["sketch_bit_equal_fraction"] = float(
+                (g[fin] == w[fin]).mean()) if rel.size else 1.0
+            if rel.size and rel.max() > RECORD_SKETCH_RTOL:
+                raise AssertionError(f"{name}: sketch Hausdorff off the "
+                                     f"record by {rel.max()} relative")
+        out[cs] = res
+    return out
 
 
 def salinas_gates(sal: dict, ref: dict) -> None:
@@ -1573,6 +2239,35 @@ def main() -> int:
           "path_shape": "salinas_euclid", **checks[-1]})
     salinas_gates(sal, sal_ref)
 
+    # ---- GEO_CENTROID in both stages, 240x240 RGB ------------------------
+    t = time.perf_counter()
+    geo = rgb_geo(tsne_kernels)
+    emit({"phase": "rgb_geo", **geo})
+    rgb_geo_gates(geo, 2000)
+    # both kernels at the shapes rgb_geo's t-SNE levels gave them
+    for level, run in geo["tsne"].items():
+        checks.append(check_forces_kernel(run["n"], run["npad"],
+                                          seed=16 + level, calls=50))
+        emit({"phase": "kernel_vs_twin", "kernel": "tsne_forces_dense",
+              "path_shape": f"rgb_geo_level_{level}", **checks[-1]})
+        y = torch.from_numpy(repulsion_layout(run["n"], run["npad"],
+                                              seed=run["n"])).cuda()
+        rep_checks.append(check_repulsion_kernel(y, run["n"], 50, 5,
+                                                 clock_hz=clock_hz))
+        del y
+        emit({"phase": "kernel_vs_twin", "kernel": "tsne_repulsion",
+              "path_shape": f"rgb_geo_level_{level}_kl", **rep_checks[-1]})
+    with open(os.path.join(REPO, "docs",
+                           "torch_port_rgb_geo_reference.json")) as f:
+        geo_ref = json.load(f)
+    record = rgb_geo_record(geo_ref)
+    emit({"phase": "rgb_geo_record",
+          **{cs: {k: v for k, v in r.items() if k not in (
+              "knn", "sketch_pairs", "replayed_sketch_hausdorff")}
+             for cs, r in record.items()},
+          "gates": rgb_geo_record_gates(record, geo_ref),
+          "seconds_with_rgb_geo": time.perf_counter() - t})
+
     # ---- the 1M path: BASELINE config 4, one kNN graph for both tiers ----
     graph = scene_graph(1000, 1000)
     n_large = graph["idx"].shape[0]
@@ -1722,7 +2417,7 @@ def main() -> int:
                                  f"{recall[index]['recall']} < {gate}")
 
     rep_main = rep_checks[1]            # the Pines KL's shape
-    rep_timed = rep_checks[:len(REPULSION_SHAPES)]
+    rep_timed = [c for c in rep_checks if "ms" in c]
     emit({"kernels": [{
         "name": "tsne_forces_dense", "route": "cuda",
         "source": "sph_tpu_torch/csrc/tsne_forces_dense.cu",
@@ -1739,7 +2434,10 @@ def main() -> int:
              "launches": scene["launches"]["tsne_forces_dense"]},
             *({"path": f"salinas_euclid_level_{level}", "n": run["n"],
                "launches": run["launches"]["tsne_forces_dense"]}
-              for level, run in sal["tsne"].items())],
+              for level, run in sal["tsne"].items()),
+            *({"path": f"rgb_geo_level_{level}", "n": run["n"],
+               "launches": run["launches"]["tsne_forces_dense"]}
+              for level, run in geo["tsne"].items())],
         "at_shapes": [{
             "shape": [c["n"], c["npad"]], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
@@ -1763,6 +2461,9 @@ def main() -> int:
             *({"path": f"salinas_euclid_level_{level}_kl", "n": run["n"],
                "launches": run["launches"]["tsne_repulsion"]}
               for level, run in sal["tsne"].items()),
+            *({"path": f"rgb_geo_level_{level}_kl", "n": run["n"],
+               "launches": run["launches"]["tsne_repulsion"]}
+              for level, run in geo["tsne"].items()),
             {"path": "large_grid_z_gap", "n": n_large,
              "launches": gap["launches"]["tsne_repulsion"]},
             {"path": "large_exact", "n": n_large,

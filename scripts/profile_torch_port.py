@@ -2,7 +2,7 @@
 """Profile one of the PyTorch port's paths on one CUDA card.
 
     python3 scripts/profile_torch_port.py
-        [--path pines|large|grid|scene|ivf|salinas] [--out FILE]
+        [--path pines|large|grid|scene|ivf|salinas|geo] [--out FILE]
 
 --path pines (the default) runs chip_smoke.py's Pines configuration
 (bench.py:89-136 at 145x145x200, then 2000 level-1 t-SNE iterations) once
@@ -25,7 +25,14 @@ salinas runs chip_smoke.py's salinas_euclid configuration (EUCLID_CENTROID
 in both stages on the Salinas-shaped 512x217x224 scene: level 1 on the
 approximate Hausdorff kNN, the levels below on the exact one), then 2000
 t-SNE iterations and 500 UMAP epochs of level 1, after a warm-up at
-64x54x224, each stage under its own window.
+64x54x224, each stage under its own window.  --path geo runs
+chip_smoke.py's rgb_geo configuration (GEO_CENTROID in both stages on the
+240x240 RGB scene), then 2000 t-SNE iterations of levels 1, 2 and 3, after
+a warm-up at 48x48, each stage under its own window, and also gives each
+stage's Bellman-Ford relax sweeps (ops/shortest_path.relax, under a
+record_function span): the device time of the operations launched inside
+the spans, as their host trees list them, in seconds and as a share of
+the stage's device time, and the number of spans.
 
 Prints, per stage, the wall seconds, the device seconds (the sum of its
 kernels and copies, counted as torch.profiler counts its "Self CUDA time
@@ -48,6 +55,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # and split-sum kernels, and its earlier single kernel (older checkouts)
 KERNEL_NAMES = ("forces_dense_kernel", "repulsion_units", "reduce_splits",
                 "repulsion_kernel")
+RELAX_SPAN = "shortest_path.relax"
 
 
 def run_main_path(stage_context):
@@ -179,6 +187,39 @@ def run_salinas_path(stage_context, shape=None):
     return walls
 
 
+def run_geo_path(stage_context, side: int = 240):
+    """chip_smoke.py's rgb_geo configuration, stage by stage, then t-SNE of
+    levels 1-3; returns the stages' wall seconds."""
+    import torch
+    import chip_smoke
+    import sph_tpu_torch as T
+    from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
+    img = create_hyperspectral_scene(side, side, 3, seed=13)
+    data = T.scale(T.ImageStack.from_array(img).data, T.Scaler.UNIFORM)
+    ihs, lss, rws, nns = chip_smoke.rgb_geo_settings(T)
+    ch = T.ComputeHierarchy(device="cuda").init(data, side, side, ihs=ihs,
+                                                lss=lss, rws=rws, nns=nns)
+    es = T.ComputeEmbeddingSettings()
+    es.tsne.num_iterations = 2000
+    stages = [
+        ("stage1_knn", ch.compute_knn_graph),
+        ("stage2_hierarchy", ch.compute_image_hierarchy),
+        ("stage3_level_similarities", ch.compute_level_similarities)]
+    for level in (1, 2, 3):
+        stages.append((f"tsne_level_{level}", lambda level=level: (
+            T.ComputeEmbedding(es, device="cuda").compute_tsne(
+                ch.level_similarities.get_prob_dist(level), track_kl=True)
+            if level < ch.image_hierarchy.hierarchy.num_levels else None)))
+    walls = {}
+    for name, stage in stages:
+        t = time.perf_counter()
+        with stage_context(name):
+            stage()
+            torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t
+    return walls
+
+
 def run_ivf_path(stage_context, n: int = 1_000_000):
     """The flat and the PQ IVF tier on chip_smoke.py's ivf_recall data;
     returns each one's wall seconds."""
@@ -197,10 +238,23 @@ def run_ivf_path(stage_context, n: int = 1_000_000):
     return walls
 
 
+def relax_device_seconds(events) -> tuple:
+    """(spans, seconds): the relax spans among the profiler's `events`, and
+    the device time of the kernels and copies launched inside them, as
+    the spans' host trees list them (the span's own device-side
+    annotation, a separate event over the kernels' whole range, is left
+    out, so nothing is counted twice)."""
+    from torch.autograd import DeviceType
+    spans = [e for e in events if e.device_type == DeviceType.CPU
+             and e.name == RELAX_SPAN]
+    return len(spans), sum(e.device_time_total for e in spans) / 1e6
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", choices=("pines", "large", "grid", "scene",
-                                       "ivf", "salinas"), default="pines")
+                                       "ivf", "salinas", "geo"),
+                    default="pines")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     args.out = args.out or os.path.join(
@@ -224,6 +278,17 @@ def main() -> int:
     elif args.path == "salinas":
         run = run_salinas_path
         run(lambda name: contextlib.nullcontext(), (64, 54, 224))
+    elif args.path == "geo":
+        run = run_geo_path
+        from sph_tpu_torch.ops import shortest_path
+        relax = shortest_path.relax
+
+        def spanned_relax(*a, **kw):
+            with torch.profiler.record_function(RELAX_SPAN):
+                return relax(*a, **kw)
+
+        shortest_path.relax = spanned_relax
+        run(lambda name: contextlib.nullcontext(), 48)
     elif args.path == "ivf":
         run = run_ivf_path
         run(lambda name: contextlib.nullcontext(), 20000)
@@ -263,6 +328,11 @@ def main() -> int:
         lines.append(f"{name:28s} {wall:10.4f} {dev_s:10.4f} "
                      f"{dev_s / wall:7.1%} {len(ops):11d} {ours:10.4f} "
                      f"{ours / max(dev_s, 1e-12):9.1%}")
+        if args.path == "geo":
+            spans, relax_s = relax_device_seconds(prof.events())
+            lines.append(f"{'  of which relax sweeps':28s} {'':10s} "
+                         f"{relax_s:10.4f} {relax_s / max(dev_s, 1e-12):7.1%}"
+                         f" {spans:11d}")
         tables += ["", f"{name}: top operations by self device time",
                    prof.key_averages().table(
                        sort_by="self_device_time_total", row_limit=12)]

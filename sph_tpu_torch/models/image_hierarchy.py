@@ -7,10 +7,10 @@ percentile thresholds (:371-394), weak-CC labels of the merge graph and the
 stagnation / min-comp / max-level stopping rules (:418-453)).
 
 Each level evaluates the component distances of all spatial-neighbor edges
-in one batched device call (ops/similarities); the level loop, the merge
-selection and its numpy RNG stay on the host, as in the JAX package.  The
-NEIGH_WALKS, NEIGH_OVERLAP and EUCLID_CENTROID metrics are ported; the
-others raise.
+in one batched device call (ops/similarities, ops/shortest_path); the level
+loop, the merge selection and its numpy RNG stay on the host, as in the JAX
+package.  The NEIGH_WALKS, NEIGH_OVERLAP, EUCLID_CENTROID, GEO_CENTROID and
+GEO_WALKS metrics are ported; NEIGH_WALKS_SINGLE_OVERLAP raises.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from ..settings import (ComponentSim, ImageHierarchySettings,
                         RandomWalkHandling, RandomWalkSettings)
 from ..utils.logging import Log
 from ..utils.timer import phase
+from ..ops import shortest_path
 from ..ops import similarities as sims
 from ..ops.distributions import distance_rows_to_probabilities
 from ..ops.graph import KnnGraph, PaddedGraph, edge_list_components
@@ -107,8 +108,7 @@ class ImageHierarchy:
                 rws: Optional[RandomWalkSettings] = None):
         self.set_settings(ihs, rws)
         cs = self._ihs.component_sim
-        if cs not in (ComponentSim.NEIGH_WALKS, ComponentSim.NEIGH_OVERLAP,
-                      ComponentSim.EUCLID_CENTROID):
+        if cs == ComponentSim.NEIGH_WALKS_SINGLE_OVERLAP:
             raise NotImplementedError(
                 f"component similarity {cs.value} not ported yet; see "
                 "ROADMAP")
@@ -252,6 +252,8 @@ class ImageHierarchy:
                 self.hierarchy.random_walks[level], src, dst)
         elif cs == ComponentSim.EUCLID_CENTROID:
             dist = self._hausdorff_distances(level, src, dst)
+        elif cs in (ComponentSim.GEO_CENTROID, ComponentSim.GEO_WALKS):
+            dist = self._geodesic_distances(level, src, dst)
         else:
             dist = sims.neighbor_overlap_distance(
                 self._union_neighborhoods(level), src, dst)
@@ -277,6 +279,21 @@ class ImageHierarchy:
                                                    device=self.device)
         return sims.hausdorff_point_set_distance(self._data_on_device,
                                                  rep_a, rep_b)
+
+    def _geodesic_distances(self, level: int, a: np.ndarray,
+                            b: np.ndarray) -> np.ndarray:
+        """GEO_CENTROID / GEO_WALKS: geodesic Hausdorff of each pair's
+        sampled pixels over the data graph; above CONTRACT_THRESHOLD
+        components at level > 0 from the pixel-graph sketch."""
+        c = self.hierarchy.num_components[level]
+        kw = dict(num_samples=self._ihs.num_geodesic_samples,
+                  component_labels=self.component_labels,
+                  seed=self._rws.random_seed, device=self.device)
+        if level > 0 and c > shortest_path.CONTRACT_THRESHOLD:
+            return shortest_path.sketch_geodesic_pairs(
+                self._graph, self.hierarchy, self._data, level, a, b, **kw)
+        return shortest_path.geodesic_component_distances(
+            self._graph, self._data, self.hierarchy, level, a, b, **kw)
 
     def _union_neighborhoods(self, level: int) -> SparseRows:
         knn_idx, _, mask = _graph_rows(self._graph)

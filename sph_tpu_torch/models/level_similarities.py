@@ -7,11 +7,13 @@ ImageHierarchy data-level probdist; WALKS levels use pairwise random-walk
 Bhattacharyya; kNN-metric levels use Gaussian-perplexity rows) and TSNE
 symmetrization (:589-623)).
 
-Ported: NEIGH_WALKS with pairwise walk similarities (and, with
-force_compute_distances, the walks as the level's distance graph),
+Ported: NEIGH_WALKS and GEO_WALKS with pairwise walk similarities (and,
+with force_compute_distances, the walks as the level's distance graph),
 NEIGH_OVERLAP and EUCLID_CENTROID with their per-level kNN (exact, or the
 approximate tier above SPH_APPROX_KNN_THRESHOLD components unless exact_knn
-is set), the TSNE normalization and symmetrization.
+is set), GEO_CENTROID with the geodesic Hausdorff kNN (which itself takes
+the contracted component graph above CONTRACT_THRESHOLD components), the
+TSNE normalization and symmetrization.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from ..settings import (ComponentSim, LevelSimilaritiesSettings,
                         NormalizationScheme)
 from ..utils.logging import Log
 from ..utils.timer import phase
-from ..ops import component_knn
+from ..ops import component_knn, shortest_path
 from ..ops.distributions import gaussian_row_distributions
 from ..ops.graph import KnnGraph, PaddedGraph
 from ..ops.similarities import (build_union_neighborhoods,
@@ -79,7 +81,8 @@ class LevelSimilarities:
         self.prob_dists: list[Optional[SparseRows]] = []
         self.distance_graphs: list[Optional[tuple]] = []
         # per level, which component kNN gave its distance graph: "exact",
-        # "approximate", or None where the level has none
+        # "approximate", "contracted" (GEO_CENTROID's component graph), or
+        # None where the level has none
         self.knn_tiers: list[Optional[str]] = []
         self.perplexity_on_level: list[float] = []
         self._symmetric: NormalizationScheme = NormalizationScheme.NONE
@@ -120,12 +123,10 @@ class LevelSimilarities:
         if lss is not None:
             self._lss = lss
         cs = self._lss.component_sim
-        if cs not in (ComponentSim.NEIGH_WALKS, ComponentSim.NEIGH_OVERLAP,
-                      ComponentSim.EUCLID_CENTROID):
+        if cs == ComponentSim.NEIGH_WALKS_SINGLE_OVERLAP:
             raise NotImplementedError(
                 f"level similarity {cs.value} not ported yet; see ROADMAP")
-        if cs == ComponentSim.NEIGH_WALKS and not (
-                self._lss.random_walk_pair_sims):
+        if cs in WALK_SIMS and not self._lss.random_walk_pair_sims:
             raise NotImplementedError(
                 "top-k walk rows as level probdist not ported yet; see "
                 "ROADMAP")
@@ -169,6 +170,17 @@ class LevelSimilarities:
             return
         c = self.hierarchy.num_components[level]
         k = self._current_k(level)
+        if self._lss.component_sim == ComponentSim.GEO_CENTROID:
+            # no approximate tier: above CONTRACT_THRESHOLD components the
+            # geodesic kNN takes the contracted component graph itself
+            self.distance_graphs[level] = shortest_path.geodesic_hausdorff_knn(
+                self._graph, self.hierarchy, level, k,
+                self.hierarchy.settings.num_geodesic_samples,
+                data=self._data, device=self.device)
+            self.knn_tiers[level] = (
+                "contracted" if c > shortest_path.CONTRACT_THRESHOLD
+                else "exact")
+            return
         approximate = not self._lss.exact_knn and c > _approx_knn_threshold()
         if self._lss.component_sim == ComponentSim.EUCLID_CENTROID:
             graph = self._hausdorff_knn(level, k, approximate)

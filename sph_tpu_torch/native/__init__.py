@@ -1,8 +1,9 @@
 """Host graph ops in C++, bound with ctypes.
 
-The port builds the JAX package's own source, ``sph_tpu/native/graphops.cpp``
-(found by file path, never imported: importing ``sph_tpu`` would pull in
-jax), with g++ into ``sph_tpu_torch/_build/`` at first use.  The library is
+The port builds its own copy of the JAX package's C++ source,
+``sph_tpu_torch/native/graphops.cpp`` (held byte-equal to
+``sph_tpu/native/graphops.cpp`` by a test), with g++ into
+``sph_tpu_torch/_build/`` at first use.  The library is
 named by the source's content hash, so an edited source is rebuilt.  A
 failed build raises: these ops have no Python fallback in the port.
 """
@@ -18,7 +19,7 @@ from typing import Optional
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(os.path.dirname(_PKG), "sph_tpu", "native", "graphops.cpp")
+SRC = os.path.join(_PKG, "native", "graphops.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 _lib: Optional[ctypes.CDLL] = None

@@ -25,7 +25,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_import_leaves_jax_out():
     code = ("import sys, sph_tpu_torch, sph_tpu_torch.interop, "
             "sph_tpu_torch.ops.tsne_kernels, sph_tpu_torch.ops.tsne_grid, "
-            "sph_tpu_torch.models.umap, sph_tpu_torch.ops.component_knn; "
+            "sph_tpu_torch.models.umap, sph_tpu_torch.ops.component_knn, "
+            "sph_tpu_torch.ops.shortest_path, sph_tpu_torch.ops.geo_sketch, "
+            "sph_tpu_torch.utils.distance_cache; "
             "sys.exit(1 if any(m == 'jax' or m.startswith('jax.') "
             "or m.startswith('sph_tpu.') or m == 'sph_tpu' "
             "for m in sys.modules) else 0)")
@@ -72,6 +74,38 @@ def test_settings_copy_matches_jax_package():
             for a, b, c in tf]
 
 
+def test_graphops_copy_matches_jax_package():
+    """The port builds its own copy of the JAX package's host graph ops."""
+    from sph_tpu_torch import native
+    with open(native.SRC, "rb") as f:
+        port = f.read()
+    with open(os.path.join(REPO, "sph_tpu", "native", "graphops.cpp"),
+              "rb") as f:
+        assert port == f.read()
+    assert os.path.dirname(native.SRC).startswith(
+        os.path.join(REPO, "sph_tpu_torch"))
+
+
+def test_graphops_builds_without_the_jax_package(tmp_path):
+    """sph_tpu_torch/ copied alone (no sph_tpu/ beside it, no built
+    library) builds its graph ops with g++ and runs them."""
+    import shutil
+    shutil.copytree(os.path.join(REPO, "sph_tpu_torch"),
+                    tmp_path / "sph_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    code = ("import numpy as np; from sph_tpu_torch import native; "
+            "n, lab = native.weak_components(np.array([[0, 1], [1, 0], "
+            "[2, -1]], np.int32)); assert n == 2, n; "
+            "assert native.SRC.startswith(%r)" % str(tmp_path))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert not (tmp_path / "sph_tpu").exists()
+    assert list((tmp_path / "sph_tpu_torch" / "_build").glob("*.so"))
+
+
 def test_settings_from_jax_round_trip():
     ihs = J.ImageHierarchySettings(component_sim=J.ComponentSim.NEIGH_WALKS,
                                    max_levels=7, min_reduction=98.0)
@@ -108,7 +142,7 @@ def test_default_device_is_cuda_or_a_clear_error():
 
 
 @pytest.mark.parametrize("change", [
-    {"component_sim": "geo_centroid"},
+    {"level_norm": "umap"},
     {"component_sim": "neigh_walks_single_overlap"},
     {"rw_handling": "merge_rw_new_walks"},
     {"level_sim": "neigh_walks_single_overlap"},
@@ -116,7 +150,8 @@ def test_default_device_is_cuda_or_a_clear_error():
 def test_unported_branches_raise(change, monkeypatch):
     """The level_sim case: NEIGH_WALKS_SINGLE_OVERLAP level similarities
     (with the approximate threshold at 4 components, as for any level
-    metric), which are not ported."""
+    metric), which are not ported; the level_norm case: level probdists
+    normalised with UMAP."""
     from sph_tpu_torch.utils.testdata import create_checker_image
     img = create_checker_image(6, 6, channels=3, block=2, noise=0.02)
     data = T.scale(T.ImageStack.from_array(img).data, T.Scaler.STANDARD)
@@ -127,6 +162,8 @@ def test_unported_branches_raise(change, monkeypatch):
     elif "level_sim" in change:
         lss.component_sim = T.ComponentSim(change["level_sim"])
         monkeypatch.setenv("SPH_APPROX_KNN_THRESHOLD", "4")
+    elif "level_norm" in change:
+        lss.normalize_prob_dist = T.NormalizationScheme(change["level_norm"])
     else:
         kw["rw_handling"] = T.RandomWalkHandling(change["rw_handling"])
     ch = T.ComputeHierarchy(device="cpu").init(

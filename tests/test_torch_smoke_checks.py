@@ -537,3 +537,119 @@ def test_deep_levels_gate_holds_scene_overlaps_levels():
         chip_smoke.deep_levels_gate([65536, 16174, 1800, 197], record, "s")
     with pytest.raises(AssertionError, match="level 3"):
         chip_smoke.deep_levels_gate([65536, 16174, 2040, 220], record, "s")
+
+
+def _geo_scene_graph():
+    from test_torch_geo import scene_graph
+    return scene_graph(side=20, k=10)[0]
+
+
+def test_path_hops_counts_the_tree_edges():
+    pred = np.array([[-9999, 0, 1, 1, -9999], [1, -9999, 1, 2, 3]])
+    assert np.array_equal(chip_smoke.path_hops(pred),
+                          [[0, 1, 2, 2, 0], [1, 0, 1, 2, 3]])
+
+
+def test_geodesic_exactness_passes_and_catches_a_wrong_value():
+    """The port's fields on a scene graph with 13 weak components pass
+    against float64 Dijkstra; one value moved by 1e-5 relative, and one
+    unreachable node given a distance, are caught."""
+    from sph_tpu_torch.ops import shortest_path as tsp
+    g = _geo_scene_graph()
+    src = np.array([0, 57, 210, 399])
+    fields = tsp.shortest_path_fields(g, src, device="cpu")
+    out = chip_smoke.geodesic_exactness(g, src, fields)
+    assert out["sources"] == 4 and 0 < out["reachable_fraction"] < 1
+    assert out["max_err_over_bound"] <= 1.0 and out["max_hops"] >= 3
+    far = np.nanargmax(np.where(np.isfinite(fields[1]), fields[1], np.nan))
+    wrong = fields.copy()
+    wrong[1, far] *= np.float32(1 + 1e-5)
+    with pytest.raises(AssertionError, match="off float64 Dijkstra"):
+        chip_smoke.geodesic_exactness(g, src, wrong)
+    wrong = fields.copy()
+    wrong[2, np.nonzero(~np.isfinite(fields[2]))[0][0]] = 1.0
+    with pytest.raises(AssertionError, match="reachable in one"):
+        chip_smoke.geodesic_exactness(g, src, wrong)
+
+
+def test_sketch_fidelity_passes_and_catches_a_wrong_value():
+    """Ten sources of five pairs each: a monotone distortion of the exact
+    values passes both gates; one wrong value (a source's nearest pair made
+    the farthest) drops the argmin agreement to 0.9 and is caught."""
+    rng = np.random.default_rng(0)
+    a = np.repeat(np.arange(10), 5)
+    exact = rng.random(50).astype(np.float32) + 0.1
+    exact[7] = np.finfo(np.float32).max                # one cross pair
+    sketch = exact * np.float32(1.001)
+    sketch[7] = np.finfo(np.float32).max
+    fid = chip_smoke.sketch_fidelity(sketch, exact, a)
+    assert fid["spearman"] > 1 - 1e-12 and fid["argmin_agreement"] == 1.0
+    assert fid["finite_pairs"] == 49 and fid["argmin_sources"] == 10
+    chip_smoke.sketch_fidelity_gate(fid)
+    wrong = sketch.copy()
+    first = 15 + int(np.argmin(exact[15:20]))
+    wrong[first] = 5.0
+    bad = chip_smoke.sketch_fidelity(wrong, exact, a)
+    assert bad["argmin_agreement"] == 0.9
+    with pytest.raises(AssertionError, match="sketch fidelity"):
+        chip_smoke.sketch_fidelity_gate(bad)
+
+
+def test_met_sketch_fidelity_bounds_and_fallback():
+    """Pairs where the sketch meets: values at or a rounding below the
+    exact ones pass; one a little further below the bound, and a met value
+    the path changed, are each caught; pairs that do not meet are left
+    out."""
+    rng = np.random.default_rng(1)
+    a = np.repeat(np.arange(40), 4)
+    b = a + 1 + np.tile(np.arange(4), 40)
+    exact = (rng.random(160) + 0.5).astype(np.float32)
+    raw = exact * np.float32(1.01)
+    raw[3] = exact[3] * np.float32(1 - 2.0 ** -23)     # one rounding below
+    raw[10:30] = np.inf                                # no meet
+    path = np.where(np.isfinite(raw), raw, np.float32(0.7))
+    met = chip_smoke.met_sketch_fidelity(raw, path, exact, a, b)
+    assert met["met_pairs"] == 140 and met["pairs"] == 160
+    assert met["below_bound"] == 0 and met["path_equals_sketch"]
+    assert met["spearman"] > 0.999 and met["argmin_agreement"] == 1.0
+    assert met["min_ratio"] < 1.0
+    chip_smoke.met_sketch_gate(met)
+    low = raw.copy()
+    low[5] = exact[5] * np.float32(1 - 2.0 ** -16)
+    bad = chip_smoke.met_sketch_fidelity(low, np.where(
+        np.isfinite(low), low, 0.7), exact, a, b)
+    assert bad["below_bound"] == 1
+    with pytest.raises(AssertionError, match="below the exact"):
+        chip_smoke.met_sketch_gate(bad)
+    changed = path.copy()
+    changed[40] = 0.7
+    bad = chip_smoke.met_sketch_fidelity(raw, changed, exact, a, b)
+    with pytest.raises(AssertionError, match="changed a met"):
+        chip_smoke.met_sketch_gate(bad)
+
+
+def test_geo_log_summary_groups_batches_by_call():
+    log = [{"what": "call", "fn": "geodesic_component_distances",
+            "level": 0},
+           {"what": "level0_pairs", "pairs": 9, "unresolved_pairs": 4,
+            "unique_sources": 5},
+           {"what": "pair_values", "fields": 3, "nodes": 16, "sweeps": 4},
+           {"what": "pair_values", "fields": 2, "nodes": 16, "sweeps": 6},
+           {"what": "call", "fn": "sketch_geodesic_pairs", "level": 1},
+           {"what": "sketch_build", "shape": [16, 8], "seconds": 0.5}]
+    out = chip_smoke.geo_log_summary(log)
+    assert [c["fn"] for c in out] == ["geodesic_component_distances",
+                                      "sketch_geodesic_pairs"]
+    assert out[0]["batches"] == 2 and out[0]["fields"] == 5
+    assert out[0]["sweeps_max"] == 6 and out[0]["sweeps_mean"] == 5.0
+    assert out[0]["level0_pairs"]["unresolved_pairs"] == 4
+    assert out[1]["sketch_build"]["shape"] == [16, 8]
+    assert out[1]["batches"] == 0
+
+
+def test_padded_lists_share_one_width():
+    """The record's sample lists of both sides come back at one width
+    (the longest list of either), -1 padded."""
+    a, b = chip_smoke.padded_lists([[1, 2], [3]], [[4, 5, 6], []])
+    assert a.tolist() == [[1, 2, -1], [3, -1, -1]]
+    assert b.tolist() == [[4, 5, 6], [-1, -1, -1]]
