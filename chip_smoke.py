@@ -103,6 +103,36 @@ Phases, each printing one JSON line, and each raising on failure:
    on 1024 sampled rows against float64 distances, each at least the JAX
    package's record less 0.01; seconds, peak memory and the IVF layout.
 
+17. eval_pines_tsne — the evaluation CLI's entry point, as a user runs it
+   (sph_tpu_torch.evaluation.run_evaluation on the card), on
+   configs/pines_embed.json uncut: make_data.py's 145x145x200 pines_synth
+   written by the port's io into a temporary directory, NEIGH_WALKS, k =
+   91, 50 x 10 walks, PCA init of level 0, t-SNE of every level from the
+   level below's layout.  Gates: both maps byte-equal to the JAX-CPU
+   record of the same grid run (docs/torch_port_eval_pines_reference.json)
+   or, if the card's sums moved a merge, the levels by the Pines rule
+   (level 1 within 2 %, the count within one); every output file read back
+   by the port's readers; each level of at least 100 components with a
+   finite KL (through tsne_repulsion) below its starting layout's;
+   tsne_forces_dense launched once an iteration of the schedule, summed
+   over the levels.  Then the same grid again under the same base: its kNN
+   stage loads from the shared cache, and its levels and
+   MapFromBottomToLevel.bin equal the first run's.  Seconds by stage and by
+   level embedding.
+18. eval_pines_umap — the same grid with dataDistNorm UMAP and UMAP of
+   every level (500 epochs at level 0, 175 from the level below after
+   that): the maps against the record's second entry as above, the levels
+   without UMAP memberships exactly the record's (where the JAX package's
+   UMAP raises; the port keeps their starting layout), every membership in
+   (0, 1], finite layouts, level 1's trustworthiness at k = 10.
+19. eval_record — both grids through run_evaluation at 64x64x200, where
+   JAX-CPU runs the whole grid: the maps as above, each level of at least
+   100 components with its t-SNE KL within 1 % of the record's, the UMAP
+   levels without memberships the record's, level 1's UMAP
+   trustworthiness at least 0.99 x the record's.  Then both kernels
+   against their twins at every shape the t-SNE levels of eval_pines_tsne
+   and eval_record gave them (n >= 2, Npad of the dense tier).
+
 Then the kernels line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
 the repository beside it, the script exits non-zero before that line.
@@ -164,6 +194,13 @@ SKETCH_MET_MIN = 100               # level-1 pairs where the sketch meets
 SKETCH_PATH_EDGES = 16             # a sketch path's most edges: 2 x 2^3
 RECORD_KNN_IDS_MIN = 0.95
 RECORD_SKETCH_RTOL = 1e-5
+EVAL_GRID = "configs/pines_embed.json"   # the evaluation CLI's Pines grid
+EVAL_PINES_SHAPE = (145, 145, 200)       # scripts/make_data.py's pines_synth
+EVAL_RECORD_SHAPE = (64, 64, 200)        # eval_record: JAX-CPU runs it whole
+EVAL_SEED = 7
+EVAL_UMAP = {"dataDistNorm": ["UMAP"], "skipEmbeddingTSNE": True,
+             "skipEmbeddingUMAP": False}
+EVAL_KL_RTOL = 0.01        # tests/test_torch_pipeline.py:129
 # the switches of the t-SNE tier choice, all unset for the default path
 TSNE_SWITCHES = ("SPH_TSNE_DENSE_P", "SPH_TSNE_DENSE_P_MAX", "SPH_TSNE_GRID",
                  "SPH_TSNE_GRID_MIN", "SPH_TSNE_GRID_MAX",
@@ -1897,6 +1934,336 @@ def salinas_gates(sal: dict, ref: dict) -> None:
                              "finite")
 
 
+def eval_grid(root: str, img, writer, name: str, **changes) -> str:
+    """configs/pines_embed.json with its image (`img`, written by `writer`
+    as <root>/data/pines_synth.tiff unless already there) and its output
+    base under `root`, and the keys in `changes` replaced; returns the path
+    of the grid file written as <root>/<name>.json."""
+    with open(os.path.join(REPO, EVAL_GRID)) as f:
+        grid = json.load(f)
+    data_dir = os.path.join(root, "data")
+    os.makedirs(data_dir, exist_ok=True)
+    image = os.path.join(data_dir, grid["imageNames"][0])
+    if not os.path.exists(image):
+        writer(image, img)
+    grid.update(inputPath=data_dir, cachePathBase=os.path.join(root, "out"),
+                **changes)
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(grid, f, indent=2)
+    return path
+
+
+def eval_outputs(out_dir: str, read_vec_of_vec, read_embedding) -> dict:
+    """A run_evaluation run's folder read back by the given readers: the levels
+    (from MapFromBottomToLevel.bin), the sha256 of both maps, and the
+    embeddings by method and level."""
+    import hashlib
+    maps = {}
+    for name in ("MapFromBottomToLevel", "MapFromLevelToBottom"):
+        with open(os.path.join(out_dir, f"{name}.bin"), "rb") as f:
+            maps[name] = hashlib.sha256(f.read()).hexdigest()
+    pix = read_vec_of_vec(os.path.join(out_dir, "MapFromBottomToLevel.bin"))
+    embs = {}
+    for fname in sorted(os.listdir(out_dir)):
+        if fname.startswith("emb_") and fname.endswith(".bin"):
+            _, method, level = fname[:-4].split("_")
+            embs.setdefault(method, {})[int(level)] = read_embedding(
+                os.path.join(out_dir, fname))
+    return {"levels": [int(p.max()) + 1 for p in pix], "maps_sha256": maps,
+            "pixel_components": pix, "embeddings": embs}
+
+
+def eval_read_back(out_dir: str, run: dict, got: dict) -> dict:
+    """Every file of a run_evaluation run present and read back by the port's
+    readers: the level images against the pixel maps, the component image,
+    each level's pixels once in MapFromLevelToBottom.bin, the stats files,
+    and each embedding finite at its level's size; raises otherwise."""
+    import numpy as np
+    from sph_tpu_torch.utils import io as tio
+    levels = got["levels"]
+    if levels != run["levels"]:
+        raise AssertionError(f"maps give levels {levels}, the run "
+                             f"{run['levels']}")
+    n = levels[0]
+    for level, pix in enumerate(got["pixel_components"]):
+        img = tio.load_label_image(os.path.join(out_dir,
+                                                f"level_{level}.tiff"))
+        if not np.array_equal(img, pix.astype(np.float32)):
+            raise AssertionError(f"level_{level}.tiff differs from the map")
+    if tio.load_label_image(os.path.join(out_dir, "component.tiff")
+                            ).size != n:
+        raise AssertionError("component.tiff has the wrong size")
+    for level, flat in enumerate(tio.read_vec_of_vec(
+            os.path.join(out_dir, "MapFromLevelToBottom.bin"))):
+        if not np.array_equal(np.sort(flat), np.arange(n)):
+            raise AssertionError(f"MapFromLevelToBottom level {level} is "
+                                 "not a permutation of the pixels")
+    for name in ("sph_stats_imh.txt", "sph_stats_ls.txt"):
+        with open(os.path.join(out_dir, name)) as f:
+            stats = json.load(f)
+        if name == "sph_stats_imh.txt" and stats["numComponents"] != levels:
+            raise AssertionError(f"{name}: {stats['numComponents']}")
+    with open(os.path.join(out_dir, "sph_settings.txt")) as f:
+        if not f.read().strip():
+            raise AssertionError("sph_settings.txt is empty")
+    files = 0
+    for e in run["embeddings"]:
+        emb = got["embeddings"][e["method"]][e["level"]]
+        if emb.shape != (e["n"], 2) or not np.all(np.isfinite(emb)):
+            raise AssertionError(f"emb_{e['method']}_{e['level']}.bin: "
+                                 f"shape {emb.shape}, finite "
+                                 f"{bool(np.all(np.isfinite(emb)))}")
+        files += 1
+    return {"files": sorted(os.listdir(out_dir)), "embeddings_read": files}
+
+
+def eval_run(tsne_kernels, grid: str) -> dict:
+    """The port's run_evaluation once on `grid`, as a user calls it
+    (run_evaluation with no device: the card), with the kernels' counts
+    set to 0 just before and read just after; its summary, wall seconds
+    and outputs read back."""
+    from sph_tpu_torch.evaluation import run_evaluation as tre
+    from sph_tpu_torch.evaluation.settings import load_eval_settings
+    from sph_tpu_torch.utils import io as tio
+    settings = load_eval_settings(grid)
+    report = []
+    zero_launches(tsne_kernels)
+    t = time.perf_counter()
+    dirs = tre.run_evaluation(settings, report=report,
+                              device=None if DEV == "cuda" else DEV)
+    sync()
+    seconds = time.perf_counter() - t
+    launches = read_launches(tsne_kernels)
+    if len(dirs) != 1 or len(report) != 1:
+        raise AssertionError(f"the grid ran {len(dirs)} runs, not 1")
+    run = report[0]
+    got = eval_outputs(dirs[0], tio.read_vec_of_vec, tio.read_embedding)
+    return {"run": run, "seconds": seconds, "launches": launches,
+            "outputs": got, "read_back": eval_read_back(dirs[0], run, got),
+            "out_dir": dirs[0]}
+
+
+def eval_summary(r: dict) -> dict:
+    """A run_evaluation run for the phase line: seconds by stage and by level
+    embedding, launches, levels and the maps' sha256."""
+    run = r["run"]
+    return {"levels": run["levels"], "seconds_total": r["seconds"],
+            "seconds_by_stage": run["seconds"],
+            "knn_loaded_from_cache": run["knn_loaded_from_cache"],
+            "embeddings": run["embeddings"], "launches": r["launches"],
+            "maps_sha256": r["outputs"]["maps_sha256"],
+            "files": r["read_back"]["files"]}
+
+
+def eval_levels_gate(levels, ref_levels, name: str) -> None:
+    """The Pines phase's rule: level 1 within 2 % of the record, the level
+    count within one."""
+    if abs(levels[1] - ref_levels[1]) > LEVEL1_TOLERANCE * ref_levels[1]:
+        raise AssertionError(f"{name} level 1 {levels[1]} not within 2 % "
+                             f"of the JAX record {ref_levels[1]}")
+    if abs(len(levels) - len(ref_levels)) > 1:
+        raise AssertionError(f"{name}: {len(levels)} levels vs "
+                             f"{len(ref_levels)} in the JAX record")
+
+
+def eval_maps_gate(r: dict, want: dict, name: str) -> bool:
+    """Both maps byte-equal to the JAX record's or, if the card's sums moved
+    a merge, the levels by the Pines rule; returns whether they were
+    equal."""
+    equal = r["outputs"]["maps_sha256"] == want["maps_sha256"]
+    if not equal:
+        eval_levels_gate(r["run"]["levels"], want["levels"], name)
+    return equal
+
+
+def eval_umap_empty_gate(r: dict, want: dict, maps_equal: bool,
+                         name: str) -> dict:
+    """The levels whose UMAP had no memberships (the port keeps their
+    starting layout; the JAX package's UMAP raises there) against the
+    record's: the same levels where the maps or the level sizes equal the
+    record's, else none larger than the record's largest such level."""
+    got = [e["level"] for e in r["run"]["embeddings"]
+           if e["method"] == "umap" and e["memberships"] == 0]
+    ref = [lv for lv, m in enumerate(want["umap_memberships"]) if m == 0]
+    levels, sizes = r["run"]["levels"], want["levels"]
+    if maps_equal or levels == sizes:
+        if got != ref:
+            raise AssertionError(f"{name}: UMAP levels {got} have no "
+                                 f"memberships, the JAX record's {ref}")
+    elif any(levels[lv] > max((sizes[x] for x in ref), default=0)
+             for lv in got):
+        raise AssertionError(f"{name}: UMAP levels {got} of sizes "
+                             f"{[levels[lv] for lv in got]} have no "
+                             f"memberships, the JAX record's {ref}")
+    return {"umap_empty_levels": got, "jax_cpu_umap_empty_levels": ref,
+            "umap_memberships": [e["memberships"]
+                                 for e in r["run"]["embeddings"]],
+            "jax_cpu_umap_memberships": want["umap_memberships"]}
+
+
+def eval_tsne_gates(r: dict, name: str) -> None:
+    """Every level of at least 100 components: a finite KL below its
+    starting layout's; every level of 2 or more points on the dense tier,
+    tsne_forces_dense launched once an iteration of the schedule summed
+    over the levels, and tsne_repulsion twice a level (the two KLs)."""
+    import numpy as np
+    embedded = [e for e in r["run"]["embeddings"] if e["n"] >= 2]
+    for e in embedded:
+        if e["tier"] != "dense":
+            raise AssertionError(f"{name} level {e['level']} took the "
+                                 f"{e['tier']} t-SNE tier")
+        if e["n"] >= DEEP_LEVEL_MIN and not (
+                np.isfinite(e["kl"]) and e["kl"] < e["kl_start"]):
+            raise AssertionError(f"{name} level {e['level']}: KL "
+                                 f"{e['kl']} not finite and below its "
+                                 f"start {e['kl_start']}")
+    want = sum(e["iterations"] for e in embedded)
+    if r["launches"]["tsne_forces_dense"] != want:
+        raise AssertionError(
+            f"{name}: tsne_forces_dense launched "
+            f"{r['launches']['tsne_forces_dense']} times, the schedule has "
+            f"{want} iterations")
+    if r["launches"]["tsne_repulsion"] != 2 * len(embedded):
+        raise AssertionError(
+            f"{name}: tsne_repulsion launched "
+            f"{r['launches']['tsne_repulsion']} times for the KLs of "
+            f"{len(embedded)} levels")
+
+
+def eval_pines_tsne(tsne_kernels, ref: dict) -> dict:
+    """configs/pines_embed.json uncut through run_evaluation, twice under one
+    base: the second run's kNN stage loads from the shared cache."""
+    import shutil
+    import tempfile
+    from sph_tpu_torch.utils import io as tio
+    from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
+    root = tempfile.mkdtemp(prefix="eval_pines_tsne_")
+    img = create_hyperspectral_scene(*EVAL_PINES_SHAPE, seed=EVAL_SEED)
+    grid = eval_grid(root, img, tio.save_tiff_stack, "pines_tsne")
+    first = eval_run(tsne_kernels, grid)
+    second = eval_run(tsne_kernels, grid)
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"first": eval_summary(first), "second": eval_summary(second),
+           "jax_cpu_levels": ref["levels"]}
+    for run, key, name in ((first, "first", "eval_pines_tsne"),
+                           (second, "second", "eval_pines_tsne second run")):
+        out[key]["maps_equal_to_record"] = eval_maps_gate(run, ref, name)
+        eval_tsne_gates(run, name)
+    if first["run"]["knn_loaded_from_cache"]:
+        raise AssertionError("eval_pines_tsne: the first run found a kNN "
+                             "cache in a new base")
+    if not second["run"]["knn_loaded_from_cache"]:
+        raise AssertionError("eval_pines_tsne: the second run's kNN stage "
+                             "did not load from the shared cache")
+    if (second["run"]["levels"] != first["run"]["levels"]
+            or second["outputs"]["maps_sha256"]["MapFromBottomToLevel"]
+            != first["outputs"]["maps_sha256"]["MapFromBottomToLevel"]):
+        raise AssertionError(
+            "eval_pines_tsne: the cached run's levels or "
+            "MapFromBottomToLevel.bin differ from the first run's: "
+            f"{second['run']['levels']} vs {first['run']['levels']}")
+    return out
+
+
+def eval_pines_umap(tsne_kernels, ref: dict) -> dict:
+    """The same grid with dataDistNorm UMAP and UMAP of every level: the
+    levels, memberships in (0, 1], finite layouts, and level 1's
+    trustworthiness at k = 10 against the components' mean spectra."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from sph_tpu_torch.utils import io as tio
+    from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
+    root = tempfile.mkdtemp(prefix="eval_pines_umap_")
+    img = create_hyperspectral_scene(*EVAL_PINES_SHAPE, seed=EVAL_SEED)
+    grid = eval_grid(root, img, tio.save_tiff_stack, "pines_umap",
+                     **EVAL_UMAP)
+    r = eval_run(tsne_kernels, grid)
+    shutil.rmtree(root, ignore_errors=True)
+    levels = r["run"]["levels"]
+    maps_equal = eval_maps_gate(r, ref, "eval_pines_umap")
+    empty = eval_umap_empty_gate(r, ref, maps_equal, "eval_pines_umap")
+    for e in r["run"]["embeddings"]:
+        rng = e.get("membership_range")
+        if rng is not None and not (rng[0] > 0.0 and rng[1] <= 1.0):
+            raise AssertionError(f"eval_pines_umap level {e['level']}: "
+                                 f"memberships in {rng}")
+    if sorted(r["outputs"]["embeddings"].get("umap", {})) != list(
+            range(len(levels))):
+        raise AssertionError("eval_pines_umap: not every level embedded")
+    data = img.reshape(-1, img.shape[2]).astype(np.float64)
+    t = time.perf_counter()
+    trust = trustworthiness(component_means(
+        data, r["outputs"]["pixel_components"][1], levels[1]),
+        r["outputs"]["embeddings"]["umap"][1], 10)
+    return {**eval_summary(r), "jax_cpu_levels": ref["levels"],
+            "maps_equal_to_record": maps_equal, **empty,
+            "level_1_trustworthiness_k10": trust,
+            "trustworthiness_seconds": time.perf_counter() - t}
+
+
+def eval_record(tsne_kernels, ref: dict) -> dict:
+    """Both grids through run_evaluation at 64x64x200 against the JAX-CPU
+    record of the whole grid run: the maps byte-equal to the record's or, if
+    the card's sums moved a merge, levels by the salinas_euclid rule; the
+    final t-SNE KL of each level of at least 100 components (and the
+    record's size) within 1 % of the record's; level 1's UMAP
+    trustworthiness at least 0.99 x the record's."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from sph_tpu_torch.utils import io as tio
+    from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
+    img = create_hyperspectral_scene(*EVAL_RECORD_SHAPE, seed=EVAL_SEED)
+    out = {}
+    for name, changes in (("record_tsne", {}), ("record_umap", EVAL_UMAP)):
+        want = ref["runs"][name]
+        root = tempfile.mkdtemp(prefix=f"eval_{name}_")
+        grid = eval_grid(root, img, tio.save_tiff_stack, name, **changes)
+        r = eval_run(tsne_kernels, grid)
+        shutil.rmtree(root, ignore_errors=True)
+        levels = r["run"]["levels"]
+        maps_equal = eval_maps_gate(r, want, f"eval_record {name}")
+        rec = {**eval_summary(r), "maps_equal_to_record": maps_equal,
+               "jax_cpu_levels": want["levels"],
+               "jax_cpu_raised": want["raised"]}
+        if name == "record_tsne":
+            eval_tsne_gates(r, f"eval_record {name}")
+            kls = {}
+            for e in r["run"]["embeddings"]:
+                w = want["tsne_kl"].get(str(e["level"]))
+                if w is None or w["n"] != e["n"] or e["n"] < DEEP_LEVEL_MIN:
+                    continue
+                kls[e["level"]] = {"n": e["n"], "kl": e["kl"],
+                                   "jax_cpu_kl": w["kl"]}
+                if not abs(e["kl"] - w["kl"]) <= EVAL_KL_RTOL * w["kl"]:
+                    raise AssertionError(
+                        f"eval_record level {e['level']}: KL {e['kl']} not "
+                        f"within 1 % of the JAX record {w['kl']}")
+            if not kls:
+                raise AssertionError("eval_record: no level's KL compared")
+            rec["kl_held"] = kls
+        else:
+            rec.update(eval_umap_empty_gate(r, want, maps_equal,
+                                            f"eval_record {name}"))
+            data = img.reshape(-1, img.shape[2]).astype(np.float64)
+            trust = trustworthiness(component_means(
+                data, r["outputs"]["pixel_components"][1], levels[1]),
+                r["outputs"]["embeddings"]["umap"][1], 10)
+            rec["level_1_trustworthiness_k10"] = trust
+            rec["jax_cpu_trustworthiness_k10"] = want[
+                "umap_level_1_trustworthiness_k10"]
+            if not trust >= UMAP_TRUST_SLACK * rec[
+                    "jax_cpu_trustworthiness_k10"]:
+                raise AssertionError(
+                    f"eval_record UMAP trustworthiness {trust} < "
+                    f"{UMAP_TRUST_SLACK} x the record's "
+                    f"{rec['jax_cpu_trustworthiness_k10']}")
+        out[name] = rec
+    return out
+
+
 def trustworthiness(x, emb, k: int = 10, block: int = 512) -> float:
     """sklearn.manifold.trustworthiness in numpy (the card's machine has no
     sklearn): 1 - 2 / (n k (2n - 3k - 1)) times the sum, over each point's
@@ -2416,6 +2783,41 @@ def main() -> int:
             raise AssertionError(f"ivf_recall {index}: recall@16 "
                                  f"{recall[index]['recall']} < {gate}")
 
+    # ---- the evaluation CLI's path: configs/pines_embed.json -----------
+    with open(os.path.join(REPO, "docs",
+                           "torch_port_eval_pines_reference.json")) as f:
+        eval_ref = json.load(f)
+    ev_tsne = eval_pines_tsne(tsne_kernels, eval_ref["runs"]["pines_tsne"])
+    emit({"phase": "eval_pines_tsne", **ev_tsne})
+    ev_umap = eval_pines_umap(tsne_kernels, eval_ref["runs"]["pines_umap"])
+    emit({"phase": "eval_pines_umap", **ev_umap})
+    ev_record = eval_record(tsne_kernels, eval_ref)
+    emit({"phase": "eval_record", **ev_record})
+    # both kernels at the shapes the driver's t-SNE levels gave them
+    for path, ev in (("eval_pines_tsne", ev_tsne["first"]),
+                     ("eval_record_tsne", ev_record["record_tsne"])):
+        for e in ev["embeddings"]:
+            if e["n"] < 2:
+                continue
+            n, npad = e["n"], dense_npad(e["n"])
+            checks.append(check_forces_kernel(n, npad, seed=21 + e["level"],
+                                              calls=20))
+            emit({"phase": "kernel_vs_twin", "kernel": "tsne_forces_dense",
+                  "path_shape": f"{path}_level_{e['level']}",
+                  **checks[-1]})
+            y = torch.from_numpy(repulsion_layout(n, npad, seed=n)).cuda()
+            rep_checks.append(check_repulsion_kernel(y, n, 50, 5,
+                                                     clock_hz=clock_hz))
+            del y
+            emit({"phase": "kernel_vs_twin", "kernel": "tsne_repulsion",
+                  "path_shape": f"{path}_level_{e['level']}_kl",
+                  **rep_checks[-1]})
+    eval_paths = [("eval_pines_tsne", ev_tsne["first"]),
+                  ("eval_pines_tsne_cached", ev_tsne["second"]),
+                  ("eval_pines_umap", ev_umap),
+                  ("eval_record_tsne", ev_record["record_tsne"]),
+                  ("eval_record_umap", ev_record["record_umap"])]
+
     rep_main = rep_checks[1]            # the Pines KL's shape
     rep_timed = [c for c in rep_checks if "ms" in c]
     emit({"kernels": [{
@@ -2437,7 +2839,10 @@ def main() -> int:
               for level, run in sal["tsne"].items()),
             *({"path": f"rgb_geo_level_{level}", "n": run["n"],
                "launches": run["launches"]["tsne_forces_dense"]}
-              for level, run in geo["tsne"].items())],
+              for level, run in geo["tsne"].items()),
+            *({"path": path, "n": ev["levels"][0],
+               "launches": ev["launches"]["tsne_forces_dense"]}
+              for path, ev in eval_paths)],
         "at_shapes": [{
             "shape": [c["n"], c["npad"]], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
@@ -2469,7 +2874,10 @@ def main() -> int:
             {"path": "large_exact", "n": n_large,
              "launches": large_launches["tsne_repulsion"]},
             {"path": "grid_vs_exact", "n": mid["n"],
-             "launches": mid["exact"]["launches"]["tsne_repulsion"]}],
+             "launches": mid["exact"]["launches"]["tsne_repulsion"]},
+            *({"path": f"{path}_kl", "n": ev["levels"][0],
+               "launches": ev["launches"]["tsne_repulsion"]}
+              for path, ev in eval_paths)],
         "at_shapes": [{
             "shape": [c["n"], c["npad"]], "plan": c["plan"], "ms": c["ms"],
             "plain_ms": c.get("plain_ms", "not measured"),

@@ -10,11 +10,14 @@ Each level evaluates the component distances of all spatial-neighbor edges
 in one batched device call (ops/similarities, ops/shortest_path); the level
 loop, the merge selection and its numpy RNG stay on the host, as in the JAX
 package.  The NEIGH_WALKS, NEIGH_OVERLAP, EUCLID_CENTROID, GEO_CENTROID and
-GEO_WALKS metrics are ported; NEIGH_WALKS_SINGLE_OVERLAP raises.
+GEO_WALKS metrics are ported; NEIGH_WALKS_SINGLE_OVERLAP raises.  The
+data-level probdist takes any of the normalization schemes
+(ops/distributions.distance_rows_to_probabilities).
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -46,6 +49,9 @@ class ImageHierarchyStats:
     forced_merge_count: list[int] = field(default_factory=list)
     reduction_rates: list[float] = field(default_factory=list)
     rw_sparsities: list[float] = field(default_factory=list)
+    # the merged data graphs of MERGE_DATA_NEW_WALKS, which is not ported:
+    # always empty, kept so the stats file has the JAX package's keys
+    merged_data_sparsities: list[float] = field(default_factory=list)
     num_components: list[int] = field(default_factory=list)
     not_merged_components: list[int] = field(default_factory=list)
 
@@ -55,6 +61,7 @@ class ImageHierarchyStats:
             "forcedMergeCount": self.forced_merge_count,
             "reductionRates": self.reduction_rates,
             "rwSparsities": self.rw_sparsities,
+            "mergedDataSparsities": self.merged_data_sparsities,
             "numComponents": self.num_components,
             "notMergedComponents": self.not_merged_components,
             "numLevels": len(self.num_components),
@@ -354,3 +361,12 @@ class ImageHierarchy:
                  "current level (%.2f%%)", zero_cnt, 100.0 * zero_cnt / c)
         return (msrc.astype(np.int64), mdst.astype(np.int64), zero_cnt,
                 forced_cnt)
+
+    def write_stats(self, file_name: str) -> bool:
+        """Reference: ImageHierarchy::writeStats (:607-630)."""
+        try:
+            with open(file_name, "w") as f:
+                json.dump(self.stats.to_dict(), f, indent=2)
+            return True
+        except OSError:
+            return False

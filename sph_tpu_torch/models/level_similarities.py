@@ -13,11 +13,16 @@ NEIGH_OVERLAP and EUCLID_CENTROID with their per-level kNN (exact, or the
 approximate tier above SPH_APPROX_KNN_THRESHOLD components unless exact_knn
 is set), GEO_CENTROID with the geodesic Hausdorff kNN (which itself takes
 the contracted component graph above CONTRACT_THRESHOLD components), the
-TSNE normalization and symmetrization.
+level normalizations (walk levels take Gaussian rows under TSNE, smooth-knn
+memberships under UMAP and keep their similarities under LINEAR and NONE;
+kNN levels always take Gaussian rows, as in the JAX package), and the TSNE
+and UMAP symmetrizations.  Level 0 reuses the image hierarchy's data-level
+probdist or, without one, normalizes the data kNN graph itself.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from dataclasses import dataclass, field
 from typing import Optional
@@ -30,7 +35,9 @@ from ..settings import (ComponentSim, LevelSimilaritiesSettings,
 from ..utils.logging import Log
 from ..utils.timer import phase
 from ..ops import component_knn, shortest_path
-from ..ops.distributions import gaussian_row_distributions
+from ..ops.distributions import (distance_rows_to_probabilities,
+                                 gaussian_row_distributions,
+                                 smooth_knn_rows_bucketed)
 from ..ops.graph import KnnGraph, PaddedGraph
 from ..ops.similarities import (build_union_neighborhoods,
                                 component_hausdorff,
@@ -38,7 +45,7 @@ from ..ops.similarities import (build_union_neighborhoods,
                                 sample_represented)
 from ..ops.sparse import (SparseRows, drop_zero_entries,
                           pairwise_similarities, shrink_width,
-                          symmetrize_tsne)
+                          symmetrize_tsne, symmetrize_umap)
 from .hierarchy import WALK_SIMS, Hierarchy
 
 
@@ -130,10 +137,6 @@ class LevelSimilarities:
             raise NotImplementedError(
                 "top-k walk rows as level probdist not ported yet; see "
                 "ROADMAP")
-        if self._lss.normalize_prob_dist != NormalizationScheme.TSNE:
-            raise NotImplementedError(
-                f"normalization {self._lss.normalize_prob_dist.value} not "
-                "ported yet; see ROADMAP")
         if len(self._lss.ks) <= 1:
             self.update_number_of_neighbors()
 
@@ -264,11 +267,10 @@ class LevelSimilarities:
         self.stats.ks.append(k)
 
         if level == 0:
-            if self._image_hierarchy is None:
-                raise NotImplementedError(
-                    "level-0 probdist without the image hierarchy's "
-                    "data-level rows not ported yet; see ROADMAP")
-            pd = self._image_hierarchy.data_level_probdist
+            if self._image_hierarchy is not None:
+                pd = self._image_hierarchy.data_level_probdist
+            else:
+                pd = self._probdist_from_data_graph(perp)
         elif self._lss.component_sim in WALK_SIMS:
             pd = self._probdist_from_walks(level, k, perp)
         else:
@@ -289,10 +291,30 @@ class LevelSimilarities:
             pd, int(nnz.max()) if nnz.size else 1)
         self.stats.avg_num_neighbors.append(float(nnz.mean()))
 
+    def _probdist_from_data_graph(self, perp: float) -> SparseRows:
+        """Reference: :528-538 — the data kNN graph normalized directly
+        with the level scheme, self edge ignored."""
+        if isinstance(self._graph, KnnGraph):
+            idx, dist = self._graph.indices, self._graph.distances
+            mask = np.ones_like(idx, dtype=bool)
+        else:
+            idx, mask = self._graph.indices, self._graph.mask
+            dist = np.where(mask, self._graph.distances, 0.0)
+        dev = self.device
+        p = distance_rows_to_probabilities(
+            torch.as_tensor(np.asarray(dist, np.float32), device=dev),
+            torch.as_tensor(mask, device=dev),
+            self._lss.normalize_prob_dist, perplexity=perp,
+            ignore_first=True)
+        return SparseRows(np.where(mask, idx, -1), p,
+                          self.hierarchy.num_components[0], device=dev)
+
     def _probdist_from_walks(self, level: int, k: int, perp: float
                              ) -> SparseRows:
         """Reference: useRandomWalks (:460-508) with pairwise walk
-        similarities (createSimilarities), then Gaussian rows."""
+        similarities (createSimilarities), then Gaussian rows (TSNE) or
+        smooth-knn memberships (UMAP); any other scheme leaves the
+        similarities as they are, as in the JAX package."""
         walks = self.hierarchy.random_walks[level]
         sizes = None
         if self._lss.weight_transition_by_size:
@@ -300,8 +322,16 @@ class LevelSimilarities:
         pd = pairwise_similarities(walks, k, prune_val=1e-4,
                                    component_sizes=sizes)
         mask = (pd.idx >= 0) & (pd.val != 0)
-        p = gaussian_row_distributions(pd.val, mask, perp,
-                                       ignore_first=False)
+        scheme = self._lss.normalize_prob_dist
+        if scheme == NormalizationScheme.TSNE:
+            p = gaussian_row_distributions(pd.val, mask, perp,
+                                           ignore_first=False)
+        elif scheme == NormalizationScheme.UMAP:
+            p = smooth_knn_rows_bucketed(pd.val, mask)
+        else:
+            Log.warn("LevelSimilarities: normalize_prob_dist should be TSNE "
+                     "or UMAP; skipping normalization")
+            return pd
         return SparseRows(pd.idx, p, pd.num_cols)
 
     def _probdist_from_knn(self, level: int, perp: float) -> SparseRows:
@@ -331,12 +361,12 @@ class LevelSimilarities:
                      "won't symmetrize for %s",
                      self._lss.normalize_prob_dist.value, method.value)
             return
-        if method != NormalizationScheme.TSNE:
-            raise NotImplementedError(
-                f"{method.value} symmetrization not ported yet; see ROADMAP")
+        # LINEAR rows are left as they are, as in the JAX package
+        sym = {NormalizationScheme.TSNE: symmetrize_tsne,
+               NormalizationScheme.UMAP: symmetrize_umap}.get(method)
         for i, pd in enumerate(self.prob_dists):
-            if pd is not None:
-                self.prob_dists[i] = symmetrize_tsne(pd)
+            if pd is not None and sym is not None:
+                self.prob_dists[i] = sym(pd)
         self._symmetric = method
 
     def get_prob_dist(self, level: int) -> SparseRows:
@@ -344,3 +374,12 @@ class LevelSimilarities:
         if pd is None:
             raise RuntimeError(f"prob dist for level {level} not computed")
         return pd
+
+    def write_stats(self, file_name: str) -> bool:
+        """The stats as JSON (reference: LevelSimilarities::writeStats)."""
+        try:
+            with open(file_name, "w") as f:
+                json.dump(self.stats.to_dict(), f, indent=2)
+            return True
+        except OSError:
+            return False

@@ -91,7 +91,11 @@ def choose_num_epochs(requested: int, n: int) -> int:
 def make_epochs_per_sample(weights: np.ndarray, n_epochs: int) -> np.ndarray:
     """Reference: umappp similarities_to_epochs / umap-learn
     make_epochs_per_sample: an edge of weight w is sampled every
-    w_max / w epochs."""
+    w_max / w epochs.  No weights (a level whose memberships were all
+    pruned) give no edges, and the layout stays where it starts; the JAX
+    package raises there."""
+    if weights.size == 0:
+        return np.empty(0, dtype=np.float64)
     w_max = weights.max()
     out = np.full(weights.shape, np.inf, dtype=np.float64)
     n_samples = n_epochs * (weights / w_max)
@@ -141,6 +145,8 @@ class UmapComputation:
         self.tier: Optional[str] = None
         self.n_epochs = 0
         self.current_epoch = 0
+        # the symmetrized fuzzy memberships the layout is optimised against
+        self.memberships: Optional[SparseRows] = None
 
     # ------------------------------------------------------------------
 
@@ -222,7 +228,7 @@ class UmapComputation:
         if os.environ.get("SPH_UMAP_PACKED") == "1":
             raise NotImplementedError(
                 "the u16-packed UMAP gather is not ported; see ROADMAP")
-        m = self._memberships()
+        m = self.memberships = self._memberships()
         m_idx, m_val = m.indices, m.values
         self._init_embedding(m_idx, m_val)
 
@@ -231,6 +237,10 @@ class UmapComputation:
         Log.info("UMAP: a=%.4f b=%.4f epochs=%d", self._a, self._b,
                  self.n_epochs)
         mask = (m_idx >= 0) & (m_val > 0)
+        if not mask.any():
+            Log.warn("UMAP: no memberships among %d points, so the layout "
+                     "stays where it starts (the JAX package raises here; "
+                     "see ROADMAP)", self._n)
         eps_flat = make_epochs_per_sample(m_val[mask], self.n_epochs
                                           ).astype(np.float32)
         dense_max = int(os.environ.get("SPH_UMAP_DENSE_MAX", str(DENSE_MAX)))

@@ -1,4 +1,4 @@
-"""Host graph ops in C++, bound with ctypes.
+"""Host graph ops and the LZ4 block codec in C++, bound with ctypes.
 
 The port builds its own copy of the JAX package's C++ source,
 ``sph_tpu_torch/native/graphops.cpp`` (held byte-equal to
@@ -70,6 +70,13 @@ def get_lib() -> ctypes.CDLL:
     lib.pack_rows.restype = None
     lib.pack_rows.argtypes = [i64, p_i64, p_i32, p_f32, i64, i64, p_i32,
                               p_f32]
+    p_u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    lib.lz4_compress_bound.restype = i64
+    lib.lz4_compress_bound.argtypes = [i64]
+    lib.lz4_compress.restype = i64
+    lib.lz4_compress.argtypes = [p_u8, i64, p_u8, i64]
+    lib.lz4_decompress.restype = i64
+    lib.lz4_decompress.argtypes = [p_u8, i64, p_u8, i64]
     _lib = lib
     return lib
 
@@ -172,3 +179,34 @@ def symmetrize(indices: np.ndarray, distances: np.ndarray,
     counts = np.empty(n, dtype=np.int32)
     lib.symmetrize_fill(n, k, idx, dist, width, out_idx, out_dist, counts)
     return out_idx, out_dist, counts
+
+
+def lz4_compress_bound(n: int) -> int:
+    """The most bytes an LZ4 block of `n` input bytes can take."""
+    return int(get_lib().lz4_compress_bound(int(n)))
+
+
+def lz4_compress(data: bytes | np.ndarray) -> bytes:
+    """LZ4 block-compress raw bytes (graphops.cpp's codec, the JAX package's
+    bytes)."""
+    src = (np.frombuffer(data, dtype=np.uint8) if isinstance(data, bytes)
+           else np.ascontiguousarray(data, dtype=np.uint8).ravel())
+    cap = lz4_compress_bound(src.size)
+    dst = np.empty(max(cap, 1), dtype=np.uint8)
+    m = get_lib().lz4_compress(src if src.size else np.zeros(1, np.uint8),
+                               src.size, dst, cap)
+    if m < 0:
+        raise ValueError("native.lz4_compress: output buffer too small")
+    return dst[:m].tobytes()
+
+
+def lz4_decompress(data: bytes, original_size: int) -> bytes:
+    """Decompress an LZ4 block of known decompressed size; raises on a
+    malformed block."""
+    src = np.frombuffer(data, dtype=np.uint8)
+    dst = np.empty(max(int(original_size), 1), dtype=np.uint8)
+    m = get_lib().lz4_decompress(src if src.size else np.zeros(1, np.uint8),
+                                 src.size, dst, int(original_size))
+    if m != original_size:
+        raise ValueError("native.lz4_decompress: corrupt LZ4 block")
+    return dst[:original_size].tobytes()

@@ -1,10 +1,10 @@
-"""Distance -> probability kernels (the Gaussian / t-SNE and the UMAP
+"""Distance -> probability kernels (the Gaussian / t-SNE, linear and UMAP
 schemes).
 
 Port of sph_tpu/ops/distributions.py (reference: sph/utils/GraphNormalization
 .cpp — Gaussian rows with the perplexity beta search and tiny-sigma
-fallbacks, :38-338; the search itself is HDILibHelper.hpp:23-109; UMAP's
-smooth-knn memberships, :413-593).
+fallbacks, :38-338; the search itself is HDILibHelper.hpp:23-109; linear
+1/(1+d) rows, :340-411; UMAP's smooth-knn memberships, :413-593).
 
 The per-row binary search runs on all rows at once, one [N, K] step per
 iteration, until every row has met the entropy tolerance or stopped moving
@@ -12,7 +12,9 @@ iteration, until every row has met the entropy tolerance or stopped moving
 
 Row layout: ``values [N, K]`` with a parallel ``mask [N, K]`` (True = valid
 entry), both tensors on one device.  ``ignore_first=True`` excludes column 0
-(the self edge).  The LINEAR scheme is not ported yet.
+(the self edge).  Sums follow XLA-CPU's association at the row width the
+JAX package sums over (ops/numerics.py); where the JAX package pads rows to
+its bucket width first, so does the port (``bucket_width``).
 """
 
 from __future__ import annotations
@@ -24,12 +26,21 @@ import torch
 
 from ..device import resolve_device
 from ..settings import NormalizationScheme
-from .numerics import (_f32, exp, flush_subnormals as _ftz, log, row_dot,
-                       row_sum, sqrt)
+from ..utils.logging import Log
+from .numerics import (_f32, exp, flush_subnormals as _ftz, log,
+                       np_row_sum, row_dot, row_sum, sqrt)
 
 _MIN_SIGMA = 0.001     # reference: GraphNormalization.cpp:96,249
 _MIN_VAL = 1.0e-10     # values below are dropped (GraphNormalization.cpp:133)
 _F32_MAX = float(np.finfo(np.float32).max)
+
+
+def bucket_width(w: int, lo: int = 32) -> int:
+    """The JAX package's sparse-row width bucket (sph_tpu/ops/bucketing.py:
+    a power of two of at least `lo`), the width its bucketed kernels sum
+    over."""
+    w = max(int(w), 1, lo)
+    return 1 << (w - 1).bit_length()
 
 
 def gaussian_row_distributions(values: torch.Tensor, mask: torch.Tensor,
@@ -56,7 +67,7 @@ def gaussian_row_distributions(values: torch.Tensor, mask: torch.Tensor,
     dev = values.device
     # the JAX package runs this on rows padded to a power-of-two width of
     # at least 32; summing over that width keeps its float32 association
-    wpad = sum_width or max(32, 1 << (k - 1).bit_length())
+    wpad = sum_width or bucket_width(k)
     eff_mask = mask.clone()
     if ignore_first and k > 0:
         eff_mask[:, 0] = False
@@ -140,6 +151,16 @@ def gaussian_row_distributions(values: torch.Tensor, mask: torch.Tensor,
     return torch.where(single[:, None] & eff_mask, 1.0, prob)
 
 
+def linear_row_distributions(values: torch.Tensor, mask: torch.Tensor
+                             ) -> torch.Tensor:
+    """1/(1+d), then row-normalized (reference: computeLinearDistributions,
+    GraphNormalization.cpp:340-411).  The caller masks column 0 (self) out
+    where it should not count."""
+    p = torch.where(mask, 1.0 / (1.0 + values.to(torch.float32)), 0.0)
+    s = row_sum(p)[:, None]
+    return torch.where(s > 0, p / torch.clamp(s, min=1e-38), 0.0)
+
+
 # XLA compiles jnp.log2's log(x) / log(2) as log(x) times this constant
 _INV_LN2 = _f32(1.0 / _f32(math.log(2.0)))
 _SIGMA_STEPS = 64      # the bisection's fixed length in the JAX package
@@ -189,6 +210,15 @@ def smooth_knn_distributions(values: torch.Tensor, mask: torch.Tensor,
     return torch.where(mask, exp(-d / sigma[:, None]), 0.0)
 
 
+def smooth_knn_rows_bucketed(values: torch.Tensor, mask: torch.Tensor
+                             ) -> torch.Tensor:
+    """``smooth_knn_distributions`` over rows summed at the JAX package's
+    bucket width (its smooth_knn_rows_bucketed pads rows to that width
+    before the kernel), so the memberships match it to the last bit."""
+    return smooth_knn_distributions(values, mask,
+                                    sum_width=bucket_width(values.shape[1]))
+
+
 def distance_rows_to_probabilities(values: torch.Tensor, mask: torch.Tensor,
                                    scheme: NormalizationScheme,
                                    perplexity: float = -1.0,
@@ -197,24 +227,29 @@ def distance_rows_to_probabilities(values: torch.Tensor, mask: torch.Tensor,
                                    ) -> torch.Tensor:
     """The distance-rows -> probability-rows dispatcher (reference:
     normalizeKnnDistances, GraphNormalization.hpp:36-53): TSNE gives
-    Gaussian-perplexity rows, UMAP smooth-knn memberships (row-normalized
-    when umap_row_norm, as for the random-walk sampler)."""
-    if scheme == NormalizationScheme.TSNE:
+    Gaussian-perplexity rows, LINEAR 1/(1+d) rows, UMAP smooth-knn
+    memberships (row-normalized when umap_row_norm, as for the random-walk
+    sampler); any other scheme (NONE) falls back to Gaussian rows with a
+    warning, the reference's default branch."""
+    if scheme not in (NormalizationScheme.LINEAR, NormalizationScheme.UMAP):
+        if scheme != NormalizationScheme.TSNE:
+            Log.warn("distance_rows_to_probabilities: scheme %s not a "
+                     "probability kernel, falling back to Gaussian "
+                     "(reference: GraphNormalization.hpp default branch)",
+                     scheme)
         return gaussian_row_distributions(values, mask, perplexity,
                                           ignore_first=ignore_first)
-    if scheme != NormalizationScheme.UMAP:
-        raise NotImplementedError(
-            f"normalization {scheme.value} not ported yet; see ROADMAP")
     m2 = mask.clone()
     if ignore_first:
         m2[:, 0] = False
-    # the JAX package runs these rows at a power-of-two width of at least 32
-    k = values.shape[1]
-    p = smooth_knn_distributions(values, m2,
-                                 sum_width=max(32, 1 << (k - 1).bit_length()))
+    if scheme == NormalizationScheme.LINEAR:
+        return linear_row_distributions(values, m2)
+    p = smooth_knn_rows_bucketed(values, m2)
     if umap_row_norm:
-        s = p.sum(1, keepdim=True)
-        p = torch.where(s > 0, p / torch.clamp(s, min=1e-12), 0.0)
+        # the JAX package takes this sum and division in numpy; its device
+        # consumers then read the subnormal quotients as 0, so they are 0
+        s = np_row_sum(p)[:, None]
+        p = _ftz(torch.where(s > 0, p / torch.clamp(s, min=1e-12), 0.0))
     return p
 
 
@@ -222,15 +257,27 @@ def normalize_knn_distances(distances: np.ndarray,
                             scheme: NormalizationScheme,
                             perplexity: float = -1.0,
                             device=None) -> np.ndarray:
-    """Dispatcher over a fixed-k kNN graph's distance rows.  Column 0 is the
-    self edge and is excluded; returns [N, K] probabilities with column 0 ==
-    0."""
+    """Dispatcher over a fixed-k kNN graph's distance rows (reference:
+    normalizeKnnDistances, GraphNormalization.hpp:36-53), summed over the
+    rows' own width as the JAX package's is.  Column 0 is the self edge
+    and is excluded; returns [N, K] probabilities with column 0 == 0 (NONE:
+    the distances themselves)."""
     d = torch.as_tensor(np.asarray(distances, np.float32),
                         device=resolve_device(device))
-    if scheme == NormalizationScheme.NONE:
+    n, k = d.shape
+    mask = torch.ones_like(d, dtype=torch.bool)
+    m2 = mask.clone()
+    m2[:, 0] = False
+    if scheme == NormalizationScheme.TSNE:
+        p = gaussian_row_distributions(d, mask, perplexity,
+                                       ignore_first=True, sum_width=k)
+    elif scheme == NormalizationScheme.LINEAR:
+        p = linear_row_distributions(d, m2)
+    elif scheme == NormalizationScheme.UMAP:
+        p = smooth_knn_distributions(d, m2)
+    elif scheme == NormalizationScheme.NONE:
         p = d.clone()
         p[:, 0] = 0.0
     else:
-        p = distance_rows_to_probabilities(
-            d, torch.ones_like(d, dtype=torch.bool), scheme, perplexity)
+        raise ValueError(f"unknown scheme {scheme}")
     return p.cpu().numpy()

@@ -47,6 +47,21 @@ def random_disk_init(n: int, radius: float, seed: int = 0) -> np.ndarray:
     return np.stack([r * np.cos(t), r * np.sin(t)], axis=1).astype(np.float32)
 
 
+def pca(data: np.ndarray, num_components: int = 2
+        ) -> tuple[np.ndarray, bool]:
+    """PCA projection to num_components (reference: Math.cpp:208-227 /
+    PCA.hpp): centred per dimension, projected on the right singular
+    vectors of numpy's economic SVD in float64, as the JAX package does."""
+    x = np.asarray(data, dtype=np.float64)
+    x = x - x.mean(axis=0, keepdims=True)
+    try:
+        _, _, vt = np.linalg.svd(x, full_matrices=False)
+        proj = x @ vt[:num_components].T
+        return proj.astype(np.float32), True
+    except np.linalg.LinAlgError:
+        return np.zeros((x.shape[0], num_components), np.float32), False
+
+
 def spectral_embedding(indices: np.ndarray, distances: np.ndarray,
                        num_components: int = 2,
                        seed: int = 123456) -> tuple[np.ndarray, bool]:

@@ -20,6 +20,9 @@ tensor gets the same bits as a CPU one.
   rounded products as ``row_sum`` does.
 - ``cumsum``: XLA's cumulative sum runs left to right inside chunks of 16;
   the chunk totals are scanned the same way and added back.
+- ``np_row_sum``: numpy's own float32 row sum (``x.sum(axis=1)``), for
+  the few sums the JAX package takes in numpy: pairwise, with eight
+  running sums over blocks of at most 128 and halves above that.
 - ``sqrt``: correctly rounded, as XLA's is (torch's CPU kernel is not
   always).
 - ``exp`` / ``log``: XLA's CPU range reduction and Cephes polynomials, with
@@ -61,6 +64,31 @@ def row_sum(x: torch.Tensor, width: int = 0) -> torch.Tensor:
     xp = F.pad(x, (pad // 2, pad - pad // 2))
     return row_sum(_sum_left_to_right(
         xp.reshape(*x.shape[:-1], m, _SUM_WINDOW)))
+
+
+def _pairwise_sum(x: torch.Tensor) -> torch.Tensor:
+    n = x.shape[-1]
+    if n < 8:
+        return _sum_left_to_right(x)
+    if n <= 128:
+        full = n - n % 8
+        r = x[..., :8]
+        for i in range(8, full, 8):
+            r = r + x[..., i:i + 8]
+        res = ((r[..., 0] + r[..., 1]) + (r[..., 2] + r[..., 3])) + (
+            (r[..., 4] + r[..., 5]) + (r[..., 6] + r[..., 7]))
+        for i in range(full, n):
+            res = res + x[..., i]
+        return res
+    n2 = n // 2
+    n2 -= n2 % 8
+    return _pairwise_sum(x[..., :n2]) + _pairwise_sum(x[..., n2:])
+
+
+def np_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x.sum(axis=-1)`` in numpy's float32 association (see module
+    doc)."""
+    return _pairwise_sum(x)
 
 
 def row_dot(a: torch.Tensor, b: torch.Tensor, width: int = 0

@@ -27,7 +27,11 @@ def test_import_leaves_jax_out():
             "sph_tpu_torch.ops.tsne_kernels, sph_tpu_torch.ops.tsne_grid, "
             "sph_tpu_torch.models.umap, sph_tpu_torch.ops.component_knn, "
             "sph_tpu_torch.ops.shortest_path, sph_tpu_torch.ops.geo_sketch, "
-            "sph_tpu_torch.utils.distance_cache; "
+            "sph_tpu_torch.utils.distance_cache, "
+            "sph_tpu_torch.evaluation.run_evaluation, "
+            "sph_tpu_torch.evaluation.segmentation, sph_tpu_torch.utils.io, "
+            "sph_tpu_torch.utils.fileio, sph_tpu_torch.utils.cache, "
+            "sph_tpu_torch.utils.stats; "
             "sys.exit(1 if any(m == 'jax' or m.startswith('jax.') "
             "or m.startswith('sph_tpu.') or m == 'sph_tpu' "
             "for m in sys.modules) else 0)")
@@ -142,7 +146,7 @@ def test_default_device_is_cuda_or_a_clear_error():
 
 
 @pytest.mark.parametrize("change", [
-    {"level_norm": "umap"},
+    {"level_pair_sims": False},
     {"component_sim": "neigh_walks_single_overlap"},
     {"rw_handling": "merge_rw_new_walks"},
     {"level_sim": "neigh_walks_single_overlap"},
@@ -150,8 +154,9 @@ def test_default_device_is_cuda_or_a_clear_error():
 def test_unported_branches_raise(change, monkeypatch):
     """The level_sim case: NEIGH_WALKS_SINGLE_OVERLAP level similarities
     (with the approximate threshold at 4 components, as for any level
-    metric), which are not ported; the level_norm case: level probdists
-    normalised with UMAP."""
+    metric), which are not ported; the level_pair_sims case: walk levels'
+    probdists from their top-k walk rows instead of pairwise walk
+    similarities."""
     from sph_tpu_torch.utils.testdata import create_checker_image
     img = create_checker_image(6, 6, channels=3, block=2, noise=0.02)
     data = T.scale(T.ImageStack.from_array(img).data, T.Scaler.STANDARD)
@@ -162,8 +167,9 @@ def test_unported_branches_raise(change, monkeypatch):
     elif "level_sim" in change:
         lss.component_sim = T.ComponentSim(change["level_sim"])
         monkeypatch.setenv("SPH_APPROX_KNN_THRESHOLD", "4")
-    elif "level_norm" in change:
-        lss.normalize_prob_dist = T.NormalizationScheme(change["level_norm"])
+    elif "level_pair_sims" in change:
+        lss.component_sim = T.ComponentSim.NEIGH_WALKS
+        lss.random_walk_pair_sims = change["level_pair_sims"]
     else:
         kw["rw_handling"] = T.RandomWalkHandling(change["rw_handling"])
     ch = T.ComputeHierarchy(device="cpu").init(
@@ -173,9 +179,3 @@ def test_unported_branches_raise(change, monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ch.compute()
 
-
-def test_stage_cache_not_ported():
-    with pytest.raises(NotImplementedError):
-        T.ComputeHierarchy(device="cpu").init(
-            np.zeros((4, 2), np.float32), 2, 2,
-            cache=T.CacheSettings(path="x", cache_active=True))
