@@ -31,6 +31,15 @@ Phases, each printing one JSON line, and each raising on failure:
    trustworthiness at k = 10 against the components' mean spectra, at
    least 0.99 x the JAX-on-CPU record in
    docs/torch_port_pines_umap_reference.json.
+   Then explorer: sph_tpu_torch.vis_server.ExplorerServer on the card over
+   the same hierarchy with level 1's embedding, served on 127.0.0.1 at a
+   free port: the page and /api/meta; /api/knn at level 0 (k = 16) and
+   level 1 (k = 16, 91), first and cached, each equal to a direct
+   knn_walks call, level 1's k = 91 rows against float64 Bhattacharyya on
+   64 rows; /api/walks at level 1 (50 x 10, seed 1) equal to the port's
+   do_random_walks on the CPU; /api/path at level 1 against scipy's
+   Dijkstra over the answered edges; a level above the cap answers 400;
+   each latency.
 7. scene_overlap — the same recipe at 256x256x200 on default level
    settings (NEIGH_OVERLAP, exact_knn False) with knn_index =
    index_heuristic(65536), IVF_FLAT: the levels against the JAX-on-CPU
@@ -52,7 +61,18 @@ Phases, each printing one JSON line, and each raising on failure:
    iterations of levels 1, 2 and 3 (each after the first from the level
    below's layout) with falling KLs, UMAP of level 1 for 500 epochs;
    seconds and peak memory by stage and part; tsne_forces_dense against
-   its twin at level 1's shape.
+   its twin at level 1's shape.  Then salinas_walks: bench_salinas.py:
+   41-75's NEIGH_WALKS recipe on the same scene (exact kNN k = 31, 50 x
+   10 NORMAL walks), stage 1 once and shared through a kNN cache by two
+   hierarchies: MERGE_RW_ONLY, its levels against the JAX-on-CPU record
+   in docs/torch_port_salinas_walks_reference.json and 2000 dense-tier
+   t-SNE iterations of level 1 (Npad 28672) under the KL gate of
+   bench_salinas.py:116-129 against docs/anchors_salinas.json; and
+   MERGE_RW_NEW_WALKS_AND_KNN, its levels against the record, level 1 on
+   the approximate walk kNN with recall on 256 rows against the exact
+   knn_walks at least the record's - 0.01, level 2 on the exact one
+   against float64 on 64 rows, P's checks and a falling KL; both kernels
+   against their twins at level 1's shape.
 9. rgb_geo — GEO_CENTROID in both stages on a 240x240 RGB scene
    (create_hyperspectral_scene(240, 240, 3, seed=13), 57600 pixels;
    configs/rgb_bus_geo.json through run_evaluation.py's wiring, 100
@@ -132,6 +152,17 @@ Phases, each printing one JSON line, and each raising on failure:
    trustworthiness at least 0.99 x the record's.  Then both kernels
    against their twins at every shape the t-SNE levels of eval_pines_tsne
    and eval_record gave them (n >= 2, Npad of the dense tier).
+20. eval_pines_walks — the evaluation driver on configs/pines_walk_variants
+   .json (NEIGH_WALKS and NEIGH_WALKS_SINGLE_OVERLAP, each with
+   MERGE_RW_NEW_WALKS, MERGE_RW_NEW_WALKS_AND_KNN and MERGE_DATA_NEW_WALKS)
+   and configs/pines_walk_topk.json (MERGE_RW_ONLY with top-k walk rows)
+   at 145x145x200: each run's maps against the JAX-CPU record in
+   docs/torch_port_pines_walks_reference.json (else the Pines rule), its
+   walk length on each level against the record's, every output read
+   back, the KL of each level of at least 100 components below its
+   start, tsne_forces_dense once an iteration of each grid's schedule;
+   then both kernels against their twins at the new shapes its levels
+   gave them.
 
 Then the kernels line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -201,6 +232,15 @@ EVAL_SEED = 7
 EVAL_UMAP = {"dataDistNorm": ["UMAP"], "skipEmbeddingTSNE": True,
              "skipEmbeddingUMAP": False}
 EVAL_KL_RTOL = 0.01        # tests/test_torch_pipeline.py:129
+# the walk-variant grids (eval_pines_walks), each a run of the driver
+EVAL_WALK_GRIDS = ("configs/pines_walk_variants.json",
+                   "configs/pines_walk_topk.json")
+SALINAS_WALKS_TSNE_ITERS = 2000    # bench_salinas.py:43's default
+SALINAS_WALKS_KNN_ITERS = 1000     # the driver's schedule below 100k points
+SALINAS_WALKS_RECALL_ROWS = 256    # level-1 walk kNN recall rows
+SALINAS_WALKS_EXACT_ROWS = 64      # exact walk kNN rows vs float64
+EXPLORER_KNN = ((0, 16), (1, 16), (1, 91))   # /api/knn (level, k)
+EXPLORER_EXACT_ROWS = 64
 # the switches of the t-SNE tier choice, all unset for the default path
 TSNE_SWITCHES = ("SPH_TSNE_DENSE_P", "SPH_TSNE_DENSE_P_MAX", "SPH_TSNE_GRID",
                  "SPH_TSNE_GRID_MIN", "SPH_TSNE_GRID_MAX",
@@ -521,6 +561,23 @@ def p_checks(p, idx, dist, perplexity: float) -> dict:
     import numpy as np
     import torch
     from sph_tpu_torch.ops.distributions import gaussian_row_distributions
+    out = p_mirror_checks(p)
+    mask = idx >= 0
+    cond = gaussian_row_distributions(
+        torch.as_tensor(np.where(mask, dist, 0.0).astype(np.float32),
+                        device=DEV),
+        torch.as_tensor(mask, device=DEV), perplexity, ignore_first=True)
+    worst = float((cond.sum(1) - 1.0).abs().max())
+    if not worst <= 1e-3:
+        raise AssertionError(f"conditional P rows do not sum to 1: {worst}")
+    return {**out, "conditional_row_sum_err": worst}
+
+
+def p_mirror_checks(p) -> dict:
+    """A joint P as t-SNE holds it: every entry's mirror is there with the
+    same value, unless the mirror's row is a full (capped) row; its nnz,
+    width, cut rows and mass a row."""
+    import torch
     n = p.num_rows
     live = p._live()
     nnz = live.sum(1)
@@ -538,19 +595,10 @@ def p_checks(p, idx, dist, perplexity: float) -> dict:
     asym = float((vals[found] - vals[pos[found]]).abs().max())
     if not asym <= 1e-6 * float(vals.abs().max()):
         raise AssertionError(f"P is not symmetric: {asym}")
-    mask = idx >= 0
-    cond = gaussian_row_distributions(
-        torch.as_tensor(np.where(mask, dist, 0.0).astype(np.float32),
-                        device=DEV),
-        torch.as_tensor(mask, device=DEV), perplexity, ignore_first=True)
-    worst = float((cond.sum(1) - 1.0).abs().max())
-    if not worst <= 1e-3:
-        raise AssertionError(f"conditional P rows do not sum to 1: {worst}")
     return {"p_nnz": int(live.sum()), "p_width": p.width,
             "p_rows_cut_to_width": int((nnz == p.width).sum()),
             "p_mirrors_cut": int((~found).sum()),
-            "p_mass_kept": float(vals.sum()) / n, "p_asymmetry": asym,
-            "conditional_row_sum_err": worst}
+            "p_mass_kept": float(vals.sum()) / n, "p_asymmetry": asym}
 
 
 @contextlib.contextmanager
@@ -1934,12 +1982,14 @@ def salinas_gates(sal: dict, ref: dict) -> None:
                              "finite")
 
 
-def eval_grid(root: str, img, writer, name: str, **changes) -> str:
-    """configs/pines_embed.json with its image (`img`, written by `writer`
-    as <root>/data/pines_synth.tiff unless already there) and its output
-    base under `root`, and the keys in `changes` replaced; returns the path
-    of the grid file written as <root>/<name>.json."""
-    with open(os.path.join(REPO, EVAL_GRID)) as f:
+def eval_grid(root: str, img, writer, name: str, grid_file: str = EVAL_GRID,
+              **changes) -> str:
+    """`grid_file` (configs/pines_embed.json by default) with its image
+    (`img`, written by `writer` as <root>/data/pines_synth.tiff unless
+    already there) and its output base under `root`, and the keys in
+    `changes` replaced; returns the path of the grid file written as
+    <root>/<name>.json."""
+    with open(os.path.join(REPO, grid_file)) as f:
         grid = json.load(f)
     data_dir = os.path.join(root, "data")
     os.makedirs(data_dir, exist_ok=True)
@@ -2103,13 +2153,20 @@ def eval_umap_empty_gate(r: dict, want: dict, maps_equal: bool,
 
 
 def eval_tsne_gates(r: dict, name: str) -> None:
-    """Every level of at least 100 components: a finite KL below its
-    starting layout's; every level of 2 or more points on the dense tier,
-    tsne_forces_dense launched once an iteration of the schedule summed
-    over the levels, and tsne_repulsion twice a level (the two KLs)."""
+    """A run's t-SNE levels: ``tsne_level_gates`` and
+    ``tsne_launch_gates``."""
+    tsne_level_gates(r["run"]["embeddings"], name)
+    tsne_launch_gates(r["run"]["embeddings"], r["launches"], name)
+
+
+def tsne_level_gates(embeddings: list, name: str) -> None:
+    """Every level of 2 or more points on the dense tier, and every level
+    of at least 100 components with a finite KL below its starting
+    layout's."""
     import numpy as np
-    embedded = [e for e in r["run"]["embeddings"] if e["n"] >= 2]
-    for e in embedded:
+    for e in embeddings:
+        if e["n"] < 2:
+            continue
         if e["tier"] != "dense":
             raise AssertionError(f"{name} level {e['level']} took the "
                                  f"{e['tier']} t-SNE tier")
@@ -2118,16 +2175,23 @@ def eval_tsne_gates(r: dict, name: str) -> None:
             raise AssertionError(f"{name} level {e['level']}: KL "
                                  f"{e['kl']} not finite and below its "
                                  f"start {e['kl_start']}")
+
+
+def tsne_launch_gates(embeddings: list, launches: dict, name: str) -> None:
+    """tsne_forces_dense launched once an iteration of the schedule summed
+    over the levels of 2 or more points, and tsne_repulsion twice a level
+    (the two KLs)."""
+    embedded = [e for e in embeddings if e["n"] >= 2]
     want = sum(e["iterations"] for e in embedded)
-    if r["launches"]["tsne_forces_dense"] != want:
+    if launches["tsne_forces_dense"] != want:
         raise AssertionError(
             f"{name}: tsne_forces_dense launched "
-            f"{r['launches']['tsne_forces_dense']} times, the schedule has "
+            f"{launches['tsne_forces_dense']} times, the schedule has "
             f"{want} iterations")
-    if r["launches"]["tsne_repulsion"] != 2 * len(embedded):
+    if launches["tsne_repulsion"] != 2 * len(embedded):
         raise AssertionError(
             f"{name}: tsne_repulsion launched "
-            f"{r['launches']['tsne_repulsion']} times for the KLs of "
+            f"{launches['tsne_repulsion']} times for the KLs of "
             f"{len(embedded)} levels")
 
 
@@ -2261,6 +2325,483 @@ def eval_record(tsne_kernels, ref: dict) -> dict:
                     f"{UMAP_TRUST_SLACK} x the record's "
                     f"{rec['jax_cpu_trustworthiness_k10']}")
         out[name] = rec
+    return out
+
+
+def walk_run_name(run: dict) -> str:
+    """A walk-variant run's key in its record: its similarity and walk
+    handling, and "+topk" without pair similarities."""
+    name = f"{run['component_sim']}+{run['rw_handling']}"
+    return name if run["rw_pair_sims"] else name + "+topk"
+
+
+def eval_grid_runs(tsne_kernels, grid: str) -> dict:
+    """The port's run_evaluation once on a grid of several runs, as a user
+    calls it, with the kernels' counts set to 0 just before and read just
+    after: each run's report with its outputs read back (by
+    ``walk_run_name``), the grid's wall seconds and launches."""
+    from sph_tpu_torch.evaluation import run_evaluation as tre
+    from sph_tpu_torch.evaluation.settings import load_eval_settings
+    from sph_tpu_torch.utils import io as tio
+    report = []
+    zero_launches(tsne_kernels)
+    t = time.perf_counter()
+    dirs = tre.run_evaluation(load_eval_settings(grid), report=report,
+                              device=None if DEV == "cuda" else DEV)
+    sync()
+    seconds = time.perf_counter() - t
+    launches = read_launches(tsne_kernels)
+    if not report or len(dirs) != len(report):
+        raise AssertionError(f"{grid}: {len(dirs)} run folders, "
+                             f"{len(report)} reports")
+    runs = {}
+    for run in report:
+        got = eval_outputs(run["out_dir"], tio.read_vec_of_vec,
+                           tio.read_embedding)
+        runs[walk_run_name(run)] = {
+            "run": run, "outputs": got,
+            "read_back": eval_read_back(run["out_dir"], run, got)}
+    return {"runs": runs, "seconds": seconds, "launches": launches}
+
+
+def walk_lengths_gate(run: dict, want: dict, maps_equal: bool,
+                      name: str) -> int:
+    """The walk length of each level against the record's: all of them
+    where the maps are the record's, else those of the leading levels
+    whose sizes are the record's (a level's length follows from the
+    sizes up to it).  Returns the levels compared."""
+    levels, ref = run["levels"], want["levels"]
+    same = len(levels) if maps_equal else next(
+        (i for i, (a, b) in enumerate(zip(levels, ref)) if a != b),
+        min(len(levels), len(ref)))
+    got = run["walk_lengths"][:same]
+    if got != want["walk_lengths"][:same]:
+        raise AssertionError(f"{name}: walk lengths {run['walk_lengths']}, "
+                             f"the JAX record's {want['walk_lengths']}")
+    return len(got)
+
+
+def eval_pines_walks(tsne_kernels, ref: dict) -> dict:
+    """The evaluation driver on both walk-variant grids (EVAL_WALK_GRIDS)
+    at 145x145x200: each run's maps against the JAX-CPU record's (else
+    levels by the Pines rule), its walk lengths against the record's,
+    every output read back, the t-SNE levels' KLs, tsne_forces_dense once
+    an iteration of each grid's schedule, and under
+    MERGE_RW_NEW_WALKS_AND_KNN a component kNN on every level above 0."""
+    import shutil
+    import tempfile
+    from sph_tpu_torch.utils import io as tio
+    from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
+    root = tempfile.mkdtemp(prefix="eval_pines_walks_")
+    img = create_hyperspectral_scene(*EVAL_PINES_SHAPE, seed=EVAL_SEED)
+    out = {"grids": {}, "runs": {}}
+    for grid_file in EVAL_WALK_GRIDS:
+        name = os.path.splitext(os.path.basename(grid_file))[0]
+        g = eval_grid_runs(tsne_kernels, eval_grid(
+            root, img, tio.save_tiff_stack, name, grid_file=grid_file))
+        tsne_launch_gates([e for r in g["runs"].values()
+                           for e in r["run"]["embeddings"]],
+                          g["launches"], f"eval_pines_walks {name}")
+        out["grids"][name] = {"runs": sorted(g["runs"]),
+                              "seconds_total": g["seconds"],
+                              "launches": g["launches"]}
+        for key, r in g["runs"].items():
+            run, want = r["run"], ref["runs"].get(key)
+            if want is None:
+                raise AssertionError(f"eval_pines_walks: no record of {key}")
+            label = f"eval_pines_walks {key}"
+            maps_equal = eval_maps_gate(r, want, label)
+            tsne_level_gates(run["embeddings"], label)
+            compared = walk_lengths_gate(run, want, maps_equal, label)
+            if run["rw_handling"] == "merge_rw_new_walks_and_knn" and not all(
+                    run["knn_tiers"][1:]):
+                raise AssertionError(f"{label}: a level without a "
+                                     f"component kNN: {run['knn_tiers']}")
+            out["runs"][key] = {
+                "grid": name, "levels": run["levels"],
+                "jax_cpu_levels": want["levels"],
+                "maps_equal_to_record": maps_equal,
+                "walk_lengths": run["walk_lengths"],
+                "jax_cpu_walk_lengths": want["walk_lengths"],
+                "walk_lengths_compared": compared,
+                "knn_tiers": run["knn_tiers"],
+                "seconds_by_stage": run["seconds"],
+                "embeddings": run["embeddings"],
+                "files_read_back": len(r["read_back"]["files"])}
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def salinas_walks_settings(P, handling: str, level_to_compute: int = -1):
+    """benchmarks/bench_salinas.py:41-75's recipe for package P: stage 1
+    the exact kNN (FLAT), k = 31, symmetric and connected; stage 2
+    NEIGH_WALKS with `handling` (a RandomWalkHandling value), 50 walks of
+    10 steps, NORMAL weighting, min_reduction 98, max_levels 10,
+    PROPORTIONAL_COMPONENT_REDUCTION, TSNE data normalisation; stage 3
+    NEIGH_WALKS with pair similarities, ks = [31], TSNE normalisation and
+    symmetrisation.  Returns (ihs, lss, rws, nns)."""
+    walks = P.ComponentSim.NEIGH_WALKS
+    ihs = P.ImageHierarchySettings(
+        component_sim=walks, merge_multiple=False, use_percentile=False,
+        max_dist=0.0, min_num_comp=1, min_reduction=98.0, max_levels=10,
+        rw_handling=P.RandomWalkHandling(handling),
+        rw_reduction=P.RandomWalkReduction.PROPORTIONAL_COMPONENT_REDUCTION,
+        norm_knn_distances=P.NormalizationScheme.TSNE)
+    lss = P.LevelSimilaritiesSettings(
+        component_sim=walks, ks=[SALINAS_K], random_walk_pair_sims=True,
+        normalize_prob_dist=P.NormalizationScheme.TSNE,
+        compute_symmetric_prob_dist=P.NormalizationScheme.TSNE,
+        level_to_compute=level_to_compute)
+    rws = P.RandomWalkSettings(
+        num_random_walks=50, single_walk_length=10,
+        importance_weighting=P.ImportanceWeighting.NORMAL, random_seed=1)
+    nns = P.NearestNeighborsSettings(
+        num_nearest_neighbors=SALINAS_K, knn_index=P.KnnIndex.FLAT,
+        symmetric_neighbors=True, compute_connect_components=True,
+        neighbor_connect_components=True)
+    return ihs, lss, rws, nns
+
+
+def walks_band(walks) -> float:
+    """The float32 band of a Bhattacharyya distance of these walk rows: a
+    sum of at most `width` products of square roots, each within a few
+    ulps, whose total is at most 1."""
+    return (walks.width + 2) * 2.0 ** -23
+
+
+def bhattacharyya_f64(walks, rows):
+    """1 - min(BC, 1) in float64 from each of `rows` to every row of the
+    walks (self 0): [len(rows), C]."""
+    import numpy as np
+    import scipy.sparse as sp
+    idx, val = walks.indices, walks.values.astype(np.float64)
+    c = walks.num_rows
+    ok = idx >= 0
+    s = sp.csr_matrix((np.sqrt(np.maximum(val[ok], 0.0)),
+                       (np.nonzero(ok)[0], idx[ok])), shape=(c, c))
+    bc = np.asarray((s[rows] @ s.T).todense())
+    d = 1.0 - np.minimum(bc, 1.0)
+    d[np.arange(len(rows)), rows] = 0.0
+    return d
+
+
+def walks_knn_exactness(walks, ids, dists, rows) -> dict:
+    """A Bhattacharyya walk kNN's `rows` against float64: each returned
+    distance within the float32 band of its float64 value, and no
+    neighbour farther than the float64 k-th distance plus the band."""
+    import numpy as np
+    band = walks_band(walks)
+    d64 = bhattacharyya_f64(walks, rows)
+    k = ids.shape[1]
+    kth = np.partition(d64, k - 1, axis=1)[:, k - 1]
+    got = np.take_along_axis(d64, ids[rows].astype(np.int64), 1)
+    value_err = float(np.abs(got - dists[rows]).max())
+    beyond = float((got - kth[:, None]).max())
+    if not value_err <= band:
+        raise AssertionError(f"walk kNN distances {value_err} from float64, "
+                             f"band {band}")
+    if not beyond <= band:
+        raise AssertionError(f"a walk kNN neighbour lies {beyond} beyond "
+                             f"the float64 k-th distance, band {band}")
+    return {"rows": len(rows), "k": int(k), "band": band,
+            "max_value_err": value_err, "max_beyond_kth": beyond}
+
+
+def salinas_walks(tsne_kernels, shape=SALINAS_SHAPE,
+                  iters: int = SALINAS_WALKS_TSNE_ITERS,
+                  knn_iters: int = SALINAS_WALKS_KNN_ITERS,
+                  recall_rows: int = SALINAS_WALKS_RECALL_ROWS,
+                  exact_rows: int = SALINAS_WALKS_EXACT_ROWS) -> dict:
+    """bench_salinas.py:41-75's NEIGH_WALKS recipe (``salinas_walks_
+    settings``) on create_hyperspectral_scene(*shape, seed=13) through
+    ComputeHierarchy(device=DEV), twice from one stage 1 (the second
+    hierarchy loads it from a shared kNN cache): (i) MERGE_RW_ONLY and
+    `iters` t-SNE iterations of level 1; (ii) MERGE_RW_NEW_WALKS_AND_KNN,
+    level 1's component kNN (approximate above the threshold) and its
+    recall on `recall_rows` sampled rows against the exact knn_walks,
+    level 2's against float64 on `exact_rows` rows, P's checks and
+    `knn_iters` t-SNE iterations of level 1.  Kernel counts are set to 0
+    before each hierarchy and read after its t-SNE."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import sph_tpu_torch as T
+    from sph_tpu_torch.models.tsne import dense_npad
+    from sph_tpu_torch.ops.component_knn import knn_walks
+    from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
+    rows, cols, bands = shape
+    t = time.perf_counter()
+    img = create_hyperspectral_scene(rows, cols, bands, seed=13)
+    data = T.scale(T.ImageStack.from_array(img, name="salinas_walks").data,
+                   T.Scaler.NONE)
+    out = {"size": list(shape), "data_seconds": time.perf_counter() - t}
+    root = tempfile.mkdtemp(prefix="salinas_walks_")
+    cache = T.CacheSettings(path=os.path.join(root, "knn"),
+                            file_name="salinas_walks", cache_active=True)
+    for key, handling, n_iter in (
+            ("rw_only", "merge_rw_only", iters),
+            ("new_walks_and_knn", "merge_rw_new_walks_and_knn", knn_iters)):
+        ihs, lss, rws, nns = salinas_walks_settings(T, handling)
+        ch = T.ComputeHierarchy(device=DEV).init(
+            data, rows, cols, ihs=ihs, lss=lss, rws=rws, nns=nns,
+            knn_cache=cache)
+        zero_launches(tsne_kernels)
+        seconds = {}
+        for name, stage in (("stage1_knn", ch.compute_knn_graph),
+                            ("stage2_hierarchy", ch.compute_image_hierarchy),
+                            ("stage3_level_similarities",
+                             ch.compute_level_similarities)):
+            t = time.perf_counter()
+            stage()
+            sync()
+            seconds[name] = time.perf_counter() - t
+        h = ch.image_hierarchy.hierarchy
+        ls = ch.level_similarities
+        levels = [int(c) for c in h.num_components]
+        es = T.ComputeEmbeddingSettings()
+        es.tsne.num_iterations = n_iter
+        ce = T.ComputeEmbedding(es, device=DEV)
+        kls = {}
+
+        def progress(comp, kls=kls):
+            if comp.current_iteration == 0:
+                kls[0] = comp.kl_divergence()
+
+        p1 = ls.get_prob_dist(1)
+        t = time.perf_counter()
+        with env(**{name: None for name in TSNE_SWITCHES}):
+            emb = ce.compute_tsne(p1, track_kl=True, progress=progress)
+        sync()
+        seconds["tsne_level_1"] = time.perf_counter() - t
+        kls[n_iter] = float(ce.last_kl)
+        comp = ce.last_computation
+        run = {"levels": levels, "walk_lengths": list(
+                   ch.image_hierarchy._rw_lengths),
+               "knn_tiers": ls.knn_tiers,
+               "knn_loaded_from_cache": ch.knn_loaded_from_cache,
+               "seconds": seconds,
+               "tsne": {"n": levels[1], "npad": int(comp._y.shape[0]),
+                        "want_npad": dense_npad(levels[1]),
+                        "tier": comp.tier, "iterations": n_iter,
+                        "iters_per_s": n_iter / ce.seconds["iterations"],
+                        "kl_at": {str(i): v for i, v in sorted(kls.items())},
+                        "embedding_finite": bool(np.all(np.isfinite(emb)))},
+               "launches": read_launches(tsne_kernels)}
+        if handling == "merge_rw_only":
+            run["p"] = p_mirror_checks(p1)
+        else:
+            walks1 = h.random_walks[1]
+            ids1, d1 = ls.distance_graphs[1]
+            run["p"] = p_checks(p1, ids1, d1, ls.perplexity_on_level[1])
+            pick = np.sort(np.random.default_rng(1).choice(
+                levels[1], min(recall_rows, levels[1]), replace=False))
+            t = time.perf_counter()
+            ei, ed = knn_walks(walks1, ids1.shape[1])
+            sync()
+            seconds["exact_knn_walks_level_1"] = time.perf_counter() - t
+            run["level_1_k"] = int(ids1.shape[1])
+            run["level_1_exact_equals_float64"] = walks_knn_exactness(
+                walks1, ei, ed, pick[:exact_rows])
+            run["level_1_recall"] = overlap_recall(
+                ids1[pick], d1[pick], ed[pick, -1] + walks_band(walks1))
+            if len(levels) > 2 and ls.knn_tiers[2] == "exact":
+                pick2 = np.sort(np.random.default_rng(2).choice(
+                    levels[2], min(exact_rows, levels[2]), replace=False))
+                run["level_2_exactness"] = walks_knn_exactness(
+                    h.random_walks[2], *ls.distance_graphs[2], pick2)
+        out[key] = run
+        del ch, ls, h, ce, comp, p1, emb
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def salinas_walks_gates(sal: dict, ref: dict) -> dict:
+    """(i)'s and (ii)'s levels against the JAX-CPU record (level 1 within
+    2 %, the count within one); (i) on the dense tier at its Npad with the
+    KL gate of bench_salinas.py:116-129 against docs/anchors_salinas.json;
+    (ii)'s level 1 on the approximate tier with recall at least the
+    record's - 0.01, level 2 exact against float64, a falling KL; both
+    P's checks and tsne_forces_dense once an iteration."""
+    import numpy as np
+    with open(os.path.join(REPO, "docs", "anchors_salinas.json")) as f:
+        anchor = json.load(f)["kl_under_p_sklearn_bh"]
+    gates = {"kl_gate": KL_SLACK * anchor}
+    for key in ("rw_only", "new_walks_and_knn"):
+        run, want = sal[key], ref["runs"][key]
+        eval_levels_gate(run["levels"], want["levels"], f"salinas_walks "
+                         f"{key}")
+        tsne, kl = run["tsne"], run["tsne"]["kl_at"]
+        if tsne["tier"] != "dense" or tsne["npad"] != tsne["want_npad"]:
+            raise AssertionError(f"salinas_walks {key}: level 1 took the "
+                                 f"{tsne['tier']} tier at {tsne['npad']}")
+        if run["launches"]["tsne_forces_dense"] != tsne["iterations"]:
+            raise AssertionError(f"salinas_walks {key}: tsne_forces_dense "
+                                 f"launched {run['launches']} times")
+        final = kl[str(tsne["iterations"])]
+        if not (np.isfinite(final) and final < kl["0"]
+                and tsne["embedding_finite"]):
+            raise AssertionError(f"salinas_walks {key}: KL {kl}")
+        if key == "rw_only" and not final <= gates["kl_gate"]:
+            raise AssertionError(f"salinas_walks: level-1 KL {final} > "
+                                 f"{KL_SLACK} x anchor {anchor}")
+    knn = sal["new_walks_and_knn"]
+    want = ref["runs"]["new_walks_and_knn"]
+    if knn["knn_tiers"][1] != "approximate":
+        raise AssertionError(f"salinas_walks: level 1 took the "
+                             f"{knn['knn_tiers'][1]} walk kNN")
+    if not knn["level_1_recall"] >= want["level_1_recall"] - RECALL_SLACK:
+        raise AssertionError(f"salinas_walks: level-1 recall "
+                             f"{knn['level_1_recall']} < the JAX record's "
+                             f"{want['level_1_recall']} - {RECALL_SLACK}")
+    if knn.get("level_2_exactness") is None:
+        raise AssertionError("salinas_walks: level 2 did not take the "
+                             f"exact walk kNN: {knn['knn_tiers']}")
+    if not knn["knn_loaded_from_cache"]:
+        raise AssertionError("salinas_walks: the second hierarchy did not "
+                             "load stage 1 from the shared cache")
+    gates["jax_cpu_level_1_recall"] = want["level_1_recall"]
+    return gates
+
+
+def http_get(url: str):
+    """(status, body bytes, milliseconds) of one GET."""
+    import urllib.error
+    import urllib.request
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=600) as r:
+            status, body = r.status, r.read()
+    except urllib.error.HTTPError as exc:
+        status, body = exc.code, exc.read()
+    return status, body, (time.perf_counter() - t) * 1e3
+
+
+def knn_edges(ids, dists) -> list:
+    """The explorer's kNN edges from a kNN graph: each pair once, lower id
+    first, similarity 1 - distance rounded to 6 places."""
+    n = ids.shape[0]
+    edges = []
+    for i in range(n):
+        for j in range(1, ids.shape[1]):
+            t = int(ids[i, j])
+            if 0 <= t < n and t > i:
+                edges.append([i, t, round(max(0.0, 1.0 - float(dists[i, j])),
+                                          6)])
+    return edges
+
+
+def explorer(ch, emb, requests=EXPLORER_KNN,
+             exact_rows: int = EXPLORER_EXACT_ROWS) -> dict:
+    """ExplorerServer on DEV over a computed hierarchy with level 1's
+    embedding, on 127.0.0.1 at a free port: the page and /api/meta; each
+    /api/knn of `requests` (level, k), first and cached, equal to a direct
+    knn_walks call, the largest k's level-1 rows against float64 on
+    `exact_rows` rows; /api/walks at level 1 (50 x 10, seed 1) equal to
+    the port's do_random_walks on the CPU; /api/path at level 1 against
+    scipy's Dijkstra over the answered edges; a request above the cap
+    answers 400.  Latencies in milliseconds."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import dijkstra
+    import sph_tpu_torch as T
+    from sph_tpu_torch.ops.component_knn import knn_walks
+    from sph_tpu_torch.ops.sparse import SparseRows, host_normalize
+    from sph_tpu_torch.ops.walks import do_random_walks
+    from sph_tpu_torch.vis_server import ExplorerServer
+    h = ch.image_hierarchy.hierarchy
+    levels = [int(c) for c in h.num_components]
+    srv = ExplorerServer(ch, embeddings={1: emb}, device=DEV)
+    url = srv.start(port=0)
+    out = {"levels": levels, "ms": {}}
+    try:
+        for name in ("", "api/meta"):
+            for attempt in ("first", "cached"):
+                status, body, ms = http_get(url + name)
+                if status != 200:
+                    raise AssertionError(f"explorer /{name}: {status}")
+                out["ms"][f"/{name} {attempt}"] = ms
+        meta = json.loads(body)
+        if meta["num_components"] != levels:
+            raise AssertionError(f"explorer meta: {meta}")
+        out["page_bytes"] = len(http_get(url)[1])
+        for level, k in requests:
+            q = f"api/knn?level={level}&k={k}"
+            got = []
+            for attempt in ("first", "cached"):
+                status, body, ms = http_get(url + q)
+                if status != 200:
+                    raise AssertionError(f"explorer /{q}: {status} {body}")
+                out["ms"][f"/{q} {attempt}"] = ms
+                got.append(json.loads(body)["edges"])
+            walks = h.random_walks[level]
+            ids, dists = knn_walks(walks, k)
+            if not got[0] == got[1] == knn_edges(ids, dists):
+                raise AssertionError(f"explorer /{q}: edges differ from a "
+                                     "direct knn_walks call")
+            out[f"knn_level_{level}_k{k}_edges"] = len(got[0])
+        level, k = max((r for r in requests if r[0] == 1),
+                       key=lambda r: r[1])
+        pick = np.sort(np.random.default_rng(5).choice(
+            levels[level], min(exact_rows, levels[level]), replace=False))
+        out["knn_exactness"] = walks_knn_exactness(
+            h.random_walks[level], *knn_walks(h.random_walks[level], k),
+            pick)
+        q = "api/walks?level=1&num=50&len=10&seed=1"
+        for attempt in ("first", "cached"):
+            status, body, ms = http_get(url + q)
+            if status != 200:
+                raise AssertionError(f"explorer /{q}: {status} {body}")
+            out["ms"][f"/{q} {attempt}"] = ms
+        rows = h.random_walks[1]
+        cpu = SparseRows(rows.indices, host_normalize(rows.indices,
+                                                      rows.values),
+                         rows.num_cols, device="cpu")
+        ref = do_random_walks(cpu, T.RandomWalkSettings(
+            num_random_walks=50, single_walk_length=10,
+            importance_weighting=T.ImportanceWeighting.NORMAL,
+            random_seed=1))
+        ri, rv = ref.indices, ref.values
+        want = [[[int(c) for c in ri[i][ri[i] >= 0]],
+                 [round(float(v), 6) for v in rv[i][ri[i] >= 0]]]
+                for i in range(levels[1])]
+        if json.loads(body)["walks"] != want:
+            raise AssertionError("explorer /api/walks differs from "
+                                 "do_random_walks on the CPU")
+        # a pair joined in the live k = 16 graph: node 0 and the node
+        # farthest from it by scipy's Dijkstra over the answered edges
+        e = np.array(json.loads(http_get(
+            url + "api/knn?level=1&k=16")[1])["edges"])
+        w = -np.log(np.maximum(e[:, 2], 1e-12))
+        g = sp.coo_matrix((np.concatenate([w, w]), (
+            np.concatenate([e[:, 0], e[:, 1]]).astype(np.int64),
+            np.concatenate([e[:, 1], e[:, 0]]).astype(np.int64))),
+            shape=(levels[1],) * 2).tocsr()
+        dist = dijkstra(g, indices=0)
+        a, b = 0, int(np.argmax(np.where(np.isfinite(dist), dist, -1.0)))
+        q = f"api/path?level=1&a={a}&b={b}&k=16"
+        status, body, ms = http_get(url + q)
+        out["ms"][f"/api/path?level=1 first"] = ms
+        path = json.loads(body)
+        ends = path["path"][:1] + path["path"][-1:]
+        if (status != 200 or b == a or ends != [a, b]
+                or path["distance"] != round(float(dist[b]), 6)):
+            raise AssertionError(f"explorer /{q}: {status} {path}, scipy "
+                                 f"{dist[b]}")
+        out["path"] = {"a": a, "b": b, "hops": len(path["path"]) - 1,
+                       "distance": path["distance"],
+                       "scipy_distance": float(dist[b])}
+    finally:
+        srv.stop()
+    capped = ExplorerServer(ch, device=DEV,
+                            max_live_components=levels[0] - 1)
+    url = capped.start(port=0)
+    try:
+        status, body, ms = http_get(url + "api/knn?level=0&k=16")
+    finally:
+        capped.stop()
+    if status != 400:
+        raise AssertionError(f"explorer above the cap: {status} {body}")
+    out["above_cap"] = {"status": status, "ms": ms}
     return out
 
 
@@ -2526,6 +3067,12 @@ def main() -> int:
             f"UMAP trustworthiness {umap['trustworthiness_k10']} < "
             f"{UMAP_TRUST_SLACK} x the JAX package's "
             f"{umap_ref['trustworthiness_k10']}")
+
+    # ---- the live explorer server on the same hierarchy -----------------
+    t = time.perf_counter()
+    live = explorer(ch, emb)
+    emit({"phase": "explorer", **live,
+          "seconds": time.perf_counter() - t})
     del ch, cond, dense, emb, ce, umap
 
     # ---- default level settings: the approximate kNN tiers on the path ---
@@ -2605,6 +3152,30 @@ def main() -> int:
     emit({"phase": "kernel_vs_twin", "kernel": "tsne_forces_dense",
           "path_shape": "salinas_euclid", **checks[-1]})
     salinas_gates(sal, sal_ref)
+
+    # ---- NEIGH_WALKS on the Salinas-shaped scene, two walk handlings -----
+    with open(os.path.join(REPO, "docs",
+                           "torch_port_salinas_walks_reference.json")) as f:
+        salw_ref = json.load(f)
+    t = time.perf_counter()
+    salw = salinas_walks(tsne_kernels)
+    salw["seconds_total"] = time.perf_counter() - t
+    emit({"phase": "salinas_walks", **salw,
+          "jax_cpu": salw_ref["runs"]})
+    salw_n = salw["rw_only"]["levels"][1]
+    checks.append(check_forces_kernel(salw_n, dense_npad(salw_n), seed=17,
+                                      calls=50))
+    emit({"phase": "kernel_vs_twin", "kernel": "tsne_forces_dense",
+          "path_shape": "salinas_walks", **checks[-1]})
+    y = torch.from_numpy(repulsion_layout(salw_n, dense_npad(salw_n),
+                                          seed=salw_n)).cuda()
+    rep_checks.append(check_repulsion_kernel(y, salw_n, 50, 5,
+                                             clock_hz=clock_hz))
+    del y
+    emit({"phase": "kernel_vs_twin", "kernel": "tsne_repulsion",
+          "path_shape": "salinas_walks_kl", **rep_checks[-1]})
+    emit({"phase": "salinas_walks_gates", **salinas_walks_gates(
+        salw, salw_ref)})
 
     # ---- GEO_CENTROID in both stages, 240x240 RGB ------------------------
     t = time.perf_counter()
@@ -2812,12 +3383,42 @@ def main() -> int:
             emit({"phase": "kernel_vs_twin", "kernel": "tsne_repulsion",
                   "path_shape": f"{path}_level_{e['level']}_kl",
                   **rep_checks[-1]})
+    with open(os.path.join(REPO, "docs",
+                           "torch_port_pines_walks_reference.json")) as f:
+        walks_ref = json.load(f)
+    t = time.perf_counter()
+    ev_walks = eval_pines_walks(tsne_kernels, walks_ref)
+    emit({"phase": "eval_pines_walks", **ev_walks,
+          "seconds": time.perf_counter() - t})
+    # both kernels at the shapes the walk variants' t-SNE levels gave them
+    # (each shape once, and none already held above)
+    seen = {(c["n"], c["npad"]) for c in checks}
+    for key, run in ev_walks["runs"].items():
+        for e in run["embeddings"]:
+            n, npad = e["n"], dense_npad(e["n"])
+            if n < 2 or (n, npad) in seen:
+                continue
+            seen.add((n, npad))
+            checks.append(check_forces_kernel(n, npad, seed=31 + n,
+                                              calls=20))
+            emit({"phase": "kernel_vs_twin", "kernel": "tsne_forces_dense",
+                  "path_shape": f"eval_pines_walks {key} level "
+                                f"{e['level']}", **checks[-1]})
+            y = torch.from_numpy(repulsion_layout(n, npad, seed=n)).cuda()
+            rep_checks.append(check_repulsion_kernel(y, n, 20, 3,
+                                                     clock_hz=clock_hz))
+            del y
+            emit({"phase": "kernel_vs_twin", "kernel": "tsne_repulsion",
+                  "path_shape": f"eval_pines_walks {key} level "
+                                f"{e['level']}_kl", **rep_checks[-1]})
     eval_paths = [("eval_pines_tsne", ev_tsne["first"]),
                   ("eval_pines_tsne_cached", ev_tsne["second"]),
                   ("eval_pines_umap", ev_umap),
                   ("eval_record_tsne", ev_record["record_tsne"]),
                   ("eval_record_umap", ev_record["record_umap"])]
 
+    salw_runs = [(key, salw[key]) for key in ("rw_only",
+                                              "new_walks_and_knn")]
     rep_main = rep_checks[1]            # the Pines KL's shape
     rep_timed = [c for c in rep_checks if "ms" in c]
     emit({"kernels": [{
@@ -2842,7 +3443,14 @@ def main() -> int:
               for level, run in geo["tsne"].items()),
             *({"path": path, "n": ev["levels"][0],
                "launches": ev["launches"]["tsne_forces_dense"]}
-              for path, ev in eval_paths)],
+              for path, ev in eval_paths),
+            *({"path": f"salinas_walks_{key}", "n": run["tsne"]["n"],
+               "launches": run["launches"]["tsne_forces_dense"]}
+              for key, run in salw_runs),
+            *({"path": f"eval_pines_walks_{name}", "n": EVAL_PINES_SHAPE[0]
+               * EVAL_PINES_SHAPE[1],
+               "launches": g["launches"]["tsne_forces_dense"]}
+              for name, g in ev_walks["grids"].items())],
         "at_shapes": [{
             "shape": [c["n"], c["npad"]], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
@@ -2877,7 +3485,14 @@ def main() -> int:
              "launches": mid["exact"]["launches"]["tsne_repulsion"]},
             *({"path": f"{path}_kl", "n": ev["levels"][0],
                "launches": ev["launches"]["tsne_repulsion"]}
-              for path, ev in eval_paths)],
+              for path, ev in eval_paths),
+            *({"path": f"salinas_walks_{key}_kl", "n": run["tsne"]["n"],
+               "launches": run["launches"]["tsne_repulsion"]}
+              for key, run in salw_runs),
+            *({"path": f"eval_pines_walks_{name}_kl",
+               "n": EVAL_PINES_SHAPE[0] * EVAL_PINES_SHAPE[1],
+               "launches": g["launches"]["tsne_repulsion"]}
+              for name, g in ev_walks["grids"].items())],
         "at_shapes": [{
             "shape": [c["n"], c["npad"]], "plan": c["plan"], "ms": c["ms"],
             "plain_ms": c.get("plain_ms", "not measured"),

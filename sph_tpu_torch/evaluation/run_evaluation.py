@@ -89,8 +89,10 @@ def run_evaluation(settings: EvalSettings, max_runs: Optional[int] = None,
                    report: Optional[list] = None) -> list[str]:
     """Execute the grid on `device` (the card when None); returns the run
     output folders.  With `report`, each finished run appends a summary:
-    its folder, levels, whether the kNN stage loaded from the shared
-    cache, the seconds of each stage, and for each level embedding its
+    its folder, its similarity, walk handling and pair-similarity axis,
+    levels, whether the kNN stage loaded from the shared
+    cache, each level's walk length and component kNN tier (None where
+    none), the seconds of each stage, and for each level embedding its
     method, size, schedule and seconds, with the t-SNE KL of its starting
     and of its final layout (one more repulsion pass each) and the UMAP
     memberships' count and range."""
@@ -250,8 +252,14 @@ def run_evaluation(settings: EvalSettings, max_runs: Optional[int] = None,
         if report is not None:
             report.append({
                 "out_dir": out_dir, "run_id": run_id,
+                "component_sim": run["component_sim"].value,
+                "rw_handling": run["rw_handling"].value,
+                "rw_pair_sims": bool(run["rw_pair_sims"]),
                 "levels": list(h.num_components),
                 "knn_loaded_from_cache": ch.knn_loaded_from_cache,
+                "walk_lengths": list(ch.image_hierarchy._rw_lengths),
+                "knn_tiers": (None if settings.skip_level_similarities
+                              else list(ch.level_similarities.knn_tiers)),
                 "seconds": seconds, "embeddings": embeddings})
         run_dirs.append(out_dir)
         Log.info("Finished run %d", run_id)

@@ -6,9 +6,11 @@ pixelComponents, randomWalks, notMergedNodes; `addLevel` performs
 updateParentsAndChildren, updateSpatialNeighbors and updateRandomWalks).
 
 The per-level label arrays are host numpy (the level loop's control plane);
-the walk matrices are SparseRows on the device.  Of the walk-handling modes
-only MERGE_RW_ONLY is ported: merged walks are summed child rows, never
-re-simulated.
+the walk matrices are SparseRows on the device.  All four walk handlings
+are ported: MERGE_RW_ONLY (merged walks are summed child rows),
+MERGE_RW_NEW_WALKS and MERGE_RW_NEW_WALKS_AND_KNN (new walks on the merged
+rows) and MERGE_DATA_NEW_WALKS (new walks on the min-merged data distance
+graph).
 """
 
 from __future__ import annotations
@@ -20,11 +22,14 @@ import numpy as np
 import torch
 
 from ..settings import (ComponentSim, NeighConnection, NormType,
-                        RandomWalkHandling)
+                        RandomWalkHandling, RandomWalkSettings)
 from ..utils.logging import Log
 from ..utils.timer import phase
-from ..ops.sparse import (SparseRows, merge_rows_by_parents,
-                          normalize_matrix)
+from ..ops.distributions import gaussian_row_distributions
+from ..ops.sparse import (SparseRows, host_normalize, merge_rows_by_parents,
+                          merge_rows_min_by_parents, normalize_matrix,
+                          normalize_rows, remove_diagonal)
+from ..ops.walks import do_random_walks
 
 # pixel-grid offsets (reference: sph/utils/ImageHelper.hpp:11-52)
 _OFFSETS_FOUR = np.array([(-1, 0), (0, 1), (1, 0), (0, -1)], dtype=np.int64)
@@ -85,6 +90,8 @@ class Hierarchy:
         # random_walks[l]: SparseRows on level l's components
         self.random_walks: list[SparseRows] = []
         self.not_merged: list[np.ndarray] = []
+        # MERGE_DATA_NEW_WALKS: the min-merged data distance rows per level
+        self.merged_data_graphs: list[SparseRows] = []
         self._pixel_neighbors: Optional[np.ndarray] = None
 
     @property
@@ -126,8 +133,10 @@ class Hierarchy:
         self.pixel_components.append(np.arange(num_points, dtype=np.int64))
 
     def add_level(self, num_components_next: int,
-                  component_labels_next: np.ndarray):
-        """Reference: Hierarchy::addLevel (:134-160)."""
+                  component_labels_next: np.ndarray,
+                  rws: RandomWalkSettings):
+        """Reference: Hierarchy::addLevel (:134-160); `rws` (with the
+        level's walk length) for the handlings that walk again."""
         assert self.num_levels > 0
         labels = np.asarray(component_labels_next, dtype=np.int64)
         assert labels.shape[0] == self.num_components[-1]
@@ -140,7 +149,7 @@ class Hierarchy:
             self._update_spatial_neighbors(num_components_next)
         if self.settings.component_sim in WALK_SIMS:
             with phase("h.merge_walks"):
-                self._update_random_walks(num_components_next, labels)
+                self._update_random_walks(num_components_next, labels, rws)
 
     def _update_spatial_neighbors(self, num_components_next: int):
         pix_next = self.pixel_components[-1]
@@ -163,28 +172,57 @@ class Hierarchy:
         adj[urow, np.arange(urow.size) - starts[urow]] = ucol
         self.spatial_neighbors.append(adj)
 
-    def _update_random_walks(self, num_next: int, labels: np.ndarray):
-        """Reference: Hierarchy::updateRandomWalks (:250-390), the
-        MERGE_RW_ONLY branch: sum the child walk rows into their parents
-        and renormalize."""
+    def _update_random_walks(self, num_next: int, labels: np.ndarray,
+                             rws: RandomWalkSettings):
+        """Reference: Hierarchy::updateRandomWalks (:250-390), in the JAX
+        package's order.  MERGE_RW_ONLY sums the child walk rows into their
+        parents and normalizes them; MERGE_RW_NEW_WALKS[_AND_KNN] merge the
+        same way, drop the self-similarity (keeping single-entry rows) when
+        rw_remove_self_sim_after_merging, normalize and walk again on the
+        merged rows with `rws`; MERGE_DATA_NEW_WALKS min-merges the data
+        distance graph, turns it into Gaussian probability rows and walks
+        on those.  Merged rows are capped in width: one giant merge
+        component would otherwise force the whole padded matrix to its
+        union nnz (sum merges keep the largest values, min merges the
+        smallest)."""
         handling = self.settings.rw_handling
-        if handling != RandomWalkHandling.MERGE_RW_ONLY:
-            raise NotImplementedError(
-                f"rw_handling {handling.value} not ported yet; see ROADMAP")
-        # cap the merged row width to a memory budget: one giant merge
-        # component would otherwise force the whole padded matrix to its
-        # union nnz; truncation keeps the largest values
         cap = max(1024, MERGE_WIDTH_BUDGET // max(num_next, 1))
         onedim = self.settings.rw_norm_sim == NormType.ONEDIM
-        merged = merge_rows_by_parents(
-            self.random_walks[-1], labels, num_next, norm=onedim,
-            weight_by_size=self.settings.rw_weight_merge_by_size,
-            max_width=cap)
-        if (self.settings.rw_remove_self_sim_after_merging
-                and merged.num_rows > 1):
-            Log.warn_once("Hierarchy::updateRandomWalks: MERGE_RW_ONLY "
-                          "ignores rw_remove_self_sim_after_merging")
-        out = merged if onedim else normalize_matrix(merged)
+        if handling == RandomWalkHandling.MERGE_DATA_NEW_WALKS:
+            graph = merge_rows_min_by_parents(
+                self.merged_data_graphs[-1], labels, num_next, max_width=cap)
+            self.merged_data_graphs.append(graph)
+            merged = distance_rows_to_probs(graph)
+        elif handling == RandomWalkHandling.MERGE_RW_ONLY:
+            # the normalization folds into the merge: the same numpy sums
+            merged = merge_rows_by_parents(
+                self.random_walks[-1], labels, num_next, norm=onedim,
+                weight_by_size=self.settings.rw_weight_merge_by_size,
+                max_width=cap)
+            if (self.settings.rw_remove_self_sim_after_merging
+                    and merged.num_rows > 1):
+                Log.warn_once("Hierarchy::updateRandomWalks: MERGE_RW_ONLY "
+                              "ignores rw_remove_self_sim_after_merging")
+            if not onedim:
+                merged = normalize_matrix(merged)
+        else:
+            merged = merge_rows_by_parents(
+                self.random_walks[-1], labels, num_next, norm=False,
+                weight_by_size=self.settings.rw_weight_merge_by_size,
+                max_width=cap)
+            if (self.settings.rw_remove_self_sim_after_merging
+                    and merged.num_rows > 1):
+                merged = remove_diagonal(merged, keep_single_entry=True)
+            # the JAX package normalizes its host-side merge in numpy
+            merged = SparseRows(merged.idx, host_normalize(
+                merged.indices, merged.values, onedim), merged.num_cols)
+
+        if handling == RandomWalkHandling.MERGE_RW_ONLY:
+            out = merged
+        else:
+            Log.info("Hierarchy::updateRandomWalks: new random walks of "
+                     "length %d", rws.single_walk_length)
+            out = do_random_walks(merged, rws, self.settings.verbose)
         # preserve the self-similarity when the top level is a single node
         # (reference: :387-389)
         if out.num_rows == 1 and out.nnz() == 0:
@@ -196,3 +234,16 @@ class Hierarchy:
             val[0, 0] = 1.0
             out = SparseRows(idx, val, out.num_cols)
         self.random_walks.append(out)
+
+
+def distance_rows_to_probs(dist_rows: SparseRows) -> SparseRows:
+    """Sparse distance rows as transition probabilities (reference:
+    updateRandomWalks' MERGE_DATA_NEW_WALKS path, normalizeKnnDistances on
+    the merged graph): Gaussian rows at perplexity -1 (a third of each
+    row's size) over the entries off the diagonal, then each row to one."""
+    rows = torch.arange(dist_rows.num_rows, device=dist_rows.device)[:, None]
+    mask = (dist_rows.idx >= 0) & (dist_rows.idx != rows)
+    p = gaussian_row_distributions(dist_rows.val, mask, -1.0,
+                                   ignore_first=False,
+                                   sum_width=dist_rows.width)
+    return normalize_rows(SparseRows(dist_rows.idx, p, dist_rows.num_cols))

@@ -3,16 +3,18 @@
 Port of sph_tpu/models/image_hierarchy.py (reference: sph/ImageHierarchy.cpp
 — computePreparations (:149-190), the computeBoruvkaHierarchy level loop
 (:409-591) with mergeMinBelow (:312-362) / mergeAllBelow (:261-310),
-percentile thresholds (:371-394), weak-CC labels of the merge graph and the
-stagnation / min-comp / max-level stopping rules (:418-453)).
+percentile thresholds (:371-394), weak-CC labels of the merge graph, the
+stagnation / min-comp / max-level stopping rules (:418-453) and the
+seven-policy walk-length schedule (:504-548)).
 
 Each level evaluates the component distances of all spatial-neighbor edges
 in one batched device call (ops/similarities, ops/shortest_path); the level
 loop, the merge selection and its numpy RNG stay on the host, as in the JAX
-package.  The NEIGH_WALKS, NEIGH_OVERLAP, EUCLID_CENTROID, GEO_CENTROID and
-GEO_WALKS metrics are ported; NEIGH_WALKS_SINGLE_OVERLAP raises.  The
-data-level probdist takes any of the normalization schemes
-(ops/distributions.distance_rows_to_probabilities).
+package.  Every component metric is ported (NEIGH_WALKS,
+NEIGH_WALKS_SINGLE_OVERLAP, NEIGH_OVERLAP, EUCLID_CENTROID, GEO_CENTROID,
+GEO_WALKS), with every walk handling.  The data-level probdist takes any of
+the normalization schemes (ops/distributions.distance_rows_to_probabilities).
+The multi-scene preset preparations (set_preparations) are not ported.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import torch
 
 from ..device import resolve_device
 from ..settings import (ComponentSim, ImageHierarchySettings,
-                        RandomWalkHandling, RandomWalkSettings)
+                        RandomWalkHandling, RandomWalkReduction,
+                        RandomWalkSettings)
 from ..utils.logging import Log
 from ..utils.timer import phase
 from ..ops import shortest_path
@@ -49,8 +52,7 @@ class ImageHierarchyStats:
     forced_merge_count: list[int] = field(default_factory=list)
     reduction_rates: list[float] = field(default_factory=list)
     rw_sparsities: list[float] = field(default_factory=list)
-    # the merged data graphs of MERGE_DATA_NEW_WALKS, which is not ported:
-    # always empty, kept so the stats file has the JAX package's keys
+    # never filled, in the JAX package too: kept for the stats file's keys
     merged_data_sparsities: list[float] = field(default_factory=list)
     num_components: list[int] = field(default_factory=list)
     not_merged_components: list[int] = field(default_factory=list)
@@ -96,6 +98,8 @@ class ImageHierarchy:
         self.hierarchy = Hierarchy()
         self.stats = ImageHierarchyStats()
         self.data_level_probdist: Optional[SparseRows] = None
+        # the walk length of each level's walks (level 0 first)
+        self._rw_lengths: list[int] = []
         self.component_labels: Optional[np.ndarray] = None  # WCC of data knn
 
     def set_settings(self, ihs: Optional[ImageHierarchySettings] = None,
@@ -115,15 +119,6 @@ class ImageHierarchy:
                 rws: Optional[RandomWalkSettings] = None):
         self.set_settings(ihs, rws)
         cs = self._ihs.component_sim
-        if cs == ComponentSim.NEIGH_WALKS_SINGLE_OVERLAP:
-            raise NotImplementedError(
-                f"component similarity {cs.value} not ported yet; see "
-                "ROADMAP")
-        if (cs in WALK_SIMS and self._ihs.rw_handling
-                != RandomWalkHandling.MERGE_RW_ONLY):
-            raise NotImplementedError(
-                f"rw_handling {self._ihs.rw_handling.value} not ported "
-                "yet; see ROADMAP")
         self.hierarchy = Hierarchy(HierarchySettings(
             num_rows=self._rows, num_cols=self._cols,
             neighbor_connection=self._ihs.neighbor_connection,
@@ -163,10 +158,20 @@ class ImageHierarchy:
         if self._ihs.component_sim in WALK_SIMS:
             Log.info("ImageHierarchy::computePreparations: random walks on "
                      "data level")
+            self._rw_lengths = [self._rws.single_walk_length]
             walks = do_random_walks(self.data_level_probdist, self._rws,
                                     self._ihs.verbose)
             self.hierarchy.random_walks.append(walks)
             self.stats.rw_sparsities.append(1.0 - walks.nnz() / (float(n) * n))
+            if (self._ihs.rw_handling
+                    == RandomWalkHandling.MERGE_DATA_NEW_WALKS):
+                # the data distances, kept for the min merges (reference:
+                # :177-178)
+                self.hierarchy.merged_data_graphs.append(SparseRows(
+                    torch.where(mask_t, idx_t, -1),
+                    torch.where(mask_t, torch.as_tensor(
+                        np.asarray(knn_dist, np.float32), device=dev), 0.0),
+                    n))
 
     # ------------------------------------------------------------------
 
@@ -217,10 +222,12 @@ class ImageHierarchy:
                          "level not added, stopping")
                 break
 
-            # MERGE_RW_ONLY merges walks and never re-simulates them, so the
-            # walk-length schedule (ImageHierarchy.cpp:504-548) has no effect
+            self._adapt_walk_length(reduction)
+            rws_next = RandomWalkSettings(**{**self._rws.__dict__})
+            if self._rw_lengths:
+                rws_next.single_walk_length = self._rw_lengths[-1]
             with phase("ih.add_level"):
-                self.hierarchy.add_level(ncc, labels)
+                self.hierarchy.add_level(ncc, labels, rws_next)
             self.stats.not_merged_components.append(
                 len(self.hierarchy.not_merged[-1]))
             if len(self.hierarchy.random_walks) > 1:
@@ -241,6 +248,35 @@ class ImageHierarchy:
         return (len(rr) > 2 and rr[-1] > self._ihs.min_reduction
                 and rr[-2] > self._ihs.min_reduction)
 
+    def _adapt_walk_length(self, reduction_rate_pct: float):
+        """The next level's walk length (reference: ImageHierarchy.cpp:
+        504-548, seven policies): the current length times a rate (the
+        level's reduction, twice or half of it, or a constant), clamped to
+        [minimum_single_walk_length, the data level's length].  Only walk
+        metrics that walk again (not MERGE_RW_ONLY) keep a schedule."""
+        if self._ihs.component_sim not in WALK_SIMS:
+            return
+        if self._ihs.rw_handling == RandomWalkHandling.MERGE_RW_ONLY:
+            return
+        cur = self._rw_lengths[-1]
+        pol = self._ihs.rw_reduction
+        r = reduction_rate_pct / 100.0
+        rate = {
+            RandomWalkReduction.NONE: 1.0,
+            RandomWalkReduction.PROPORTIONAL_COMPONENT_REDUCTION: r,
+            RandomWalkReduction.PROPORTIONAL_DOUBLE: r * 2.0,
+            RandomWalkReduction.PROPORTIONAL_HALF: r * 0.5,
+            RandomWalkReduction.CONSTANT: 0.5,
+            RandomWalkReduction.CONSTANT_LOW: 0.75,
+            RandomWalkReduction.CONSTANT_HIGH: 0.25,
+        }[pol]
+        rate = min(max(rate, 0.0), 1.0)
+        nxt = min(max(int(rate * cur), self._rws.minimum_single_walk_length),
+                  self._rw_lengths[0])
+        self._rw_lengths.append(nxt)
+        Log.info("ImageHierarchy: walk length %d -> %d (%s)", cur, nxt,
+                 pol.value)
+
     # ------------------------------------------------------------------
 
     def _compute_distances(self, level: int):
@@ -256,6 +292,9 @@ class ImageHierarchy:
         cs = self._ihs.component_sim
         if cs == ComponentSim.NEIGH_WALKS:
             dist = sims.walks_bhattacharyya_distance(
+                self.hierarchy.random_walks[level], src, dst)
+        elif cs == ComponentSim.NEIGH_WALKS_SINGLE_OVERLAP:
+            dist = sims.walks_single_overlap_distance(
                 self.hierarchy.random_walks[level], src, dst)
         elif cs == ComponentSim.EUCLID_CENTROID:
             dist = self._hausdorff_distances(level, src, dst)

@@ -7,8 +7,11 @@ ImageHierarchy data-level probdist; WALKS levels use pairwise random-walk
 Bhattacharyya; kNN-metric levels use Gaussian-perplexity rows) and TSNE
 symmetrization (:589-623)).
 
-Ported: NEIGH_WALKS and GEO_WALKS with pairwise walk similarities (and,
-with force_compute_distances, the walks as the level's distance graph),
+Ported: the walk metrics (NEIGH_WALKS, NEIGH_WALKS_SINGLE_OVERLAP,
+GEO_WALKS) with pairwise walk similarities or the top-k walk rows (and,
+with force_compute_distances, the walks as the level's distance graph), or,
+under MERGE_RW_NEW_WALKS_AND_KNN, the level's kNN over the walk metric
+(exact, or the approximate tier above SPH_APPROX_KNN_THRESHOLD components),
 NEIGH_OVERLAP and EUCLID_CENTROID with their per-level kNN (exact, or the
 approximate tier above SPH_APPROX_KNN_THRESHOLD components unless exact_knn
 is set), GEO_CENTROID with the geodesic Hausdorff kNN (which itself takes
@@ -31,7 +34,8 @@ import numpy as np
 import torch
 
 from ..settings import (ComponentSim, LevelSimilaritiesSettings,
-                        NormalizationScheme)
+                        NormalizationScheme, RandomWalkHandling,
+                        RandomWalkSettings)
 from ..utils.logging import Log
 from ..utils.timer import phase
 from ..ops import component_knn, shortest_path
@@ -42,10 +46,14 @@ from ..ops.graph import KnnGraph, PaddedGraph
 from ..ops.similarities import (build_union_neighborhoods,
                                 component_hausdorff,
                                 neighbor_overlap_distance,
-                                sample_represented)
+                                sample_represented,
+                                walks_bhattacharyya_distance,
+                                walks_single_overlap_distance)
+from ..ops.numerics import np_row_sum, row_sum
+from ..ops.walks import stored_width
 from ..ops.sparse import (SparseRows, drop_zero_entries,
                           pairwise_similarities, shrink_width,
-                          symmetrize_tsne, symmetrize_umap)
+                          symmetrize_tsne, symmetrize_umap, topk_rows)
 from .hierarchy import WALK_SIMS, Hierarchy
 
 
@@ -129,14 +137,6 @@ class LevelSimilarities:
     def compute(self, lss: Optional[LevelSimilaritiesSettings] = None):
         if lss is not None:
             self._lss = lss
-        cs = self._lss.component_sim
-        if cs == ComponentSim.NEIGH_WALKS_SINGLE_OVERLAP:
-            raise NotImplementedError(
-                f"level similarity {cs.value} not ported yet; see ROADMAP")
-        if cs in WALK_SIMS and not self._lss.random_walk_pair_sims:
-            raise NotImplementedError(
-                "top-k walk rows as level probdist not ported yet; see "
-                "ROADMAP")
         if len(self._lss.ks) <= 1:
             self.update_number_of_neighbors()
 
@@ -158,21 +158,35 @@ class LevelSimilarities:
         c = self.hierarchy.num_components[level]
         return min(self._lss.ks[level], c)
 
+    def _walks_knn(self) -> bool:
+        """Whether walk levels take their probdist from a kNN over the walk
+        metric (MERGE_RW_NEW_WALKS_AND_KNN) rather than from the walks."""
+        return (self._lss.component_sim in WALK_SIMS
+                and self.hierarchy.settings.rw_handling
+                == RandomWalkHandling.MERGE_RW_NEW_WALKS_AND_KNN)
+
     def _compute_knn_on_level(self, level: int):
         """Reference: computeNearestNeighborOnLevel (:191-442).  Walk levels
-        take their probdist from the walks; with force_compute_distances
-        the walks also become the level's distance graph.  Above the
-        approximate threshold, unless exact_knn is set, the approximate
+        take their probdist from the walks (with force_compute_distances
+        the walks also become the level's distance graph), or under
+        MERGE_RW_NEW_WALKS_AND_KNN from a kNN over the walk metric.  Above
+        the approximate threshold, unless exact_knn is set, the approximate
         tier (reference: computeApproximateKnn :254-334, hnswlib HNSW when
         exactKnn is false) with the JAX package's seed, the level."""
         if level == 0:
+            return
+        c = self.hierarchy.num_components[level]
+        k = self._current_k(level)
+        approximate = not self._lss.exact_knn and c > _approx_knn_threshold()
+        if self._walks_knn():
+            self.distance_graphs[level] = self._walk_metric_knn(
+                level, k, approximate)
+            self.knn_tiers[level] = "approximate" if approximate else "exact"
             return
         if self._lss.component_sim in WALK_SIMS:
             if self._lss.force_compute_distances:
                 self._use_walks_as_knn_distances(level)
             return
-        c = self.hierarchy.num_components[level]
-        k = self._current_k(level)
         if self._lss.component_sim == ComponentSim.GEO_CENTROID:
             # no approximate tier: above CONTRACT_THRESHOLD components the
             # geodesic kNN takes the contracted component graph itself
@@ -184,13 +198,28 @@ class LevelSimilarities:
                 "contracted" if c > shortest_path.CONTRACT_THRESHOLD
                 else "exact")
             return
-        approximate = not self._lss.exact_knn and c > _approx_knn_threshold()
         if self._lss.component_sim == ComponentSim.EUCLID_CENTROID:
             graph = self._hausdorff_knn(level, k, approximate)
         else:
             graph = self._overlap_knn(level, k, approximate)
         self.distance_graphs[level] = graph
         self.knn_tiers[level] = "approximate" if approximate else "exact"
+
+    def _walk_metric_knn(self, level: int, k: int, approximate: bool):
+        """The level's kNN over its walk rows, by Bhattacharyya or, for
+        NEIGH_WALKS_SINGLE_OVERLAP, the single overlap: exact
+        (``knn_walks``) or the approximate tier over the rows' sketches."""
+        single = (self._lss.component_sim
+                  == ComponentSim.NEIGH_WALKS_SINGLE_OVERLAP)
+        walks = self.hierarchy.random_walks[level]
+        if not approximate:
+            return component_knn.knn_walks(walks, k, single_overlap=single)
+        pair = (walks_single_overlap_distance if single
+                else walks_bhattacharyya_distance)
+        feats = component_knn.project_sparse_rows(walks, seed=level)
+        return component_knn.approx_pair_metric_knn(
+            lambda a, b: pair(walks, a, b), feats, k, seed=level,
+            device=self.device)
 
     def _overlap_knn(self, level: int, k: int, approximate: bool):
         if isinstance(self._graph, KnnGraph):
@@ -271,7 +300,7 @@ class LevelSimilarities:
                 pd = self._image_hierarchy.data_level_probdist
             else:
                 pd = self._probdist_from_data_graph(perp)
-        elif self._lss.component_sim in WALK_SIMS:
+        elif self._lss.component_sim in WALK_SIMS and not self._walks_knn():
             pd = self._probdist_from_walks(level, k, perp)
         else:
             pd = self._probdist_from_knn(level, perp)
@@ -312,15 +341,20 @@ class LevelSimilarities:
     def _probdist_from_walks(self, level: int, k: int, perp: float
                              ) -> SparseRows:
         """Reference: useRandomWalks (:460-508) with pairwise walk
-        similarities (createSimilarities), then Gaussian rows (TSNE) or
-        smooth-knn memberships (UMAP); any other scheme leaves the
-        similarities as they are, as in the JAX package."""
+        similarities (createSimilarities) or, without
+        random_walk_pair_sims, each row's k largest walk values normalized
+        to one; then Gaussian rows (TSNE) or smooth-knn memberships (UMAP);
+        any other scheme leaves the similarities as they are, as in the JAX
+        package."""
         walks = self.hierarchy.random_walks[level]
-        sizes = None
-        if self._lss.weight_transition_by_size:
-            sizes = self.hierarchy.component_sizes(level)
-        pd = pairwise_similarities(walks, k, prune_val=1e-4,
-                                   component_sizes=sizes)
+        if self._lss.random_walk_pair_sims:
+            sizes = None
+            if self._lss.weight_transition_by_size:
+                sizes = self.hierarchy.component_sizes(level)
+            pd = pairwise_similarities(walks, k, prune_val=1e-4,
+                                       component_sizes=sizes)
+        else:
+            pd = self._top_walk_rows(level, k)
         mask = (pd.idx >= 0) & (pd.val != 0)
         scheme = self._lss.normalize_prob_dist
         if scheme == NormalizationScheme.TSNE:
@@ -333,6 +367,34 @@ class LevelSimilarities:
                      "or UMAP; skipping normalization")
             return pd
         return SparseRows(pd.idx, p, pd.num_cols)
+
+    def _top_walk_rows(self, level: int, k: int) -> SparseRows:
+        """Each walk row's k largest values, normalized to one, with the
+        JAX package's float32 sums over the width of its top-k rows: in
+        XLA's order where its walk rows of the level came from a walk
+        simulation and stayed on the device (MERGE_DATA_NEW_WALKS, and the
+        top level of the other handlings that walk again), else in numpy
+        (merged rows, and rows loaded from a stage cache)."""
+        walks = self.hierarchy.random_walks[level]
+        top = topk_rows(walks, k, largest=True)
+        handling = self.hierarchy.settings.rw_handling
+        ih = self._image_hierarchy
+        lengths = ih._rw_lengths if ih is not None else []
+        simulated = (handling != RandomWalkHandling.MERGE_RW_ONLY
+                     and level < len(lengths))
+        width = walks.width
+        if simulated:
+            rws = RandomWalkSettings(**{**ih._rws.__dict__})
+            rws.single_walk_length = lengths[level]
+            width = stored_width(width, walks.num_rows, rws)
+        v = torch.nn.functional.pad(torch.where(top.idx >= 0, top.val, 0.0),
+                                    (0, min(k, width) - top.width))
+        on_device = simulated and (
+            handling == RandomWalkHandling.MERGE_DATA_NEW_WALKS
+            or level == self.hierarchy.num_levels - 1)
+        s = row_sum(v) if on_device else np_row_sum(v)
+        s = torch.where(s == 0, 1.0, s)[:, None]
+        return SparseRows(top.idx, top.val / s, top.num_cols)
 
     def _probdist_from_knn(self, level: int, perp: float) -> SparseRows:
         """Reference: useKnnDistances (:510-515) — Gaussian rows over the

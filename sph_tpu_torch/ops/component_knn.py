@@ -1,4 +1,4 @@
-"""kNN in component metric spaces: the exact NEIGH_OVERLAP and
+"""kNN in component metric spaces: the exact NEIGH_OVERLAP, walk and
 EUCLID_CENTROID tiers and the approximate tier.
 
 Port of sph_tpu/ops/component_knn.py (reference:
@@ -7,11 +7,14 @@ NeighborOverlapSpace.hpp:31-42, and computeApproximateKnn :254-334).
 ``knn_neighbor_overlap`` is exact: the intersection counts of a block of
 components with all others are one sparse product of the 0/1 membership
 rows with the block's dense membership columns (exact in float32: counts
-<< 2^24).  ``knn_hausdorff`` is exact: blocked products of the components'
-sampled points.  ``approx_pair_metric_knn`` is the approximate tier:
-k-means cluster pruning over a sketch of each component
-(``project_sparse_rows``, ``ivf_candidate_table``), then the exact pair
-metric on the candidates only.  The walk metrics are not ported yet.
+<< 2^24).  ``knn_walks`` is exact: the walk rows' Bhattacharyya (a float32 product of
+densified square-root tiles) or single overlap (the max of a row tile and
+its transposed column tile) over all components.  ``knn_hausdorff`` is
+exact: blocked products of the components' sampled points.
+``approx_pair_metric_knn`` is the approximate tier: k-means cluster pruning
+over a sketch of each component (``project_sparse_rows``,
+``ivf_candidate_table``), then the exact pair metric on the candidates
+only.
 """
 
 from __future__ import annotations
@@ -86,6 +89,124 @@ def knn_neighbor_overlap(unions: SparseRows, k: int,
         top = knn._bottom_k(dist, kk, memory_budget)
         out_d.append(dist.gather(1, top))
         out_i.append(top)
+    idx, dist, _ = ensure_self_first(
+        torch.cat(out_i).to(torch.int32).cpu().numpy(),
+        torch.cat(out_d).cpu().numpy())
+    return idx.astype(np.int32), dist.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# NEIGH_WALKS (Bhattacharyya) and NEIGH_WALKS_SINGLE_OVERLAP
+# ---------------------------------------------------------------------------
+
+# bytes of one tile of `knn_walks`: the row tile's dense [rows, C] rows and
+# [rows, C] distances with their selection keys, and one column tile's dense
+# [cols, C] rows
+WALKS_MEMORY_BUDGET = 2 << 30
+_WALKS_ROW_BYTES = 24      # dense row, distance, int64 key, per column
+_BIG_ID = torch.iinfo(torch.int64).max
+
+
+def walks_blocks(c: int, memory_budget: int = WALKS_MEMORY_BUDGET
+                 ) -> tuple[int, int]:
+    """(row components, column components) of one tile of `knn_walks`:
+    half of `memory_budget` for the row tile's [rows, c] buffers, half for
+    the column tile's dense [cols, c] rows."""
+    half = memory_budget // 2
+    rows = max(1, min(c, half // (_WALKS_ROW_BYTES * c)))
+    cols = max(1, min(c, half // (4 * c)))
+    return rows, cols
+
+
+def check_sparse_rows(rows: SparseRows, name: str = "rows") -> None:
+    """Raise ValueError unless every row's columns ascend strictly (so they
+    are unique) with the pads (-1) after them, all within [0, num_cols):
+    the invariant densifying scatters trust."""
+    idx = rows.idx
+    if idx.numel() == 0:
+        return
+    if bool((idx >= rows.num_cols).any()) or bool((idx < -1).any()):
+        raise ValueError(f"{name}: column ids outside [0, {rows.num_cols})")
+    key = torch.where(idx < 0, _BIG_ID, idx)
+    bad = (key[:, 1:] <= key[:, :-1]) & (key[:, 1:] != _BIG_ID)
+    if bool(bad.any()):
+        row = int(torch.nonzero(bad.any(1))[0, 0])
+        raise ValueError(
+            f"{name}: row {row} has columns that are not ascending and "
+            f"unique, or a pad before a column: {idx[row].tolist()}")
+
+
+def _dense_tile(rows: SparseRows, r0: int, r1: int, root: bool
+                ) -> torch.Tensor:
+    """Rows r0:r1 as dense [r1 - r0, num_cols] float32 (their square roots
+    when `root`); columns are unique, so each entry is written once."""
+    idx, val = rows.idx[r0:r1], rows.val[r0:r1]
+    ok = idx >= 0
+    v = sqrt(torch.clamp(val[ok], min=0.0)) if root else val[ok]
+    out = torch.zeros((r1 - r0, rows.num_cols), dtype=torch.float32,
+                      device=rows.device)
+    out[torch.nonzero(ok, as_tuple=True)[0], idx[ok]] = v
+    return out
+
+
+def _transposed_tile(rows: SparseRows, r0: int, r1: int) -> torch.Tensor:
+    """Columns r0:r1 of the rows as dense [r1 - r0, num_rows]: entry [a, b]
+    is w[b, r0 + a]."""
+    ok = (rows.idx >= r0) & (rows.idx < r1)
+    src = torch.nonzero(ok, as_tuple=True)[0]
+    out = torch.zeros((r1 - r0, rows.num_rows), dtype=torch.float32,
+                      device=rows.device)
+    out[rows.idx[ok] - r0, src] = rows.val[ok]
+    return out
+
+
+def knn_walks(walks: SparseRows, k: int, single_overlap: bool = False,
+              memory_budget: int = WALKS_MEMORY_BUDGET
+              ) -> tuple[np.ndarray, np.ndarray]:
+    """Per component, the k nearest components by its walk row (reference:
+    NeighborWalksBhattacharyyaSpace / NeighborWalksSingleOverlapSpace):
+    (ids [C, k] int32, dists [C, k] f32), ascending with ties to the lower
+    id, self first with distance 0.
+
+    Bhattacharyya (the default): 1 - min(<sqrt(w_a), sqrt(w_b)>, 1), the
+    product of two dense square-root tiles in float32 (TF32 is off).
+    Single overlap: 1 - max(w[a, b], w[b, a]), a row tile against the same
+    columns' transposed tile, bit for bit the JAX package's.  Tiles are
+    sized from `memory_budget` (``walks_blocks``); no [C, C] matrix is
+    held.  The rows must keep the SparseRows invariant (ascending unique
+    columns, pads last): ``check_sparse_rows`` raises where they do not,
+    as a densify that trusted them would build a wrong graph."""
+    c = walks.num_rows
+    if walks.num_cols != c:
+        raise ValueError(f"knn_walks needs square walk rows, got {c} rows "
+                         f"of {walks.num_cols} columns")
+    check_sparse_rows(walks, "knn_walks")
+    dev = walks.device
+    kk = min(k, c)
+    rb, cb = walks_blocks(c, memory_budget)
+    cols = torch.arange(c, device=dev)
+    out_i, out_d = [], []
+    for r0 in range(0, c, rb):
+        r1 = min(r0 + rb, c)
+        if single_overlap:
+            sim = torch.maximum(_dense_tile(walks, r0, r1, False),
+                                _transposed_tile(walks, r0, r1))
+            dist = 1.0 - sim
+            del sim
+        else:
+            rows = _dense_tile(walks, r0, r1, True)
+            dist = torch.empty((r1 - r0, c), dtype=torch.float32, device=dev)
+            for c0 in range(0, c, cb):
+                c1 = min(c0 + cb, c)
+                bc = rows @ _dense_tile(walks, c0, c1, True).T
+                dist[:, c0:c1] = 1.0 - torch.clamp(bc, max=1.0)
+                del bc
+            del rows
+        dist[torch.arange(r1 - r0, device=dev), cols[r0:r1]] = 0.0
+        top = knn._bottom_k(dist, kk, memory_budget)
+        out_d.append(dist.gather(1, top))
+        out_i.append(top)
+        del dist
     idx, dist, _ = ensure_self_first(
         torch.cat(out_i).to(torch.int32).cpu().numpy(),
         torch.cat(out_d).cpu().numpy())

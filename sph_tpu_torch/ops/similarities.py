@@ -1,11 +1,12 @@
 """Batched component-pair distances for the Borůvka merge step.
 
-Port of the NEIGH_WALKS, NEIGH_OVERLAP and EUCLID_CENTROID metrics of
-sph_tpu/ops/similarities.py (reference: sph/utils/Similarities.cpp —
-componentDistance :123-156, NEIGH_OVERLAP :174-228, NEIGH_WALKS
-Bhattacharyya :353-396, EUCLID_CENTROID Hausdorff :414-483).  Every metric
-evaluates all requested (a, b) pairs in batched calls on one device.  The
-geodesic and single-overlap metrics are not ported yet.
+Port of the NEIGH_WALKS, NEIGH_WALKS_SINGLE_OVERLAP, NEIGH_OVERLAP and
+EUCLID_CENTROID metrics of sph_tpu/ops/similarities.py (reference:
+sph/utils/Similarities.cpp — componentDistance :123-156, NEIGH_OVERLAP
+:174-228, NEIGH_WALKS single overlap :328-351 and Bhattacharyya :353-396,
+EUCLID_CENTROID Hausdorff :414-483).  Every metric evaluates all requested
+(a, b) pairs in batched calls on one device; the geodesic metrics are in
+ops/shortest_path.py.
 """
 
 from __future__ import annotations
@@ -28,6 +29,36 @@ def walks_bhattacharyya_distance(walks: SparseRows, pairs_a: np.ndarray,
     """1 - BC(row_a, row_b) (reference: simRandomWalksBhattacharyya)."""
     bc = bhattacharyya_pairs(walks, pairs_a, pairs_b)
     return np.asarray(np.float32(1.0) - bc, dtype=np.float32)
+
+
+def walks_single_overlap_distance(walks: SparseRows, pairs_a: np.ndarray,
+                                  pairs_b: np.ndarray) -> np.ndarray:
+    """1 - max(w[a, b], w[b, a]) (reference: simRandomWalksSingleOverlay,
+    Similarities.cpp:328-351): each lookup a binary search of the row's
+    ascending columns, 0 where the column is absent.  A max and a
+    subtraction, so the JAX package's values bit for bit.  Pairs are
+    chunked so the [E, R] row gathers stay near 2^26 entries."""
+    e = len(pairs_a)
+    if e == 0:
+        return np.empty(0, np.float32)
+    dev = walks.device
+    key = torch.where(walks.idx < 0, _BIG, walks.idx)
+    r = walks.width
+    a_all = torch.as_tensor(np.asarray(pairs_a, np.int64), device=dev)
+    b_all = torch.as_tensor(np.asarray(pairs_b, np.int64), device=dev)
+
+    def lookup(rows, cols):
+        kr = key[rows]
+        pos = torch.searchsorted(kr, cols[:, None]).clamp_(max=r - 1)
+        hit = kr.gather(1, pos)[:, 0] == cols
+        return torch.where(hit, walks.val[rows].gather(1, pos)[:, 0], 0.0)
+
+    chunk = max(4096, (1 << 26) // max(r, 1))
+    out = torch.empty(e, dtype=torch.float32, device=dev)
+    for i0 in range(0, e, chunk):
+        a, b = a_all[i0:i0 + chunk], b_all[i0:i0 + chunk]
+        out[i0:i0 + chunk] = 1.0 - torch.maximum(lookup(a, b), lookup(b, a))
+    return out.cpu().numpy()
 
 
 def build_union_neighborhoods(knn_indices: np.ndarray,

@@ -7,9 +7,9 @@ pads last) and ``values [N, R]`` (0 at pads), here as int64 / float32 tensors
 on one device.  Widths are the exact widest row, not the JAX package's
 power-of-two buckets, which existed only to bound XLA recompiles.
 
-Each op runs as torch ops on the rows' device, except ``merge_rows_by_parents``,
-which takes the host C++ merge (sph_tpu/native/graphops.cpp) as the JAX package
-does off the TPU.
+Each op runs as torch ops on the rows' device, except the two merges
+(``merge_rows_by_parents``, ``merge_rows_min_by_parents``), which take the
+host C++ merge (native/graphops.cpp) as the JAX package does off the TPU.
 """
 
 from __future__ import annotations
@@ -279,9 +279,64 @@ def merge_rows_by_parents(sr: SparseRows, parents: np.ndarray,
         indices, values = native.pack_rows(out_rows, out_cols, sums,
                                            num_merged, width)
     if norm:
-        s = np.where(indices >= 0, values, 0.0).sum(axis=1)
-        s = np.where(s == 0, 1.0, s)
-        values = (values / s[:, None]).astype(np.float32)
+        values = host_normalize(indices, values, onedim=True)
+    return SparseRows(indices, values, num_merged, device=sr.device)
+
+
+def host_normalize(indices: np.ndarray, values: np.ndarray,
+                   onedim: bool = True) -> np.ndarray:
+    """The JAX package's host normalization of merged rows, in numpy's
+    float32 sums: each row to one (onedim, normalizeUnitSparseMatrix) or
+    the whole matrix to one (normalizeSparseMatrix); all-zero rows (or an
+    all-zero matrix) stay as they are."""
+    s = np.where(indices >= 0, values, np.float32(0.0)).sum(axis=1)
+    if onedim:
+        s = np.where(s == 0, np.float32(1.0), s)
+        return (values / s[:, None]).astype(np.float32)
+    total = s.sum()
+    return values if total == 0 else (values / total).astype(np.float32)
+
+
+def merge_rows_min_by_parents(sr: SparseRows, parents: np.ndarray,
+                              num_merged: int,
+                              max_width: Optional[int] = None) -> SparseRows:
+    """Min-distance merge (reference: mergeNodesDataDistances /
+    mergeGraphNodes, SparseMatrixAlgorithms.cpp:443-561): child rows and
+    their columns map to their parents, and duplicate merged entries keep
+    the smallest value; zero entries drop out.  Rows wider than max_width
+    keep their smallest values (ties to the lower column).
+
+    The accumulation is the host C++ merge (``native.merge_min``), as the
+    JAX package runs it off the TPU; the packed rows are uploaded to the
+    input's device once."""
+    parents = np.asarray(parents, dtype=np.int64)
+    assert parents.shape[0] == sr.num_rows
+    out_rows, out_cols, mins = native.merge_min(sr.indices, sr.values,
+                                                parents, num_merged)
+    counts = np.bincount(out_rows, minlength=num_merged)
+    width = max(int(counts.max()) if counts.size else 1, 1)
+    starts = np.zeros(num_merged + 1, dtype=np.int64)
+    np.cumsum(counts, out=starts[1:])
+    if max_width is not None and width > max_width:
+        Log.info("merge_rows_min_by_parents: truncating rows from width %d "
+                 "to %d (keeping smallest distances)", width, max_width)
+        width = max_width
+        order = np.lexsort((mins, out_rows))
+        out_rows, out_cols, mins = (out_rows[order], out_cols[order],
+                                    mins[order])
+        keep = np.arange(out_rows.size) - starts[out_rows] < width
+        out_rows, out_cols, mins = out_rows[keep], out_cols[keep], mins[keep]
+        # back to ascending columns within each row
+        order = np.lexsort((out_cols, out_rows))
+        out_rows, out_cols, mins = (out_rows[order], out_cols[order],
+                                    mins[order])
+        counts = np.bincount(out_rows, minlength=num_merged)
+        starts[1:] = np.cumsum(counts)
+    slot = np.arange(out_rows.size) - starts[out_rows]
+    indices = np.full((num_merged, width), PAD, dtype=np.int64)
+    values = np.zeros((num_merged, width), dtype=np.float32)
+    indices[out_rows, slot] = out_cols
+    values[out_rows, slot] = mins
     return SparseRows(indices, values, num_merged, device=sr.device)
 
 

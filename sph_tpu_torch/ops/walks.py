@@ -21,6 +21,7 @@ import torch
 from ..settings import ImportanceWeighting, RandomWalkSettings
 from ..utils.logging import Log
 from . import rng
+from .distributions import bucket_width
 from .numerics import _f32, _fma, cumsum, exp, row_sum
 from .sparse import PAD, SparseRows, compact, shrink_width
 
@@ -203,6 +204,23 @@ def postprocess(idx: torch.Tensor, val: torch.Tensor, prune_value: float,
     return idx_s, val_s
 
 
+def out_width(num_rows: int, settings: RandomWalkSettings) -> int:
+    """Slots a walk row is accumulated into: max_row_nnz, else the walks'
+    visits capped at 2048, and never more than the rows."""
+    w, length = int(settings.num_random_walks), int(settings.single_walk_length)
+    cap = settings.max_row_nnz or min(w * length, 2048)
+    return min(cap, w * length, num_rows)
+
+
+def stored_width(need: int, num_rows: int, settings: RandomWalkSettings
+                 ) -> int:
+    """The width the JAX package stores walk rows at: the widest live row
+    (`need`) rounded up to its power-of-two bucket, within ``out_width``.
+    The port stores `need`; sums that the JAX package takes over its
+    stored width use this to place their zero padding."""
+    return min(bucket_width(need), out_width(num_rows, settings))
+
+
 def do_random_walks(similarities: SparseRows,
                     settings: RandomWalkSettings,
                     verbose: bool = False) -> SparseRows:
@@ -219,12 +237,11 @@ def do_random_walks(similarities: SparseRows,
     if prune_value > 0:
         Log.info("Random walks: pruning all values below %s", prune_value)
 
-    cap = settings.max_row_nnz or min(w * length, 2048)
-    out_width = min(cap, w * length, c)
     visited = simulate(similarities.idx, similarities.val,
                        int(settings.random_seed), w, length)
     idx, val = accumulate(visited, w, length,
-                          settings.importance_weighting.value, out_width)
+                          settings.importance_weighting.value,
+                          out_width(c, settings))
     idx, val = postprocess(idx, val, prune_value, settings.remove_diagonal,
                            settings.normalize)
     rows = SparseRows(idx, val, c)

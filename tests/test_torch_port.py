@@ -1,5 +1,6 @@
 """The PyTorch port's surface: it imports no jax, its settings copy matches
-the JAX package's, devices are explicit, what is not ported raises, and the
+the JAX package's, devices are explicit, what is not ported raises (and
+what was, runs), and the
 interop helpers carry the JAX package's settings and arrays across."""
 
 import dataclasses
@@ -31,7 +32,8 @@ def test_import_leaves_jax_out():
             "sph_tpu_torch.evaluation.run_evaluation, "
             "sph_tpu_torch.evaluation.segmentation, sph_tpu_torch.utils.io, "
             "sph_tpu_torch.utils.fileio, sph_tpu_torch.utils.cache, "
-            "sph_tpu_torch.utils.stats; "
+            "sph_tpu_torch.utils.stats, sph_tpu_torch.vis_interactive, "
+            "sph_tpu_torch.vis_server; "
             "sys.exit(1 if any(m == 'jax' or m.startswith('jax.') "
             "or m.startswith('sph_tpu.') or m == 'sph_tpu' "
             "for m in sys.modules) else 0)")
@@ -152,30 +154,43 @@ def test_default_device_is_cuda_or_a_clear_error():
     {"level_sim": "neigh_walks_single_overlap"},
 ])
 def test_unported_branches_raise(change, monkeypatch):
-    """The level_sim case: NEIGH_WALKS_SINGLE_OVERLAP level similarities
+    """The branches that raised until the walk options were ported now run
+    and equal the JAX package's: the level_sim case,
+    NEIGH_WALKS_SINGLE_OVERLAP level similarities over NEIGH_WALKS levels
     (with the approximate threshold at 4 components, as for any level
-    metric), which are not ported; the level_pair_sims case: walk levels'
-    probdists from their top-k walk rows instead of pairwise walk
-    similarities."""
+    metric); the level_pair_sims case, walk levels' probdists from their
+    top-k walk rows instead of pairwise walk similarities."""
     from sph_tpu_torch.utils.testdata import create_checker_image
     img = create_checker_image(6, 6, channels=3, block=2, noise=0.02)
-    data = T.scale(T.ImageStack.from_array(img).data, T.Scaler.STANDARD)
-    kw = {"component_sim": T.ComponentSim.NEIGH_WALKS}
-    lss = T.LevelSimilaritiesSettings(ks=[6])
-    if "component_sim" in change:
-        kw["component_sim"] = T.ComponentSim(change["component_sim"])
-    elif "level_sim" in change:
-        lss.component_sim = T.ComponentSim(change["level_sim"])
+    if "level_sim" in change:
         monkeypatch.setenv("SPH_APPROX_KNN_THRESHOLD", "4")
-    elif "level_pair_sims" in change:
-        lss.component_sim = T.ComponentSim.NEIGH_WALKS
-        lss.random_walk_pair_sims = change["level_pair_sims"]
-    else:
-        kw["rw_handling"] = T.RandomWalkHandling(change["rw_handling"])
-    ch = T.ComputeHierarchy(device="cpu").init(
-        data, 6, 6, ihs=T.ImageHierarchySettings(**kw), lss=lss,
-        rws=T.RandomWalkSettings(num_random_walks=4, single_walk_length=3),
-        nns=T.NearestNeighborsSettings(num_nearest_neighbors=6))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    out = []
+    for P, kw in ((J, {}), (T, {"device": "cpu"})):
+        data = P.scale(P.ImageStack.from_array(img).data, P.Scaler.STANDARD)
+        ihs = P.ImageHierarchySettings(
+            component_sim=P.ComponentSim.NEIGH_WALKS)
+        lss = P.LevelSimilaritiesSettings(ks=[6])
+        if "component_sim" in change:
+            ihs.component_sim = P.ComponentSim(change["component_sim"])
+        elif "level_sim" in change:
+            lss.component_sim = P.ComponentSim(change["level_sim"])
+        elif "level_pair_sims" in change:
+            lss.component_sim = P.ComponentSim.NEIGH_WALKS
+            lss.random_walk_pair_sims = change["level_pair_sims"]
+        else:
+            ihs.rw_handling = P.RandomWalkHandling(change["rw_handling"])
+        ch = P.ComputeHierarchy(**kw).init(
+            data, 6, 6, ihs=ihs, lss=lss,
+            rws=P.RandomWalkSettings(num_random_walks=4,
+                                     single_walk_length=3),
+            nns=P.NearestNeighborsSettings(num_nearest_neighbors=6))
         ch.compute()
+        h = ch.image_hierarchy.hierarchy
+        out.append((list(h.num_components),
+                    [ch.level_similarities.get_prob_dist(lv).to_dense()
+                     for lv in range(h.num_levels)]))
+    (jl, jp), (tl, tp) = out
+    assert tl == jl and len(tl) >= 2
+    for a, b in zip(jp, tp):
+        assert np.abs(np.asarray(a) - b).max() <= 1e-6
 
