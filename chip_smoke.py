@@ -13,7 +13,8 @@ Phases, each printing one JSON line, and each raising on failure:
 3. kernel_vs_twin — each kernel against its plain PyTorch twin on the card
    at the paths' shapes, with the time per call of both (CUDA events):
    tsne_forces_dense at the Pines level-1 shapes, tsne_repulsion at
-   (n, Npad) = (1000, 1024), (5358, 6144) (the Pines KL's) and
+   (n, Npad) = (1000, 1024), (5358, 6144) (the Pines KL's), (21025, 21504)
+   (a Pines-sized scene, one of multi_scene's 16) and
    (65536, 65536) in full and at (1000000, 1000448) on 4096 sampled rows,
    two calls bit-equal, its launch plan and its SFU floor.
 4. main    — the Pines configuration of bench.py:89-136 at 145x145x200
@@ -163,6 +164,41 @@ Phases, each printing one JSON line, and each raising on failure:
    start, tsne_forces_dense once an iteration of each grid's schedule;
    then both kernels against their twins at the new shapes its levels
    gave them.
+21. multi_scene — BASELINE config 5 (benchmarks/bench_multiscene.py) at
+   full width: 16 scenes create_hyperspectral_scene(145, 145, 200, seed=7
+   + i) (scene 0 the Pines image) with bench.py:97-122's flagship settings
+   through sph_tpu_torch.parallel.sharded.multi_scene_hierarchy on
+   [cuda] (batched stage 1, then each scene's levels), then every scene's
+   level-0 P through multi_scene_tsne for 1000 iterations (one
+   tsne_repulsion launch an iteration for all 16); bench_multiscene.py's
+   A/B (batched against a serial loop of the one-scene stage 1) on 4
+   scenes.  Gates: each scene's stage 1 against the JAX-CPU record
+   (docs/torch_port_multiscene_reference.json, scripts/multiscene_
+   reference.py): equal kNN id hashes, else both row sets the float64
+   top-k up to
+   the float32 band (the walk rows' agreement printed: on the card the
+   distances' last bits move the walk draws); 64 kNN rows of scenes 0 and
+   15 against float64;
+   the recorded scenes' levels by the Pines rule; scenes 0 and 15
+   bit-equal to one-scene calls with seed + i; every KL finite and below
+   its start.  Then tsne_repulsion batched (16 scenes at 21025 / 21504)
+   against the one-scene calls and its twin.
+22. multi_scene_record — bench_multiscene.py's defaults (4 scenes of
+   48x48x32, k = 16, 20 x 6 walks): levels by the Pines rule and each
+   scene's KL after 1000 iterations within 1 % of the record's (250
+   iterations printed beside the record's).
+23. sharded — the sharded entry points on [cuda] and [cuda, cuda] (two
+   logical shards): sharded_knn on the Pines scene (ids equal),
+   sharded_tsne and sharded_grid_tsne for 100 iterations on
+   grid_vs_exact's 65536-point P (KL of 2 shards within 0.5 % of 1
+   shard's, each with the exact Z), sharded_umap for 200 epochs on Pines
+   level 1's memberships beside the one-card edge-list tier (two runs
+   bit-equal) and native.umap_sequential (the Pines path's level 1, phase
+   4, whose memberships are connected): trustworthiness at k = 10 at
+   least 0.99 x the edge tier's, and the edge tier's at least 0.99 x the
+   sequential oracle's.  Then tsne_repulsion over both row windows of a
+   2-shard split at 65536, each bit-equal to the full call's rows.
+   The script raises if it ran longer than 1000 s.
 
 Then the kernels line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -195,9 +231,11 @@ GRID_STEP_MS_INDEX_ADD = (7.37, 7.43)   # 1M grid step, index_add_ deposit
 Z_GAP_MAX = 1e-3           # grid Z against the exact Z at 1M, relative
 KL_RATIO_MAX = 1.001       # 65536 points: KL_grid / KL_exact
 # tsne_repulsion against its twin: (n, Npad, calls timed, twin calls timed,
-# sampled rows); the Pines KL's shape, grid_vs_exact's, the 1M path's
+# sampled rows); the Pines KL's shape, a Pines-sized scene's (multi_scene's
+# one-scene shape), grid_vs_exact's, the 1M path's
 REPULSION_SHAPES = ((1000, 1024, 200, 100, False),
                     (5358, 6144, 200, 20, False),
+                    (21025, 21504, 200, 20, False),
                     (65536, 65536, 100, 5, False),
                     (1_000_000, 1_000_448, 20, 0, True))
 UMAP_TRUST_SLACK = 0.99    # Pines UMAP trustworthiness vs the JAX-CPU record
@@ -246,6 +284,21 @@ TSNE_SWITCHES = ("SPH_TSNE_DENSE_P", "SPH_TSNE_DENSE_P_MAX", "SPH_TSNE_GRID",
                  "SPH_TSNE_GRID_MIN", "SPH_TSNE_GRID_MAX",
                  "SPH_TSNE_P_WIDTH_CAP", "SPH_TSNE_GRID_P_WIDTH",
                  "SPH_TSNE_ATTR_PACKED")
+# BASELINE config 5 (multi_scene): 16 Pines-sized scenes, bench.py's
+# flagship settings, then 1000 t-SNE iterations of every scene's level 0
+MULTI_SCENE_SHAPE = (145, 145, 200)
+MULTI_SCENES = 16
+MULTI_SCENE_K = 91
+MULTI_SCENE_ITERS = 1000
+MULTI_SERIAL = 4           # bench_multiscene.py's A/B: batched vs serial
+# multi_scene_record: bench_multiscene.py's defaults against JAX-CPU
+MULTI_RECORD_SHAPE = (48, 48, 32)
+MULTI_RECORD_SCENES = 4
+MULTI_RECORD_ITERS = (250, 1000)
+SHARDED_TSNE_ITERS = 100   # sharded: grid_vs_exact's P, 1 and 2 shards
+SHARDED_UMAP_EPOCHS = 200
+SHARDED_KL_RTOL = 0.005    # KL with 2 shards within 0.5 % of 1 shard's
+SMOKE_SECONDS_MAX = 1000   # the whole script, builds included
 DEV = "cuda"               # the helpers' device; "cpu" rehearses them small
 
 
@@ -835,6 +888,7 @@ def grid_vs_exact(tsne_kernels, rows: int = 256, cols: int = 256,
             comp._y, exact._p_idx, exact._p_val, exact._n))
     out["kl_ratio"] = out["grid"]["kl_scored"] / out["exact"]["kl_scored"]
     out["grid"]["grid_sizes"] = grid_sizes(runs["grid"].grid_history)
+    out["exact_computation"] = exact      # the sharded phase's P (not printed)
     return out
 
 
@@ -2860,6 +2914,611 @@ def pines_umap(ch, data, epochs: int = 500) -> dict:
             "trustworthiness_seconds": time.perf_counter() - t, "emb": emb}
 
 
+# ---------------------------------------------------------------------------
+# BASELINE config 5: batched multi-scene evaluation and the sharded paths
+# ---------------------------------------------------------------------------
+
+def multi_scene_settings(T, k: int, walks: int, length: int,
+                         flagship: bool):
+    """scripts/multiscene_reference.py's settings: bench.py:97-122's
+    flagship ones (NORMAL walk weights), or benchmarks/bench_multiscene.py's
+    (the settings' defaults)."""
+    if flagship:
+        ihs = T.ImageHierarchySettings(
+            component_sim=T.ComponentSim.NEIGH_WALKS, merge_multiple=False,
+            use_percentile=False, max_dist=0.0, min_num_comp=1,
+            min_reduction=98.0, max_levels=10,
+            rw_handling=T.RandomWalkHandling.MERGE_RW_ONLY,
+            rw_reduction=(
+                T.RandomWalkReduction.PROPORTIONAL_COMPONENT_REDUCTION),
+            norm_knn_distances=T.NormalizationScheme.TSNE)
+        rws = T.RandomWalkSettings(
+            num_random_walks=walks, single_walk_length=length,
+            random_seed=1, importance_weighting=T.ImportanceWeighting.NORMAL)
+    else:
+        ihs = T.ImageHierarchySettings(
+            component_sim=T.ComponentSim.NEIGH_WALKS, merge_multiple=False,
+            use_percentile=False)
+        rws = T.RandomWalkSettings(num_random_walks=walks,
+                                   single_walk_length=length, random_seed=1)
+    lss = T.LevelSimilaritiesSettings(
+        component_sim=T.ComponentSim.NEIGH_WALKS, ks=[k],
+        random_walk_pair_sims=True,
+        normalize_prob_dist=T.NormalizationScheme.TSNE,
+        compute_symmetric_prob_dist=T.NormalizationScheme.TSNE)
+    return ihs, rws, lss
+
+
+def scene_stack(shape, scenes: int, seed0: int):
+    """`scenes` scenes create_hyperspectral_scene(rows, cols, bands,
+    seed=seed0 + i) as [S, rows x cols, bands] float32."""
+    import numpy as np
+    from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
+    rows, cols, bands = shape
+    return np.stack([create_hyperspectral_scene(
+        rows, cols, bands, seed=seed0 + i).reshape(rows * cols, bands)
+        for i in range(scenes)]).astype(np.float32)
+
+
+def level0_p(results, n: int):
+    """Every scene's level-0 P padded to the widest: [S, N, R] ids and
+    values, as benchmarks/bench_multiscene.py:120-128 builds them."""
+    import numpy as np
+    width = max(ls.get_prob_dist(0).width for _, ls in results)
+    s = len(results)
+    pi = np.full((s, n, width), -1, np.int32)
+    pv = np.zeros((s, n, width), np.float32)
+    for i, (_, ls) in enumerate(results):
+        m = ls.get_prob_dist(0)
+        pi[i, :, :m.width] = m.indices
+        pv[i, :, :m.width] = m.values
+    return pi, pv
+
+
+def scene_kls(embs, pi, pv, seed: int = 0) -> dict:
+    """Each scene's KL under its normalised P, at its start layout
+    (random_disk_init(N, 0.1, seed + i)) and at `embs`, with the exact Z
+    (tsne_repulsion on the card)."""
+    import numpy as np
+    import torch
+    from sph_tpu_torch.models.tsne import tsne_kl_divergence
+    from sph_tpu_torch.ops.math import random_disk_init
+    s, n, _ = embs.shape
+    start, final = [], []
+    for i in range(s):
+        p = pv[i] / max(float(pv[i].sum()), 1e-12)
+        p_idx = torch.as_tensor(pi[i].astype(np.int64), device=DEV)
+        p_val = torch.as_tensor(p.astype(np.float32), device=DEV)
+        for out, y in ((start, random_disk_init(n, 0.1, seed + i)),
+                       (final, embs[i])):
+            out.append(float(tsne_kl_divergence(
+                torch.as_tensor(np.ascontiguousarray(y), device=DEV), p_idx,
+                p_val, n)))
+    return {"start": start, "final": final}
+
+
+def serial_stage1(datas, k: int, rws, norm):
+    """benchmarks/bench_multiscene.py:82-92's serial A/B arm: each scene's
+    one-scene stage 1 (compute_knn FLAT, the data-level probabilities, the
+    walks) one after another on DEV."""
+    import numpy as np
+    import torch
+    import sph_tpu_torch as T
+    from sph_tpu_torch.ops.distributions import distance_rows_to_probabilities
+    from sph_tpu_torch.ops.knn import compute_knn
+    from sph_tpu_torch.ops.walks import do_random_walks
+    n = datas.shape[1]
+    for i in range(datas.shape[0]):
+        idx, dist = compute_knn(datas[i], k, T.KnnIndex.FLAT, device=DEV)
+        mask = torch.ones(idx.shape, dtype=torch.bool, device=DEV)
+        probs = distance_rows_to_probabilities(
+            torch.as_tensor(dist, device=DEV), mask, norm, perplexity=-1.0,
+            ignore_first=True, umap_row_norm=True)
+        idx_t = torch.as_tensor(idx.astype(np.int64), device=DEV)
+        do_random_walks(T.SparseRows(torch.where(probs > 0, idx_t, -1),
+                                     probs, n), rws)
+    sync()
+
+
+def stage1_fingerprint(ih, rows) -> dict:
+    """A scene's stage 1 as the hierarchy holds it: the sha256 of its kNN
+    ids (int32, C order), and on `rows` the kNN ids and the walk rows'
+    nonzero ids and values."""
+    import hashlib
+    import numpy as np
+    idx = np.ascontiguousarray(ih._graph.indices, dtype=np.int32)
+    walks = ih.hierarchy.random_walks[0]
+    widx, wval = walks.indices[rows], walks.values[rows]
+    ok = (widx >= 0) & (wval != 0)
+    return {"knn_ids_sha256": hashlib.sha256(idx.tobytes()).hexdigest(),
+            "knn_ids": idx[rows], "all_knn_ids": idx,
+            "walk_ids": [w[o] for w, o in zip(widx, ok)],
+            "walk_vals": [v[o] for v, o in zip(wval, ok)]}
+
+
+def walk_rows_compare(got: dict, want: dict) -> dict:
+    """The walk rows of the sampled rows against the record's: rows whose
+    id hashes are the record's (all sampled rows), and on the rows the
+    record keeps whole, those with the same ids, the largest value error
+    among them, and each row's total variation distance (half the L1
+    distance of the two rows as distributions over their columns)."""
+    import numpy as np
+    import hashlib
+    hashes = [hashlib.sha256(np.asarray(g, np.int32).tobytes()).hexdigest()
+              for g in got["walk_ids"]]
+    equal_rows, worst, tv = 0, 0.0, []
+    # the record keeps whole walk rows for the first of its sampled rows
+    for gi, gv, wi, wv in zip(got["walk_ids"], got["walk_vals"],
+                              want["walk_ids"], want["walk_vals"]):
+        wv = np.asarray(wv, np.float32)
+        if len(gi) == len(wi) and np.array_equal(gi, wi):
+            equal_rows += 1
+            worst = max(worst, float(np.abs(gv - wv).max()) if len(gv)
+                        else 0.0)
+        cols = np.union1d(gi, wi)
+        a = np.zeros(cols.size)
+        b = np.zeros(cols.size)
+        a[np.searchsorted(cols, gi)] = gv
+        b[np.searchsorted(cols, wi)] = wv
+        tv.append(0.5 * float(np.abs(a - b).sum()))
+    return {"walk_rows_compared": len(want["walk_ids"]),
+            "walk_rows_ids_equal": equal_rows,
+            "walk_id_hashes_equal": sum(a == b for a, b in zip(
+                hashes, want["walk_ids_sha256"])),
+            "walk_max_abs_err_where_ids_equal": worst,
+            "walk_total_variation_mean": float(np.mean(tv)),
+            "walk_total_variation_max": float(np.max(tv))}
+
+
+def fingerprint_gate(data, got: dict, want: dict, rows, k: int,
+                     exact_walks: bool) -> dict:
+    """A scene's stage 1 against the JAX-CPU record.  The kNN: equal id
+    hashes, else (the card sums the distances in another order than
+    XLA-CPU, so ties within the float32 band can fall the other way) the
+    record's rows and the card's must each be the float64 top-k up to that
+    band (knn_exactness).  The walk rows of the recorded rows: with
+    `exact_walks` (equal hashes and walks that can be bit-equal, as on the
+    CPU) the record's ids and values within 1e-6; otherwise compared and
+    reported only.  On the card the distances' last bits move the
+    perplexity search's probabilities and so the walk draws (PERF.md, PR
+    10); every recorded row must still be a distribution (ids in range,
+    values summing to 1)."""
+    import numpy as np
+    same_hash = got["knn_ids_sha256"] == want["knn_ids_sha256"]
+    out = {"knn_ids_hash_equal": same_hash,
+           "knn_rows_equal": int((got["knn_ids"] == np.asarray(
+               want["knn_ids"])).all(1).sum()),
+           **walk_rows_compare(got, want)}
+    for gi, gv in zip(got["walk_ids"], got["walk_vals"]):
+        if not (len(gi) and gi.min() >= 0 and gi.max() < data.shape[0]
+                and abs(float(gv.sum(dtype=np.float64)) - 1.0) <= 1e-5):
+            raise AssertionError(f"a recorded walk row is not a "
+                                 f"distribution over the scene: {gi}, {gv}")
+    if exact_walks and same_hash:
+        if not (out["walk_id_hashes_equal"] == len(rows)
+                and out["walk_rows_ids_equal"] == out["walk_rows_compared"]
+                and out["walk_max_abs_err_where_ids_equal"] <= 1e-6):
+            raise AssertionError(f"stage 1 equal to the record's kNN but "
+                                 f"walk rows differ: {out}")
+    if same_hash:
+        return out
+    out["card_exactness"] = knn_exactness(data, got["all_knn_ids"], k, rows)
+    # the record's rows, checked in the same float64 frame
+    rec = np.zeros((data.shape[0], k), np.int64)
+    rec[np.asarray(rows)] = np.asarray(want["knn_ids"])
+    out["record_exactness"] = knn_exactness(data, rec, k, rows)
+    return out
+
+
+def multi_scene(tsne_kernels, ref: dict, shape=MULTI_SCENE_SHAPE,
+                scenes: int = MULTI_SCENES, k: int = MULTI_SCENE_K,
+                iters: int = MULTI_SCENE_ITERS, serial: int = MULTI_SERIAL,
+                seed0: int = 7) -> dict:
+    """BASELINE config 5 on one card: `scenes` scenes through
+    multi_scene_hierarchy on a one-device mesh (batched stage 1, each
+    scene's levels), then every scene's level-0 P through multi_scene_tsne
+    for `iters` iterations; kernel counts set to 0 just before each part
+    and read just after.  Plus bench_multiscene.py's stage-1 A/B on the
+    first `serial` scenes, the fingerprints against the record, 64 kNN rows
+    of the first and last scene against float64, and S = 1 calls of the
+    first and last scene for bit-equality."""
+    import numpy as np
+    import torch
+    import sph_tpu_torch as T
+    from sph_tpu_torch.parallel import sharded
+    rows, cols, bands = shape
+    n = rows * cols
+    mesh = [torch.device(DEV)]
+    ihs, rws, lss = multi_scene_settings(T, k, 50, 10, flagship=True)
+    seconds = {}
+    t = time.perf_counter()
+    datas = scene_stack(shape, scenes, seed0)
+    seconds["data"] = time.perf_counter() - t
+
+    # bench_multiscene.py's A/B: batched against serial, the same scenes
+    sub = datas[:serial]
+    sharded.multi_scene_stage1(sub[:1], k, rws=rws,
+                               norm=ihs.norm_knn_distances, mesh=mesh)
+    sync()
+    t = time.perf_counter()
+    sharded.multi_scene_stage1(sub, k, rws=rws, norm=ihs.norm_knn_distances,
+                               mesh=mesh)
+    sync()
+    seconds[f"stage1_batched_{serial}_scenes"] = time.perf_counter() - t
+    t = time.perf_counter()
+    serial_stage1(sub, k, rws, ihs.norm_knn_distances)
+    seconds[f"stage1_serial_{serial}_scenes"] = time.perf_counter() - t
+
+    zero_launches(tsne_kernels)
+    part = {}
+    t = time.perf_counter()
+    results = sharded.multi_scene_hierarchy(datas, rows, cols, k, ihs=ihs,
+                                            rws=rws, lss=lss, mesh=mesh,
+                                            seconds=part)
+    sync()
+    seconds["hierarchy"] = time.perf_counter() - t
+    seconds["stage1_batched"] = part["stage1"]
+    seconds["levels_by_scene"] = part["levels"]
+    hier_launches = read_launches(tsne_kernels)
+    levels = [list(ih.hierarchy.num_components) for ih, _ in results]
+
+    sample = np.asarray(ref["sample_rows"])
+    prints = [stage1_fingerprint(ih, sample) for ih, _ in results]
+    gates = [fingerprint_gate(datas[i], prints[i], ref["stage1"][i], sample,
+                              k, exact_walks=DEV == "cpu")
+             for i in range(scenes)]
+    exact = {str(i): knn_exactness(datas[i], results[i][0]._graph.indices,
+                                   k, sample) for i in (0, scenes - 1)}
+
+    pi, pv = level0_p(results, n)
+    zero_launches(tsne_kernels)
+    sync()
+    t = time.perf_counter()
+    embs = sharded.multi_scene_tsne(pi, pv, iters, mesh=mesh)
+    sync()
+    seconds["tsne_batched"] = time.perf_counter() - t
+    tsne_launches = read_launches(tsne_kernels)
+    single = {}
+    for i in (0, scenes - 1):
+        one = sharded.multi_scene_tsne(pi[i:i + 1], pv[i:i + 1], iters,
+                                       mesh=mesh, seed=i)
+        single[str(i)] = bool(np.array_equal(one[0], embs[i]))
+    kls = scene_kls(embs, pi, pv)
+    return {"scenes": scenes, "shape": list(shape), "k": k,
+            "points": scenes * n, "data_bytes": int(datas.nbytes),
+            "levels": levels, "seconds": seconds,
+            "stage1_speedup_vs_serial":
+                seconds[f"stage1_serial_{serial}_scenes"]
+                / seconds[f"stage1_batched_{serial}_scenes"],
+            "tsne_iterations": iters, "p_width": int(pi.shape[2]),
+            "scene_iterations_per_s": scenes * iters
+                                      / seconds["tsne_batched"],
+            "launches_hierarchy": hier_launches,
+            "launches_tsne": tsne_launches,
+            "fingerprints": gates, "knn_exactness": exact,
+            "scene_equals_one_scene_call": single, "kl": kls,
+            "embeddings_finite": bool(np.all(np.isfinite(embs))),
+            "pines": {"data": datas[0], "ih": results[0][0],
+                      "ls": results[0][1]}}
+
+
+def multi_scene_gates(run: dict, ref: dict) -> None:
+    """The multi_scene phase's gates (PERF.md section 2)."""
+    import numpy as np
+    want = ref["levels"]
+    for i, levels in want.items():
+        got = run["levels"][int(i)]
+        if abs(got[1] - levels[1]) > LEVEL1_TOLERANCE * levels[1]:
+            raise AssertionError(f"multi_scene scene {i}: level 1 {got[1]} "
+                                 f"not within 2 % of the record {levels[1]}")
+        if abs(len(got) - len(levels)) > 1:
+            raise AssertionError(f"multi_scene scene {i}: {len(got)} levels "
+                                 f"vs {len(levels)} in the record")
+    for levels in run["levels"]:
+        if not all(a > b for a, b in zip(levels, levels[1:])):
+            raise AssertionError(f"multi_scene levels not falling: {levels}")
+    if run["launches_tsne"]["tsne_repulsion"] != run["tsne_iterations"]:
+        raise AssertionError(
+            f"multi_scene_tsne launched tsne_repulsion "
+            f"{run['launches_tsne']['tsne_repulsion']} times in "
+            f"{run['tsne_iterations']} iterations (one a batch)")
+    if not all(run["scene_equals_one_scene_call"].values()):
+        raise AssertionError("a scene of the batched t-SNE differs from its "
+                             f"one-scene call: "
+                             f"{run['scene_equals_one_scene_call']}")
+    start, final = run["kl"]["start"], run["kl"]["final"]
+    if not (np.all(np.isfinite(final)) and all(
+            f < s for f, s in zip(final, start))):
+        raise AssertionError(f"multi_scene KLs not finite and falling: "
+                             f"{run['kl']}")
+    if not run["embeddings_finite"]:
+        raise AssertionError("multi_scene embeddings are not finite")
+
+
+def multi_scene_record(tsne_kernels, ref: dict,
+                       shape=MULTI_RECORD_SHAPE,
+                       scenes: int = MULTI_RECORD_SCENES,
+                       iters=MULTI_RECORD_ITERS) -> dict:
+    """benchmarks/bench_multiscene.py's defaults (4 scenes of 48 x 48 x 32,
+    seed i, k = 16, 20 x 6 walks) against the JAX-CPU record: the levels,
+    then multi_scene_tsne for each of `iters` and each scene's KL."""
+    import numpy as np
+    import torch
+    import sph_tpu_torch as T
+    from sph_tpu_torch.parallel import sharded
+    rows, cols, _ = shape
+    k = 16
+    mesh = [torch.device(DEV)]
+    ihs, rws, lss = multi_scene_settings(T, k, 20, 6, flagship=False)
+    datas = scene_stack(shape, scenes, 0)
+    part = {}
+    t = time.perf_counter()
+    results = sharded.multi_scene_hierarchy(datas, rows, cols, k, ihs=ihs,
+                                            rws=rws, lss=lss, mesh=mesh,
+                                            seconds=part)
+    sync()
+    seconds = {"hierarchy": time.perf_counter() - t, **part}
+    pi, pv = level0_p(results, rows * cols)
+    kl, launches = {}, {}
+    for it in iters:
+        zero_launches(tsne_kernels)
+        t = time.perf_counter()
+        embs = sharded.multi_scene_tsne(pi, pv, it, mesh=mesh)
+        sync()
+        seconds[f"tsne_{it}"] = time.perf_counter() - t
+        launches[str(it)] = read_launches(tsne_kernels)
+        kl[str(it)] = scene_kls(embs, pi, pv)["final"]
+    return {"levels": [list(ih.hierarchy.num_components)
+                       for ih, _ in results],
+            "p_width": int(pi.shape[2]), "kl": kl, "launches": launches,
+            "seconds": seconds, "jax_cpu_levels": ref["levels"],
+            "jax_cpu_kl": ref["kl"]}
+
+
+def multi_scene_record_gates(run: dict, ref: dict) -> None:
+    """Levels by the Pines rule; each scene's KL after 1000 iterations
+    within 1 % of the record's (at 250 iterations, the end of the
+    exaggeration, a KL moves by more than that under a 2e-7 change of the
+    layout, PERF.md; it is printed beside the record's)."""
+    for i, (got, want) in enumerate(zip(run["levels"], ref["levels"])):
+        if abs(got[1] - want[1]) > LEVEL1_TOLERANCE * want[1]:
+            raise AssertionError(f"multi_scene_record scene {i}: level 1 "
+                                 f"{got[1]} vs the record's {want[1]}")
+        if abs(len(got) - len(want)) > 1:
+            raise AssertionError(f"multi_scene_record scene {i}: {got} vs "
+                                 f"{want}")
+    for i, (got, want) in enumerate(zip(run["kl"]["1000"],
+                                        ref["kl"]["1000"])):
+        if not abs(got - want) <= EVAL_KL_RTOL * want:
+            raise AssertionError(f"multi_scene_record scene {i}: KL {got} "
+                                 f"not within 1 % of the record's {want}")
+
+
+def sharded_paths(tsne_kernels, mid: dict, pines: dict,
+                  iters: int = SHARDED_TSNE_ITERS,
+                  epochs: int = SHARDED_UMAP_EPOCHS, k: int = 91) -> dict:
+    """The sharded entry points on one card, over the meshes [card] and
+    [card, card] (two logical shards): sharded_knn on the Pines scene;
+    sharded_tsne and sharded_grid_tsne for `iters` iterations on
+    grid_vs_exact's 65536-point P, each scored with the exact Z; and
+    sharded_umap for `epochs` epochs beside the one-card edge-list tier
+    (twice, for bit-equality) and the sequential oracle, all on the
+    memberships of the Pines path's level 1, each scored by
+    trustworthiness at k = 10.  `pines` holds the scene's data, its level
+    1's P ("p1"), pixel labels and component count."""
+    import numpy as np
+    import torch
+    import sph_tpu_torch as T
+    from sph_tpu_torch import native
+    from sph_tpu_torch.models.tsne import tsne_kl_divergence
+    from sph_tpu_torch.models.umap import UmapComputation
+    from sph_tpu_torch.parallel import sharded
+    dev = torch.device(DEV)
+    meshes = {"1": [dev], "2": [dev, dev]}
+    out = {"knn": {}, "tsne": {}, "grid_tsne": {}, "umap": {}}
+    data = pines["data"]
+    ids = {}
+    for name, mesh in meshes.items():
+        sync()
+        t = time.perf_counter()
+        ids[name], _ = sharded.sharded_knn(data, k, mesh=mesh)
+        sync()
+        out["knn"][name] = {"seconds": time.perf_counter() - t}
+    out["knn"]["ids_equal_1_2"] = bool(np.array_equal(ids["1"], ids["2"]))
+
+    comp = mid["exact_computation"]
+    p = comp._p
+    n = p.num_rows
+    for key, fn in (("tsne", sharded.sharded_tsne),
+                    ("grid_tsne", sharded.sharded_grid_tsne)):
+        for name, mesh in meshes.items():
+            zero_launches(tsne_kernels)
+            sync()
+            t = time.perf_counter()
+            emb = fn(p.indices, p.values, iters, mesh=mesh)
+            sync()
+            secs = time.perf_counter() - t
+            run_launches = read_launches(tsne_kernels)
+            y = torch.zeros((comp._npad, 2), dtype=torch.float32, device=dev)
+            y[:n] = torch.as_tensor(emb, device=dev)
+            zero_launches(tsne_kernels)
+            kl = float(tsne_kl_divergence(y, comp._p_idx, comp._p_val, n))
+            out[key][name] = {"seconds": secs, "iterations": iters,
+                              "iters_per_s": iters / secs, "kl": kl,
+                              "launches": run_launches,
+                              "kl_launches": read_launches(tsne_kernels),
+                              "finite": bool(np.all(np.isfinite(emb)))}
+        a, b = out[key]["1"]["kl"], out[key]["2"]["kl"]
+        out[key]["kl_rel_gap_1_2"] = abs(a - b) / a
+
+    x = component_means(data, pines["labels"], pines["count"])
+    uc = UmapComputation(device=dev)
+    uc.set_neighbor_matrix(pines["p1"])
+    m = uc._memberships()
+    umap = out["umap"]
+    for name, mesh in meshes.items():
+        sync()
+        t = time.perf_counter()
+        emb = sharded.sharded_umap(m.indices, m.values, epochs, mesh=mesh)
+        sync()
+        umap[f"sharded_{name}"] = {
+            "seconds": time.perf_counter() - t,
+            "trustworthiness_k10": trustworthiness(x, emb, 10),
+            "finite": bool(np.all(np.isfinite(emb)))}
+    runs = []
+    init = None
+    for _ in range(2):
+        u = UmapComputation(device=dev)
+        u.params.num_epochs = epochs
+        u.set_memberships(m)
+        if init is not None:
+            u.set_initial_embedding(init)
+        sync()
+        t = time.perf_counter()
+        u.init_optimization(edge_path=True)
+        if init is None:
+            init = u._embedding.copy()
+        u.run_for_epochs(epochs)
+        sync()
+        runs.append((u, time.perf_counter() - t))
+    (u, secs), (u2, _) = runs
+    umap["edge_tier"] = {
+        "seconds": secs, "epochs_per_s": epochs / secs, "edges":
+            int(u._src.numel()), "fold_width": int(u._src_fold.pos.shape[1]),
+        "trustworthiness_k10": trustworthiness(x, u.embedding, 10),
+        "bits_equal_across_runs": bool(np.array_equal(u.embedding,
+                                                      u2.embedding))}
+    t = time.perf_counter()
+    seq = native.umap_sequential(init, u._src.cpu().numpy(),
+                                 u._dst.cpu().numpy(), u._eps.cpu().numpy(),
+                                 epochs, u._a, u._b, seed=42)
+    umap["sequential"] = {"seconds": time.perf_counter() - t,
+                          "trustworthiness_k10": trustworthiness(x, seq, 10)}
+    umap["n"] = int(pines["count"])
+    return out
+
+
+def sharded_gates(run: dict) -> None:
+    if not run["knn"]["ids_equal_1_2"]:
+        raise AssertionError("sharded_knn: 1 and 2 shards give other ids")
+    for key in ("tsne", "grid_tsne"):
+        if not run[key]["kl_rel_gap_1_2"] <= SHARDED_KL_RTOL:
+            raise AssertionError(f"sharded {key}: KL 1 vs 2 shards "
+                                 f"{run[key]['1']['kl']} vs "
+                                 f"{run[key]['2']['kl']}")
+        for name in ("1", "2"):
+            if not run[key][name]["finite"]:
+                raise AssertionError(f"sharded {key} {name}: not finite")
+    for name in ("1", "2"):
+        want = run["tsne"][name]["iterations"] * int(name)
+        if run["tsne"][name]["launches"]["tsne_repulsion"] != want:
+            raise AssertionError(f"sharded_tsne on {name} shards launched "
+                                 f"{run['tsne'][name]['launches']}")
+    u = run["umap"]
+    edge = u["edge_tier"]["trustworthiness_k10"]
+    for name in ("1", "2"):
+        got = u[f"sharded_{name}"]["trustworthiness_k10"]
+        if not (u[f"sharded_{name}"]["finite"]
+                and got >= UMAP_TRUST_SLACK * edge):
+            raise AssertionError(f"sharded_umap on {name} shards: "
+                                 f"trustworthiness {got} < 0.99 x {edge}")
+    if not edge >= UMAP_TRUST_SLACK * u["sequential"]["trustworthiness_k10"]:
+        raise AssertionError(f"edge tier trustworthiness {edge} < 0.99 x "
+                             f"the sequential oracle's")
+    if not u["edge_tier"]["bits_equal_across_runs"]:
+        raise AssertionError("two runs of the UMAP edge tier differ")
+
+
+def check_repulsion_scenes(y, n: int, calls: int, twin_calls: int,
+                           clock_hz) -> dict:
+    """tsne_repulsion on y [S, Npad, 2] in one launch: each scene's rows
+    bit-equal to its one-scene call, the first and last scene against the
+    twin; the batched time beside the S one-scene calls' and the twin's."""
+    import torch
+    from sph_tpu_torch.ops.tsne_kernels import (tsne_repulsion_reference,
+                                                tsne_repulsion_rows)
+    s, npad, _ = y.shape
+    rep, zrow = tsne_repulsion_rows(y, n)
+    scenes = [y[i].contiguous() for i in range(s)]
+    for i in range(s):
+        r1, z1 = tsne_repulsion_rows(scenes[i], n)
+        if not (torch.equal(rep[i], r1) and torch.equal(zrow[i], z1)):
+            raise AssertionError(f"batched tsne_repulsion scene {i} differs "
+                                 "from its one-scene call")
+    err = scale = 0.0
+    for i in (0, s - 1):
+        ref_rep, _ = tsne_repulsion_reference(scenes[i], n)
+        scale = max(scale, float(ref_rep.abs().max()))
+        err = max(err, float((rep[i] - ref_rep).abs().max()))
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"batched tsne_repulsion: error {err} > 1e-5 x "
+                             f"{scale}")
+    b = bound(repulsion_scene_bytes(s, npad),
+              REPULSION_FLOPS_PER_PAIR * s * n * n)
+    return {"n": n, "npad": npad, "scenes": s, "max_abs_err": err,
+            "rep_err_over_max": err / scale,
+            "scenes_bit_equal_to_one_scene_calls": True,
+            "ms": cuda_ms(lambda: tsne_repulsion_rows(y, n), calls),
+            "ms_one_scene_calls": cuda_ms(
+                lambda: [tsne_repulsion_rows(v, n) for v in scenes],
+                max(1, calls // s)),
+            "ms_one_scene": cuda_ms(lambda: tsne_repulsion_rows(
+                scenes[0], n), calls),
+            "plain_ms": cuda_ms(lambda: tsne_repulsion_reference(y, n),
+                                twin_calls, warmup=1),
+            "sfu_floor_ms": s * sfu_floor_ms(
+                n, torch.cuda.get_device_properties(0).multi_processor_count,
+                clock_hz), **b}
+
+
+def repulsion_scene_bytes(s: int, npad: int) -> int:
+    """Bytes a batched tsne_repulsion moves: y read, rep and zrow
+    written once, for each scene."""
+    return s * (8 * npad + 12 * npad)
+
+
+def check_repulsion_window(y, n: int, shards: int, calls: int,
+                           clock_hz) -> dict:
+    """tsne_repulsion over the row windows of a `shards`-way split of y:
+    each window's rows bit-equal to the full call's, against the twin on
+    those rows; each window's time beside the full call's."""
+    import torch
+    from sph_tpu_torch.ops.tsne_kernels import (tsne_repulsion_reference,
+                                                tsne_repulsion_rows)
+    npad = y.shape[0]
+    full_rep, full_z = tsne_repulsion_rows(y, n)
+    step = npad // shards
+    err = scale = 0.0
+    ms = []
+    for i in range(shards):
+        rows = (i * step, (i + 1) * step)
+        rep, zrow = tsne_repulsion_rows(y, n, rows=rows)
+        if not (torch.equal(rep, full_rep[rows[0]:rows[1]])
+                and torch.equal(zrow, full_z[rows[0]:rows[1]])):
+            raise AssertionError(f"tsne_repulsion window {rows} differs from "
+                                 "the full call's rows")
+        sample = (rows[0], rows[0] + 1024)
+        ref_rep, _ = tsne_repulsion_reference(y, n, rows=sample)
+        scale = max(scale, float(ref_rep.abs().max()))
+        err = max(err, float((rep[:1024] - ref_rep).abs().max()))
+        ms.append(cuda_ms(lambda: tsne_repulsion_rows(y, n, rows=rows),
+                          calls))
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"windowed tsne_repulsion: error {err} > 1e-5 x "
+                             f"{scale}")
+    b = bound(repulsion_scene_bytes(1, npad) // shards + 8 * npad,
+              REPULSION_FLOPS_PER_PAIR * n * n / shards)
+    return {"n": n, "npad": npad, "windows": shards, "max_abs_err": err,
+            "rep_err_over_max": err / scale, "rows_bit_equal_to_full": True,
+            "ms": ms[0], "ms_by_window": ms,
+            "ms_full": cuda_ms(lambda: tsne_repulsion_rows(y, n), calls),
+            "plain_ms": cuda_ms(lambda: tsne_repulsion_reference(
+                y, n, rows=(0, step)), 2, warmup=1),
+            "sfu_floor_ms": sfu_floor_ms(
+                n, torch.cuda.get_device_properties(0).multi_processor_count,
+                clock_hz) / shards, **b}
+
+
 def pines_hierarchy(device: str):
     """The bench.py:89-136 configuration at 145x145x200 as an initialised
     (not yet computed) ComputeHierarchy; returns it with its level settings
@@ -2898,6 +3557,7 @@ def pines_hierarchy(device: str):
 
 
 def main() -> int:
+    started = time.perf_counter()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -3073,7 +3733,10 @@ def main() -> int:
     live = explorer(ch, emb)
     emit({"phase": "explorer", **live,
           "seconds": time.perf_counter() - t})
-    del ch, cond, dense, emb, ce, umap
+    h1 = ch.image_hierarchy.hierarchy
+    pines_l1 = {"data": data, "p1": p1, "labels": h1.pixel_components[1],
+                "count": h1.num_components[1]}
+    del ch, cond, dense, emb, ce, umap, h1
 
     # ---- default level settings: the approximate kNN tiers on the path ---
     scene = scene_overlap(tsne_kernels)
@@ -3333,7 +3996,8 @@ def main() -> int:
 
     # ---- the grid against the exact tier at 65536 points -----------------
     mid = grid_vs_exact(tsne_kernels, iters=MID_ITERS)
-    emit({"phase": "grid_vs_exact", **mid})
+    emit({"phase": "grid_vs_exact",
+          **{k: v for k, v in mid.items() if k != "exact_computation"}})
     if mid["grid"]["tier"] != "grid" or mid["exact"]["tier"] != "exact":
         raise AssertionError(f"65536 points took the {mid['grid']['tier']} "
                              f"and {mid['exact']['tier']} tiers")
@@ -3345,6 +4009,46 @@ def main() -> int:
     if not mid["kl_ratio"] <= KL_RATIO_MAX:
         raise AssertionError(f"KL_grid / KL_exact = {mid['kl_ratio']} > "
                              f"{KL_RATIO_MAX} at 65536 points")
+
+    # ---- BASELINE config 5: 16 scenes batched on the card ---------------
+    with open(os.path.join(REPO, "docs",
+                           "torch_port_multiscene_reference.json")) as f:
+        ms_ref = json.load(f)
+    t = time.perf_counter()
+    ms = multi_scene(tsne_kernels, ms_ref["full"])
+    del ms["pines"]
+    emit({"phase": "multi_scene", **ms,
+          "jax_cpu_levels": ms_ref["full"]["levels"],
+          "jax_cpu_seconds": ms_ref["seconds"],
+          "seconds_total": time.perf_counter() - t})
+    multi_scene_gates(ms, ms_ref["full"])
+    ms_n = MULTI_SCENE_SHAPE[0] * MULTI_SCENE_SHAPE[1]
+    from sph_tpu_torch.models.tsne import _ceil_to
+    ms_npad = _ceil_to(ms_n, 512)
+    y = torch.from_numpy(np.stack([repulsion_layout(ms_n, ms_npad, seed=i)
+                                   for i in range(MULTI_SCENES)])).cuda()
+    rep_scenes = check_repulsion_scenes(y, ms_n, 50, 2, clock_hz)
+    del y
+    emit({"phase": "kernel_vs_twin", "kernel": "tsne_repulsion",
+          "path_shape": "multi_scene_batched", **rep_scenes})
+    t = time.perf_counter()
+    msr = multi_scene_record(tsne_kernels, ms_ref["record"])
+    emit({"phase": "multi_scene_record", **msr,
+          "seconds_total": time.perf_counter() - t})
+    multi_scene_record_gates(msr, ms_ref["record"])
+
+    # ---- the sharded entry points on one card: 1 and 2 logical shards ---
+    t = time.perf_counter()
+    sh = sharded_paths(tsne_kernels, mid, pines_l1)
+    emit({"phase": "sharded", **sh, "seconds_total": time.perf_counter() - t})
+    sharded_gates(sh)
+    y = torch.from_numpy(repulsion_layout(mid["n"], mid["n"],
+                                          seed=mid["n"])).cuda()
+    rep_window = check_repulsion_window(y, mid["n"], 2, 20, clock_hz)
+    sh_n = mid["n"]
+    del y, pines_l1, mid["exact_computation"]
+    emit({"phase": "kernel_vs_twin", "kernel": "tsne_repulsion",
+          "path_shape": "sharded_tsne_window", **rep_window})
 
     # ---- the approximate tiers' recall at 10^6 points --------------------
     recall = ivf_recall()
@@ -3459,7 +4163,8 @@ def main() -> int:
         "source": "sph_tpu_torch/csrc/tsne_repulsion.cu",
         "replaces": "sph_tpu/ops/pallas/tsne_kernels.py:80",
         "launches": main_rep_launches,
-        "max_abs_err": max(c["max_abs_err"] for c in rep_checks),
+        "max_abs_err": max(c["max_abs_err"] for c in
+                           [*rep_checks, rep_scenes, rep_window]),
         "ms": rep_main["ms"], "plain_ms": rep_main["plain_ms"],
         **repulsion_bound(rep_main["n"], rep_main["npad"]),
         "library_ms": None,
@@ -3492,12 +4197,35 @@ def main() -> int:
             *({"path": f"eval_pines_walks_{name}_kl",
                "n": EVAL_PINES_SHAPE[0] * EVAL_PINES_SHAPE[1],
                "launches": g["launches"]["tsne_repulsion"]}
-              for name, g in ev_walks["grids"].items())],
-        "at_shapes": [{
+              for name, g in ev_walks["grids"].items()),
+            {"path": "multi_scene", "n": ms_n, "scenes": MULTI_SCENES,
+             "launches": ms["launches_tsne"]["tsne_repulsion"]},
+            *({"path": f"multi_scene_record_{it}",
+               "n": MULTI_RECORD_SHAPE[0] * MULTI_RECORD_SHAPE[1],
+               "scenes": MULTI_RECORD_SCENES,
+               "launches": lc["tsne_repulsion"]}
+              for it, lc in msr["launches"].items()),
+            *({"path": "sharded_tsne", "n": sh_n, "shards": int(name),
+               "launches": sh["tsne"][name]["launches"]["tsne_repulsion"]}
+              for name in ("1", "2")),
+            *({"path": "sharded_grid_tsne_z", "n": sh_n, "shards": int(name),
+               "launches":
+                   sh["grid_tsne"][name]["kl_launches"]["tsne_repulsion"]}
+              for name in ("1", "2"))],
+        "at_shapes": [*({
             "shape": [c["n"], c["npad"]], "plan": c["plan"], "ms": c["ms"],
             "plain_ms": c.get("plain_ms", "not measured"),
             "bound_ms": repulsion_bound(c["n"], c["npad"])["bound_ms"],
-            "sfu_floor_ms": c["sfu_floor_ms"]} for c in rep_timed]}]})
+            "sfu_floor_ms": c["sfu_floor_ms"]} for c in rep_timed),
+            *({"shape": [c["n"], c["npad"]], "scenes": c.get("scenes", 1),
+               "windows": c.get("windows", 1), "ms": c["ms"],
+               "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+               "bound_by": c["bound_by"], "sfu_floor_ms": c["sfu_floor_ms"]}
+              for c in (rep_scenes, rep_window))]}]})
+    elapsed = time.perf_counter() - started
+    if not elapsed <= SMOKE_SECONDS_MAX:
+        raise AssertionError(f"chip_smoke took {elapsed} s, over "
+                             f"{SMOKE_SECONDS_MAX}")
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -59,9 +59,9 @@
 // diagonal) take the masked loop.
 //
 // With one split the unit writes rep and z itself.  With more, each unit
-// writes its partial (fx, fy, z) to scratch [splits, npad, 3] and a second
-// kernel sums the splits of each row in a fixed order, in float64.  No
-// atomics: two calls give the same bits.
+// writes its partial (fx, fy, z) to scratch [scenes, splits, rows, 3] and a
+// second kernel sums the splits of each row in a fixed order, in float64.
+// No atomics: two calls give the same bits.
 //
 // Accuracy.  A single running float32 sum over 1e6 terms drifts by about
 // sqrt(N) eps.  Each row instead sums 128 columns at a time into chunk-local
@@ -79,11 +79,23 @@
 //   - Two reciprocals per MUFU issue (h2rcp): f16 keeps about 3 decimal
 //     digits, far outside the 1e-5 tolerance against the float64 twin.
 //
-// Requirements, checked by the Python wrapper and again here: y is [npad, 2]
-// float32, contiguous and 8-byte aligned; 0 <= n_valid <= npad; split_cols a
-// positive multiple of 128 with (splits - 1) split_cols < n_valid <= splits
-// split_cols; scratch [splits, npad, 3] float32 when splits > 1.  The tile is
-// 512 rows (ops/tsne_kernels.py: REPULSION_TILE).
+// Scenes and a row window.  One launch serves S independent layouts of one
+// n_valid (the multi-scene t-SNE: y [S, npad, 2], blockIdx.y the scene), and
+// may be asked for the rows [row_lo, row_hi) only (a row shard of the
+// sharded t-SNE step; every column is still read).  The window runs only
+// the row tiles that cover it, with the tiles, splits and masked chunks of
+// the full call, so each row's sums are bit-equal to those of a one-scene,
+// full-window call; the outputs hold the window's rows only.  These calls
+// take scene_units and scene_reduce_splits; the one-scene, all-rows call
+// keeps repulsion_units and reduce_splits as they were.
+//
+// Requirements, checked by the Python wrapper and again here: y is
+// [scenes, npad, 2] float32, contiguous and 8-byte aligned; 0 <= n_valid <=
+// npad; 0 <= row_lo <= row_hi <= npad; split_cols a positive multiple of 128
+// with (splits - 1) split_cols < n_valid <= splits split_cols; scratch
+// [scenes, splits, row_hi - row_lo, 3] float32 when splits > 1; rep
+// [scenes, row_hi - row_lo, 2] and zrow [scenes, row_hi - row_lo].  The tile
+// is 512 rows (ops/tsne_kernels.py: REPULSION_TILE).
 
 #include <cuda_runtime.h>
 
@@ -232,10 +244,124 @@ reduce_splits(const float* __restrict__ partial, int npad, int n_valid,
   zrow[row] = static_cast<float>(z);
 }
 
+// The same units over S scenes and a row window (see the top): blockIdx.x =
+// (tile - tile0) * splits + split, blockIdx.y = scene, rows written at
+// row - row_lo.  The one-scene, all-rows call takes repulsion_units above:
+// one kernel for both, with the window and scene arithmetic around the
+// same pair loop, measured 2-5 % slower on that call on an H100
+// (PERF.md).  The two run the same per-pair arithmetic in the same order.
+__global__ void __launch_bounds__(kThreads, 4)
+scene_units(const float2* __restrict__ y, int npad, int n_valid, int row_lo,
+            int row_hi, int tile0, int split_cols, int splits,
+            float* __restrict__ partial, float2* __restrict__ rep,
+            float* __restrict__ zrow) {
+  __shared__ __align__(16) float2 cols[kTileCols];
+
+  const int tile = tile0 + blockIdx.x / splits;
+  const int split = blockIdx.x - (blockIdx.x / splits) * splits;
+  const int scene = blockIdx.y;
+  const int wrows = row_hi - row_lo;
+  y += static_cast<size_t>(scene) * npad;
+  const int tile_lo = tile * kTileRows;
+  const int row0 = tile_lo + threadIdx.x;     // row r is row0 + r kThreads
+  const int c_lo = split * split_cols;
+  const int c_hi = min(c_lo + split_cols, n_valid);
+
+  float xi[kRows], yi[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = row0 + r * kThreads;
+    const float2 v = row < n_valid ? y[row] : make_float2(0.f, 0.f);
+    xi[r] = v.x;
+    yi[r] = v.y;
+  }
+
+  float zs[kRows], zc[kRows], xs[kRows], xc[kRows], ys[kRows], yc[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    zs[r] = zc[r] = xs[r] = xc[r] = ys[r] = yc[r] = 0.f;
+  }
+
+  // c_lo, c_hi and everything below that branches are uniform in the block
+  for (int t0 = c_lo; t0 < c_hi; t0 += kTileCols) {
+    const int count = min(kTileCols, c_hi - t0);
+    const int staged = (count + kChunk - 1) / kChunk * kChunk;
+    __syncthreads();                            // previous tile consumed
+    for (int t = threadIdx.x; t < staged; t += kThreads) {
+      cols[t] = t < count ? y[t0 + t] : make_float2(kFar, kFar);
+    }
+    __syncthreads();
+    for (int j0 = 0; j0 < staged; j0 += kChunk) {
+      const int col0 = t0 + j0;
+      float z[kRows], fx[kRows], fy[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) z[r] = fx[r] = fy[r] = 0.f;
+      if (col0 < tile_lo + kTileRows && tile_lo < col0 + kChunk) {
+        chunk_sums<true>(cols + j0, col0, row0, xi, yi, z, fx, fy);
+      } else {
+        chunk_sums<false>(cols + j0, col0, row0, xi, yi, z, fx, fy);
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        kahan_add(zs[r], zc[r], z[r]);
+        kahan_add(xs[r], xc[r], fx[r]);
+        kahan_add(ys[r], yc[r], fy[r]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = row0 + r * kThreads;
+    if (row >= n_valid || row < row_lo || row >= row_hi) continue;
+    const float z = zs[r] - zc[r];
+    const float fx = xs[r] - xc[r];
+    const float fy = ys[r] - yc[r];
+    const int wrow = row - row_lo;
+    const size_t out = static_cast<size_t>(scene) * wrows + wrow;
+    if (partial != nullptr) {
+      float* p = partial +
+                 ((static_cast<size_t>(scene) * splits + split) * wrows +
+                  wrow) * 3;
+      p[0] = fx;
+      p[1] = fy;
+      p[2] = z;
+    } else {
+      rep[out] = make_float2(fx, fy);
+      zrow[out] = z;
+    }
+  }
+}
+
+// reduce_splits over rows row_lo .. min(row_hi, n_valid) of scene
+// blockIdx.y.
+__global__ void __launch_bounds__(256)
+scene_reduce_splits(const float* __restrict__ partial, int n_valid,
+                    int row_lo, int row_hi, int splits,
+                    float2* __restrict__ rep, float* __restrict__ zrow) {
+  const int row = row_lo + blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n_valid || row >= row_hi) return;
+  const int scene = blockIdx.y;
+  const int wrows = row_hi - row_lo;
+  double fx = 0.0, fy = 0.0, z = 0.0;
+  for (int s = 0; s < splits; ++s) {
+    const float* p = partial +
+                     ((static_cast<size_t>(scene) * splits + s) * wrows +
+                      (row - row_lo)) * 3;
+    fx += p[0];
+    fy += p[1];
+    z += p[2];
+  }
+  const size_t out = static_cast<size_t>(scene) * wrows + (row - row_lo);
+  rep[out] = make_float2(static_cast<float>(fx), static_cast<float>(fy));
+  zrow[out] = static_cast<float>(z);
+}
+
 }  // namespace
 
 // Launches on `stream` and returns a CUDA error code (0 on success).
-extern "C" int tsne_repulsion_launch(const void* y, int npad, int n_valid,
+extern "C" int tsne_repulsion_launch(const void* y, int scenes, int npad,
+                                     int n_valid, int row_lo, int row_hi,
                                      int split_cols, int splits,
                                      void* scratch, void* rep, void* zrow,
                                      void* stream) {
@@ -246,30 +372,53 @@ extern "C" int tsne_repulsion_launch(const void* y, int npad, int n_valid,
        static_cast<long long>(split_cols) * splits >= n_valid &&
        static_cast<long long>(split_cols) * (splits - 1) < n_valid &&
        (splits == 1 || scratch != nullptr));
-  if (n_valid < 0 || n_valid > npad || !plan_ok) {
+  if (scenes < 1 || scenes > 65535 || n_valid < 0 || n_valid > npad ||
+      row_lo < 0 || row_lo > row_hi || row_hi > npad || !plan_ok) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int wrows = row_hi - row_lo;
+  if (wrows == 0) return static_cast<int>(cudaGetLastError());
   float2* rep2 = static_cast<float2*>(rep);
   float* z = static_cast<float*>(zrow);
-  if (npad > n_valid) {                         // pad rows: exactly 0
-    cudaError_t err = cudaMemsetAsync(
-        rep2 + n_valid, 0, sizeof(float2) * (npad - n_valid), s);
-    if (err == cudaSuccess) {
-      err = cudaMemsetAsync(z + n_valid, 0, sizeof(float) * (npad - n_valid),
-                            s);
+  // window rows at or past n_valid are pad rows: exactly 0
+  const int live_hi = min(row_hi, n_valid);
+  const int pad_lo = max(row_lo, n_valid) - row_lo;   // first pad slot
+  if (pad_lo < wrows) {
+    for (int sc = 0; sc < scenes; ++sc) {
+      const size_t base = static_cast<size_t>(sc) * wrows + pad_lo;
+      cudaError_t err = cudaMemsetAsync(rep2 + base, 0,
+                                        sizeof(float2) * (wrows - pad_lo), s);
+      if (err == cudaSuccess) {
+        err = cudaMemsetAsync(z + base, 0, sizeof(float) * (wrows - pad_lo),
+                              s);
+      }
+      if (err != cudaSuccess) return static_cast<int>(err);
     }
-    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (n_valid == 0) return static_cast<int>(cudaGetLastError());
+  if (live_hi <= row_lo) return static_cast<int>(cudaGetLastError());
   float* partial = splits > 1 ? static_cast<float*>(scratch) : nullptr;
-  const int tiles = (n_valid + kTileRows - 1) / kTileRows;
-  repulsion_units<<<tiles * splits, kThreads, 0, s>>>(
-      static_cast<const float2*>(y), npad, n_valid, split_cols, splits,
-      partial, rep2, z);
+  const int tile0 = row_lo / kTileRows;
+  const int tile1 = (live_hi + kTileRows - 1) / kTileRows;
+  if (scenes == 1 && row_lo == 0 && row_hi == npad) {
+    const int tiles = (n_valid + kTileRows - 1) / kTileRows;
+    repulsion_units<<<tiles * splits, kThreads, 0, s>>>(
+        static_cast<const float2*>(y), npad, n_valid, split_cols, splits,
+        partial, rep2, z);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+    reduce_splits<<<(n_valid + 255) / 256, 256, 0, s>>>(
+        partial, npad, n_valid, splits, rep2, z);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid((tile1 - tile0) * splits, scenes);
+  scene_units<<<grid, kThreads, 0, s>>>(
+      static_cast<const float2*>(y), npad, n_valid, row_lo, row_hi, tile0,
+      split_cols, splits, partial, rep2, z);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  reduce_splits<<<(n_valid + 255) / 256, 256, 0, s>>>(partial, npad, n_valid,
-                                                       splits, rep2, z);
+  const dim3 rgrid((live_hi - row_lo + 255) / 256, scenes);
+  scene_reduce_splits<<<rgrid, 256, 0, s>>>(partial, n_valid, row_lo, row_hi,
+                                            splits, rep2, z);
   return static_cast<int>(cudaGetLastError());
 }
 

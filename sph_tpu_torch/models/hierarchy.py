@@ -98,6 +98,16 @@ class Hierarchy:
     def num_levels(self) -> int:
         return len(self.num_components)
 
+    def children_of(self, level: int) -> list[np.ndarray]:
+        """Per component on `level` (> 0), the ids of its children on the
+        level below (reference: Hierarchy::childrenOn)."""
+        if level <= 0:
+            raise ValueError("level 0 has no children")
+        par = self.parents[level - 1]
+        order = np.argsort(par, kind="stable")
+        counts = np.bincount(par, minlength=self.num_components[level])
+        return np.split(order, np.cumsum(counts)[:-1])
+
     def represented_points(self, level: int) -> list[np.ndarray]:
         """Per component on `level`, the data-level pixel ids it represents
         (reference: updateComponentMap)."""

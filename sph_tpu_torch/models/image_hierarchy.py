@@ -139,8 +139,21 @@ class ImageHierarchy:
             self._compute_preparations()
         self._compute_boruvka()
 
+    def set_preparations(self, data_level_probdist: SparseRows,
+                         walks: Optional[SparseRows] = None):
+        """Stage-1 preparations made elsewhere: the data-level probability
+        rows and, optionally, the data-level random walks.  compute() then
+        takes them and skips the normalisation and the walks.  The batched
+        multi-scene path (parallel/sharded.multi_scene_stage1) makes them
+        for every scene at once."""
+        self._preset_probdist = data_level_probdist
+        self._preset_walks = walks
+
     def _compute_preparations(self):
         """Reference: ImageHierarchy.cpp:149-190."""
+        if getattr(self, "_preset_probdist", None) is not None:
+            self._prepare_from_preset(self._preset_probdist)
+            return
         n = self._data.shape[0]
         dev = self.device
         knn_idx, knn_dist, mask = _graph_rows(self._graph)
@@ -172,6 +185,33 @@ class ImageHierarchy:
                     torch.where(mask_t, torch.as_tensor(
                         np.asarray(knn_dist, np.float32), device=dev), 0.0),
                     n))
+
+    def _prepare_from_preset(self, preset_pd: SparseRows):
+        """Preparations from injected stage-1 outputs (JAX:
+        _prepare_from_preset): the walks are simulated only when none were
+        given."""
+        n = self._data.shape[0]
+        if preset_pd.num_rows != n:
+            raise ValueError(f"preset probabilities have "
+                             f"{preset_pd.num_rows} rows, not {n}")
+        self.data_level_probdist = preset_pd
+        self.hierarchy.clear()
+        self.hierarchy.init_first_level(n)
+        if self._ihs.component_sim not in WALK_SIMS:
+            return
+        self._rw_lengths = [self._rws.single_walk_length]
+        walks = getattr(self, "_preset_walks", None)
+        if walks is None:
+            walks = do_random_walks(self.data_level_probdist, self._rws,
+                                    self._ihs.verbose)
+        self.hierarchy.random_walks.append(walks)
+        self.stats.rw_sparsities.append(1.0 - walks.nnz() / (float(n) * n))
+        if self._ihs.rw_handling == RandomWalkHandling.MERGE_DATA_NEW_WALKS:
+            knn_idx, knn_dist, mask = _graph_rows(self._graph)
+            self.hierarchy.merged_data_graphs.append(SparseRows(
+                np.where(mask, knn_idx, -1),
+                np.where(mask, knn_dist, 0.0).astype(np.float32), n,
+                device=self.device))
 
     # ------------------------------------------------------------------
 

@@ -135,26 +135,29 @@ def _row_chunk(npts: int, width: int) -> int:
     return min(max((ATTR_PIECE // width) // 8 * 8, 8), _ceil_to(npts, 8))
 
 
-def _neighbor_diffs(y: torch.Tensor, p_idx: torch.Tensor, r0: int, r1: int):
+def _neighbor_diffs(y: torch.Tensor, p_idx: torch.Tensor, r0: int, r1: int,
+                    row0: int = 0):
     """(y_i - y_j) by coordinate and w = 1 / (1 + |y_i - y_j|^2) over P's
-    support for rows r0..r1, each [r1 - r0, R]."""
+    support for P rows r0..r1 (the points row0 + r0 .. row0 + r1 of y),
+    each [r1 - r0, R]."""
     idx = torch.clamp(p_idx[r0:r1], min=0)
-    d0 = y[r0:r1, 0:1] - y[:, 0][idx]
-    d1 = y[r0:r1, 1:2] - y[:, 1][idx]
+    d0 = y[row0 + r0:row0 + r1, 0:1] - y[:, 0][idx]
+    d1 = y[row0 + r0:row0 + r1, 1:2] - y[:, 1][idx]
     return d0, d1, 1.0 / (1.0 + d0 * d0 + d1 * d1)
 
 
 def attractive_forces(y: torch.Tensor, p_idx: torch.Tensor,
-                      p_val: torch.Tensor) -> torch.Tensor:
+                      p_val: torch.Tensor, row0: int = 0) -> torch.Tensor:
     """Sparse attraction sum_j p_ij w_ij (y_i - y_j) over P's support
     (JAX: _attractive_forces, unpacked), in row pieces that bound the
-    gathered [rows, R] buffers."""
+    gathered [rows, R] buffers.  P's rows are the points row0 .. row0 +
+    len(p_idx) of y (a row shard, whose column ids are global)."""
     npts, width = p_idx.shape
     out = torch.empty((npts, 2), dtype=torch.float32, device=y.device)
     chunk = _row_chunk(npts, width)
     for r0 in range(0, npts, chunk):
         r1 = min(r0 + chunk, npts)
-        d0, d1, w = _neighbor_diffs(y, p_idx, r0, r1)
+        d0, d1, w = _neighbor_diffs(y, p_idx, r0, r1, row0)
         coef = torch.where(p_idx[r0:r1] >= 0, p_val[r0:r1] * w, 0.0)
         out[r0:r1, 0] = (coef * d0).sum(1)
         out[r0:r1, 1] = (coef * d1).sum(1)

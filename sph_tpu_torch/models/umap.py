@@ -7,7 +7,7 @@ optimisation epoch after another (:233-269)).
 
 The JAX package replaces umappp's sequential per-edge SGD by batched
 epochs: every epoch updates all edges due in it at once, with
-epochs-per-sample scheduling kept per edge.  Two of its tiers are here:
+epochs-per-sample scheduling kept per edge.  Its three tiers are here:
 
 - dense (N <= SPH_UMAP_DENSE_MAX, 4096): the schedule on an [N, N] grid;
   the negative samples are replaced by their expectation over all points,
@@ -20,8 +20,21 @@ epochs-per-sample scheduling kept per edge.  Two of its tiers are here:
   jax.random.randint(fold_in(key, epoch), (rows, draws), 0, n) drawn with
   ops/rng.py, bit for bit.
 
-The edge-list tier (SPH_UMAP_EDGE_PATH=1) is not ported and raises.  The
-rows tier gathers positions in float32; the JAX package's default packs
+- edges (SPH_UMAP_EDGE_PATH=1, or ``init_optimization(edge_path=True)``):
+  the flat list of the memberships' directed edges; each epoch moves both
+  ends of every due edge, then draws negative_sample_rate rounds of one
+  negative an edge, jax.random.randint(fold_in(fold_in(key, epoch), r), (E,),
+  0, n), each round reading the positions the previous one left.  The JAX
+  package scatters with ``.at[src].add``, which XLA-CPU adds one update
+  after another in edge order; ``index_add_`` on the card adds atomically,
+  in no fixed order.  So the updates are gathered into a [N, W] layout of
+  each point's edges in edge order (a stable sort by target, once): the
+  CPU folds them onto the point column by column, XLA-CPU's sequence of
+  float32 adds; the card sums each row in a fixed order and adds the sum.
+  Two runs give the same bits on either.  The sharded UMAP
+  (parallel/sharded.py) runs on this tier.
+
+The rows tier gathers positions in float32; the JAX package's default packs
 them into u16 fixed point (SPH_UMAP_PACKED, a TPU gather workaround), which
 is not ported: an explicit SPH_UMAP_PACKED=1 raises.
 
@@ -42,6 +55,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import rng
+from ..ops.numerics import _fma, pow
 from ..ops.sparse import SparseRows, symmetrize_umap
 from ..utils.logging import Log
 
@@ -109,23 +123,88 @@ def _next_pow2(x: int, lo: int) -> int:
 
 
 def _attract_coeff(d2: torch.Tensor, a: float, b: float) -> torch.Tensor:
-    """umap-learn's attractive gradient coefficient (rdist form)."""
-    return torch.where(d2 > 0, (-2.0 * a * b * d2 ** (b - 1.0))
-                       / (a * d2 ** b + 1.0), 0.0)
+    """umap-learn's attractive gradient coefficient (rdist form); the
+    powers as XLA-CPU takes them (ops/numerics.pow), and a d^2b + 1 as the
+    fused multiply-add its code generator makes of it."""
+    return torch.where(d2 > 0, (-2.0 * a * b * pow(d2, b - 1.0))
+                       / _fma(a, pow(d2, b), 1.0), 0.0)
 
 
 def _clip4(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, -4.0, 4.0)
 
 
+def _sq_len(e0: torch.Tensor, e1: torch.Tensor) -> torch.Tensor:
+    """e0^2 + e1^2 as XLA-CPU's code generator contracts it: the second
+    square rounded, the first fused into the add."""
+    return _fma(e0, e0, e1 * e1)
+
+
 def _repel(e0: torch.Tensor, e1: torch.Tensor, a: float, b: float):
     """Clipped repulsive updates of umap-learn; a coincident pair
     (e2 == 0) gets the constant +4 push per dimension."""
-    e2 = e0 * e0 + e1 * e1
-    gcn = (2.0 * b) / ((0.001 + e2) * (a * e2 ** b + 1.0))
+    e2 = _sq_len(e0, e1)
+    gcn = (2.0 * b) / ((0.001 + e2) * _fma(a, pow(e2, b), 1.0))
     pos = e2 > 0
     return (torch.where(pos, _clip4(gcn * e0), 4.0),
             torch.where(pos, _clip4(gcn * e1), 4.0))
+
+
+class FoldLayout:
+    """Each point's entries of an edge-length target list, in edge order:
+    ``pos`` [N, W] holds the edge ids (E, a zero slot, past a point's
+    last), from a stable sort by target.  ``add(base, vals)`` is the
+    scatter-add base.at[targets].add(vals): on the CPU as XLA-CPU adds it,
+    each point's values one after another in edge order onto the point's
+    own value; on the card as one row sum of the gathered [N, W] values in
+    a fixed order, added to the point (other bits than the CPU's, the same
+    from run to run)."""
+
+    def __init__(self, targets: torch.Tensor, n: int):
+        e = targets.numel()
+        dev = targets.device
+        self.e = e
+        if e == 0:
+            self.pos = torch.zeros((n, 0), dtype=torch.int64, device=dev)
+            return
+        sorted_t, order = torch.sort(targets, stable=True)
+        first = torch.searchsorted(sorted_t, torch.arange(n, device=dev))
+        rank = torch.arange(e, device=dev) - first[sorted_t]
+        width = int(rank.max()) + 1
+        self.pos = torch.full((n, width), e, dtype=torch.int64, device=dev)
+        self.pos[sorted_t, rank] = order
+
+    def add(self, base: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+        if self.e == 0:
+            return base
+        table = torch.cat([vals, vals.new_zeros(1)])[self.pos]
+        if base.device.type != "cpu":
+            # on the card: one fixed-order row sum (no atomics), then one add
+            return base + table.sum(1)
+        acc = base
+        for j in range(table.shape[1]):
+            acc = acc + table[:, j]
+        return acc
+
+
+def edge_attraction(y0, y1, src, dst, active, alpha: float, a: float,
+                    b: float):
+    """The attractive steps of the edges (src -> dst), 0 where an edge is
+    not due: (s0, s1), each [E] (JAX: _epoch_update's first half)."""
+    d0 = y0[src] - y0[dst]
+    d1 = y1[src] - y1[dst]
+    gc = _attract_coeff(_sq_len(d0, d1), a, b)
+    amask = torch.where(active, alpha, 0.0)
+    return amask * _clip4(gc * d0), amask * _clip4(gc * d1)
+
+
+def edge_repulsion(y0, y1, src, negs, active, alpha: float, a: float,
+                   b: float):
+    """The repulsive steps of one negative an edge, 0 where the edge is
+    not due or drew its own head: (r0, r1), each [E]."""
+    r0, r1 = _repel(y0[src] - y0[negs], y1[src] - y1[negs], a, b)
+    nmask = torch.where(active & (negs != src), alpha, 0.0)
+    return nmask * r0, nmask * r1
 
 
 class UmapComputation:
@@ -219,12 +298,13 @@ class UmapComputation:
             emb.shape).astype(np.float32) * 1e-4
         self._embedding = emb + noise
 
-    def init_optimization(self):
+    def init_optimization(self, edge_path: Optional[bool] = None):
         """Memberships, layout and the edge schedule (reference:
-        initProbabilityDistribution, :52-231)."""
-        if os.environ.get("SPH_UMAP_EDGE_PATH") == "1":
-            raise NotImplementedError(
-                "the UMAP edge-list tier is not ported; see ROADMAP")
+        initProbabilityDistribution, :52-231).  edge_path True or False
+        pins the edge-list tier on or off; None reads SPH_UMAP_EDGE_PATH,
+        as the JAX package does."""
+        if edge_path is None:
+            edge_path = os.environ.get("SPH_UMAP_EDGE_PATH") == "1"
         if os.environ.get("SPH_UMAP_PACKED") == "1":
             raise NotImplementedError(
                 "the u16-packed UMAP gather is not ported; see ROADMAP")
@@ -244,11 +324,20 @@ class UmapComputation:
         eps_flat = make_epochs_per_sample(m_val[mask], self.n_epochs
                                           ).astype(np.float32)
         dense_max = int(os.environ.get("SPH_UMAP_DENSE_MAX", str(DENSE_MAX)))
-        self.tier = "dense" if self._n <= dense_max else "rows"
+        self.tier = ("edges" if edge_path
+                     else "dense" if self._n <= dense_max else "rows")
         Log.info("UMAP: optimizer tier %s (n=%d)", self.tier, self._n)
         n, dev = self._n, self.device
 
-        if self.tier == "dense":
+        if self.tier == "edges":
+            src = np.broadcast_to(np.arange(n)[:, None], m_idx.shape)[mask]
+            self._src = torch.as_tensor(np.ascontiguousarray(src), device=dev)
+            self._dst = torch.as_tensor(m_idx[mask].astype(np.int64),
+                                        device=dev)
+            self._src_fold = FoldLayout(self._src, n)
+            self._dst_fold = FoldLayout(self._dst, n)
+            eps = eps_flat
+        elif self.tier == "dense":
             src = np.broadcast_to(np.arange(n)[:, None], m_idx.shape)[mask]
             eps = np.full((n, n), np.inf, np.float32)
             eps[src, m_idx[mask]] = eps_flat
@@ -302,6 +391,8 @@ class UmapComputation:
                 break
             if self.tier == "dense":
                 self._dense_epoch(epoch)
+            elif self.tier == "edges":
+                self._edges_epoch(epoch)
             else:
                 self._rows_epoch(epoch)
             self.current_epoch = epoch + 1
@@ -347,6 +438,27 @@ class UmapComputation:
             rep0 = torch.where(keep, r0, 0.0).sum(1)
             rep1 = torch.where(keep, r1, 0.0).sum(1)
         self._y = torch.stack([y0m + alpha * rep0, y1m + alpha * rep1], 1)
+        self._next_sample = torch.where(active, self._next_sample + self._eps,
+                                        self._next_sample)
+
+    def _edges_epoch(self, epoch: int):
+        """One epoch of the edge-list tier (JAX: _epoch_update)."""
+        a, b = float(np.float32(self._a)), float(np.float32(self._b))
+        alpha = float(self._alpha(epoch))
+        src, dst = self._src, self._dst
+        active = self._next_sample <= float(epoch)
+        y0, y1 = self._y[:, 0], self._y[:, 1]
+        s0, s1 = edge_attraction(y0, y1, src, dst, active, alpha, a, b)
+        y0 = self._dst_fold.add(self._src_fold.add(y0, s0), -s0)
+        y1 = self._dst_fold.add(self._src_fold.add(y1, s1), -s1)
+        key = rng.fold_in(self._key, epoch)
+        for r in range(self.params.negative_sample_rate):
+            negs = rng.randint(rng.fold_in(key, r), (src.numel(),), 0,
+                               self._n, self._y.device)
+            r0, r1 = edge_repulsion(y0, y1, src, negs, active, alpha, a, b)
+            y0 = self._src_fold.add(y0, r0)
+            y1 = self._src_fold.add(y1, r1)
+        self._y = torch.stack([y0, y1], 1)
         self._next_sample = torch.where(active, self._next_sample + self._eps,
                                         self._next_sample)
 

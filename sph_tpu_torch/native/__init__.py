@@ -3,7 +3,8 @@
 The port builds its own copy of the JAX package's C++ source,
 ``sph_tpu_torch/native/graphops.cpp`` (held byte-equal to
 ``sph_tpu/native/graphops.cpp`` by a test), with g++ into
-``sph_tpu_torch/_build/`` at first use.  The library is
+``sph_tpu_torch/_build/`` at first use, and ``libm_pow.c``, the C
+library's float32 pow over an array, with gcc.  The library is
 named by the source's content hash, so an edited source is rebuilt.  A
 failed build raises: these ops have no Python fallback in the port.
 """
@@ -20,26 +21,51 @@ import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(_PKG, "native", "graphops.cpp")
+LIBM_POW_SRC = os.path.join(_PKG, "native", "libm_pow.c")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _build() -> str:
-    with open(SRC, "rb") as f:
+def _build(src: str = SRC, name: str = "graphops",
+           flags: tuple = ("g++", "-O3", "-march=native", "-std=c++17")
+           ) -> str:
+    with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"libgraphops_{digest}.so")
+    so = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-           SRC, "-o", tmp]
+    cmd = [*flags, "-shared", "-fPIC", src, "-o", tmp]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
-        raise RuntimeError(f"native: building {SRC} failed:\n{proc.stderr}")
+        raise RuntimeError(f"native: building {src} failed:\n{proc.stderr}")
     os.replace(tmp, so)
     return so
+
+
+_libm_pow: Optional[ctypes.CDLL] = None
+
+
+def powf(x: np.ndarray, e: float) -> np.ndarray:
+    """float32 x ** e element by element through the C library's powf
+    (``libm_pow.c``): XLA-CPU's pow, bit for bit, where torch's CPU pow
+    (SLEEF) differs by an ulp in about one element in ten."""
+    global _libm_pow
+    if _libm_pow is None:
+        lib = ctypes.CDLL(_build(LIBM_POW_SRC, "libm_pow",
+                                 ("gcc", "-O2", "-fno-fast-math")))
+        lib.powf_array.restype = None
+        lib.powf_array.argtypes = [
+            np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
+            ctypes.c_int64, ctypes.c_float,
+            np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")]
+        _libm_pow = lib
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    out = np.empty_like(x)
+    _libm_pow.powf_array(x, x.size, e, out)
+    return out
 
 
 def get_lib() -> ctypes.CDLL:
@@ -61,6 +87,8 @@ def get_lib() -> ctypes.CDLL:
     lib.symmetrize_fill.restype = None
     lib.symmetrize_fill.argtypes = [i64, i64, p_i32, p_f32, i64, p_i32,
                                     p_f32, p_i32]
+    lib.argsort_i64.restype = None
+    lib.argsort_i64.argtypes = [p_i64, i64, p_i64]
     lib.merge_sum.restype = i64
     lib.merge_sum.argtypes = [i64, i64, p_i32, p_f32, p_i64, i64,
                               ctypes.c_int, p_i64, p_i32, p_f32]
@@ -70,6 +98,10 @@ def get_lib() -> ctypes.CDLL:
     lib.pack_rows.restype = None
     lib.pack_rows.argtypes = [i64, p_i64, p_i32, p_f32, i64, i64, p_i32,
                               p_f32]
+    lib.umap_sequential.restype = None
+    lib.umap_sequential.argtypes = [i64, p_f32, i64, p_i32, p_i32, p_f32,
+                                    i64, ctypes.c_float, ctypes.c_float,
+                                    ctypes.c_float, i64, ctypes.c_uint64]
     p_u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
     lib.lz4_compress_bound.restype = i64
     lib.lz4_compress_bound.argtypes = [i64]
@@ -146,6 +178,18 @@ def merge_min(indices: np.ndarray, values: np.ndarray, parents: np.ndarray,
     return out_rows[:m], out_cols[:m], out_vals[:m]
 
 
+def argsort_i64(keys: np.ndarray) -> np.ndarray:
+    """Stable argsort of non-negative int64 keys (an LSD radix sort of
+    (key, index) composites); raises on a negative key."""
+    keys = np.ascontiguousarray(keys, dtype=np.int64)
+    if keys.size and int(keys.min()) < 0:
+        raise ValueError("native.argsort_i64: the radix sort takes "
+                         "non-negative keys only")
+    order = np.empty(len(keys), dtype=np.int64)
+    get_lib().argsort_i64(keys, len(keys), order)
+    return order
+
+
 def pack_rows(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
               n: int, width: int) -> tuple[np.ndarray, np.ndarray]:
     """Ragged -> padded packing of row-sorted (row, col, val) triples."""
@@ -157,6 +201,24 @@ def pack_rows(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
     get_lib().pack_rows(len(rows), rows, cols, vals, n, width, out_idx,
                         out_val)
     return out_idx, out_val
+
+
+def umap_sequential(embedding: np.ndarray, src: np.ndarray,
+                    dst: np.ndarray, eps: np.ndarray, n_epochs: int,
+                    a: float, b: float, initial_alpha: float = 1.0,
+                    neg_rate: int = 5, seed: int = 42) -> np.ndarray:
+    """Sequential UMAP layout optimisation, the oracle of the batched
+    epochs (models/umap.py): umappp's per-edge order (reference:
+    EmbedUmap.cpp:233-269), one edge after another, with its own negative
+    sample stream.  Edges (src, dst, eps = epochs per sample) must cover
+    both directions.  Returns the optimised [n, 2] layout."""
+    emb = np.ascontiguousarray(embedding, dtype=np.float32).copy()
+    src = np.ascontiguousarray(src, dtype=np.int32)
+    dst = np.ascontiguousarray(dst, dtype=np.int32)
+    eps = np.ascontiguousarray(eps, dtype=np.float32)
+    get_lib().umap_sequential(emb.shape[0], emb, len(src), src, dst, eps,
+                              n_epochs, a, b, initial_alpha, neg_rate, seed)
+    return emb
 
 
 def symmetrize(indices: np.ndarray, distances: np.ndarray,

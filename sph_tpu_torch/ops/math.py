@@ -105,3 +105,34 @@ def spectral_embedding(indices: np.ndarray, distances: np.ndarray,
         rng = np.random.default_rng(seed)
         return (rng.uniform(-10, 10, (n, num_components))
                 .astype(np.float32)), False
+
+
+def invlin(x):
+    """Map [0, inf] -> [1, 0] via 1 / (1 + x) (reference: Math.hpp invlin)."""
+    return 1.0 / (1.0 + x)
+
+
+
+def sigmoid(x):
+    return 1.0 / (1.0 + np.exp(-x))
+
+
+
+def symmetric_hausdorff(distance_matrix: np.ndarray) -> float:
+    """max(max_i min_j D, max_j min_i D) (reference: Math.cpp:167-172)."""
+    d = np.asarray(distance_matrix)
+    return float(max(d.min(axis=1).max(), d.min(axis=0).max()))
+
+
+
+def jaccard_coefficient(a: np.ndarray, b: np.ndarray) -> float:
+    """Weighted Jaccard: sum(min) / sum(max) over aligned vectors
+    (reference: Math.cpp jaccardCoeff:53-116 — dense and sparse variants;
+    pass dense vectors or use SparseRows.to_dense rows)."""
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    union = np.maximum(a, b).sum()
+    if union == 0:
+        return 0.0
+    return float(np.minimum(a, b).sum() / union)
+

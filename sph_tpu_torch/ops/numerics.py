@@ -28,6 +28,9 @@ tensor gets the same bits as a CPU one.
 - ``exp`` / ``log``: XLA's CPU range reduction and Cephes polynomials, with
   the multiply-adds the CPU code generator fuses, and with results below
   2^-126 flushed to zero as XLA's CPU runtime does.
+- ``pow``: XLA-CPU calls the C library's powf; so does this on the CPU
+  (native/libm_pow.c).  On the card it is torch's pow: the one helper here
+  whose CUDA bits differ from its CPU bits.
 """
 
 from __future__ import annotations
@@ -208,3 +211,13 @@ def log(x: torch.Tensor) -> torch.Tensor:
     out = torch.where(x == 0, -torch.inf, out)
     out = torch.where(x == torch.inf, torch.inf, out)
     return torch.where((x < 0) | torch.isnan(x), torch.nan, out)
+
+
+def pow(x: torch.Tensor, e: float) -> torch.Tensor:
+    """float32 x ** e for a scalar exponent taken as float32, as XLA-CPU
+    computes it (the C library's powf) on the CPU; torch.pow on the card."""
+    e = _f32(e)
+    if x.device.type != "cpu":
+        return torch.pow(x, e)
+    from ..native import powf
+    return torch.from_numpy(powf(x.detach().contiguous().numpy(), e))

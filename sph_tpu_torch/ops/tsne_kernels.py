@@ -40,7 +40,7 @@ _I = ctypes.c_int
 # kernel name -> argument types of its C entry point ``<name>_launch``
 _SIGNATURES = {
     "tsne_forces_dense": [_P, _P, _I, _I, _P, _P, _P, _P],
-    "tsne_repulsion": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "tsne_repulsion": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 KERNELS = tuple(_SIGNATURES)
 
@@ -280,29 +280,58 @@ def tsne_repulsion_blocks_per_sm() -> int:
     return blocks
 
 
-def tsne_repulsion_rows(y: torch.Tensor, n_valid: int):
+def _check_scenes_y(y: torch.Tensor, n_valid: int):
+    """y [Npad, 2] or [S, Npad, 2] float32 with 0 <= n_valid <= Npad."""
+    if y.dim() == 3:
+        if y.shape[0] < 1:
+            raise ValueError("tsne_repulsion: no scenes")
+        _check_y("tsne_repulsion", y[0], n_valid)
+    else:
+        _check_y("tsne_repulsion", y, n_valid)
+
+
+def _window(npad: int, rows) -> tuple[int, int]:
+    r0, r1 = (0, npad) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= r0 <= r1 <= npad:
+        raise ValueError(f"tsne_repulsion: rows {rows} outside [0, {npad}]")
+    return r0, r1
+
+
+def tsne_repulsion_rows(y: torch.Tensor, n_valid: int, rows=None):
     """Exact all-pairs repulsion per row: y [Npad, 2] (any Npad >= n_valid;
     rows at or past n_valid may hold anything) -> (rep [Npad, 2], zrow
     [Npad]) with rep_i = sum_j w_ij^2 (y_i - y_j) and zrow_i = sum_j w_ij
     over j != i, j < n_valid.  Pad rows come out 0.  The kernel on a CUDA
     tensor (counted in ``tsne_repulsion.launches``), launched by
     ``repulsion_plan`` for the card; the twin on a CPU one.
+
+    y [S, Npad, 2] holds S scenes of one n_valid, all in one launch: rep
+    [S, Npad, 2], zrow [S, Npad].  rows=(r0, r1) computes only those rows,
+    against every column: rep [..., r1 - r0, 2], zrow [..., r1 - r0].  The
+    plan comes from n_valid alone, so each row's result is bit-equal to the
+    one-scene, all-rows call's.
     """
     n_valid = int(n_valid)
-    _check_y("tsne_repulsion", y, n_valid)
+    _check_scenes_y(y, n_valid)
     if y.device.type == "cpu":
-        return tsne_repulsion_reference(y, n_valid)
+        return tsne_repulsion_reference(y, n_valid, rows=rows)
     _check_kernel_device("tsne_repulsion", y)
     if y.data_ptr() % 8:
         raise ValueError("tsne_repulsion: y must be 8-byte aligned")
+    scenes = y.shape[0] if y.dim() == 3 else 1
+    npad = y.shape[-2]
+    r0, r1 = _window(npad, rows)
     plan = repulsion_plan(n_valid, _sm_count(y.device))
-    npad = y.shape[0]
-    rep = torch.empty_like(y)
-    zrow = torch.empty(npad, dtype=torch.float32, device=y.device)
-    scratch = (torch.empty((plan.splits, npad, 3), dtype=torch.float32,
-                           device=y.device) if plan.splits > 1 else None)
-    _launch("tsne_repulsion", y.device, y.data_ptr(), npad, n_valid,
-            plan.split_cols, plan.splits,
+    lead = y.shape[:-2]
+    rep = torch.empty((*lead, r1 - r0, 2), dtype=torch.float32,
+                      device=y.device)
+    zrow = torch.empty((*lead, r1 - r0), dtype=torch.float32,
+                       device=y.device)
+    scratch = (torch.empty((scenes, plan.splits, r1 - r0, 3),
+                           dtype=torch.float32, device=y.device)
+               if plan.splits > 1 else None)
+    _launch("tsne_repulsion", y.device, y.data_ptr(), scenes, npad, n_valid,
+            r0, r1, plan.split_cols, plan.splits,
             None if scratch is None else scratch.data_ptr(), rep.data_ptr(),
             zrow.data_ptr())
     tsne_repulsion.launches += 1
@@ -327,16 +356,19 @@ def tsne_repulsion_reference(y: torch.Tensor, n_valid: int, rows=None,
     `max_elements` pairs.
 
     rows=(r0, r1) computes only those rows (against all columns) and returns
-    (rep [r1 - r0, 2], zrow [r1 - r0]).  The weights are float32, as in the
-    kernel; the row sums are taken in float64 and rounded once, so that a
-    comparison measures the kernel's summation error and not the twin's.
+    (rep [r1 - r0, 2], zrow [r1 - r0]); y [S, Npad, 2] gives each scene's,
+    stacked.  The weights are float32, as in the kernel; the row sums are
+    taken in float64 and rounded once, so that a comparison measures the
+    kernel's summation error and not the twin's.
     """
     n_valid = int(n_valid)
-    _check_y("tsne_repulsion", y, n_valid)
-    npad = y.shape[0]
-    r0, r1 = (0, npad) if rows is None else (int(rows[0]), int(rows[1]))
-    if not 0 <= r0 <= r1 <= npad:
-        raise ValueError(f"tsne_repulsion: rows {rows} outside [0, {npad}]")
+    _check_scenes_y(y, n_valid)
+    if y.dim() == 3:
+        outs = [tsne_repulsion_reference(ys, n_valid, rows, max_elements)
+                for ys in y]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
+    r0, r1 = _window(y.shape[0], rows)
     dev = y.device
     rep = torch.zeros((r1 - r0, 2), dtype=torch.float32, device=dev)
     zrow = torch.zeros(r1 - r0, dtype=torch.float32, device=dev)

@@ -18,11 +18,11 @@ import pytest
 import torch
 
 import sph_tpu as J
-from sph_tpu.utils.jscheck import check_js_syntax
 from sph_tpu.utils.logging import set_level as jset_level
 from sph_tpu.vis_interactive import export_explorer as jexport
 from sph_tpu.vis_server import ExplorerServer as JServer
 import sph_tpu_torch as T
+from sph_tpu_torch.utils.jscheck import check_js_syntax
 from sph_tpu_torch.utils.logging import set_level
 from sph_tpu_torch.utils.testdata import create_checker_image
 from sph_tpu_torch.vis_interactive import export_explorer as texport

@@ -296,3 +296,61 @@ def test_repulsion_cuda_occupancy_and_input_checks():
     y = _repulsion_layout(100, 128, seed=1).cuda()
     with pytest.raises(TypeError):
         tsne_repulsion_rows(y.double(), 100)
+
+
+# ---------------------------------------------------------------------------
+# tsne_repulsion: scenes in one launch and row windows
+# ---------------------------------------------------------------------------
+
+def _scene_layouts(s, n, npad):
+    return torch.stack([_repulsion_layout(n, npad, seed=10 + i)
+                        for i in range(s)])
+
+
+def test_repulsion_twin_scenes_and_windows():
+    """The twin of a [S, Npad, 2] batch is each scene's twin, and a row
+    window is those rows of the full result, pad rows 0."""
+    y = _scene_layouts(3, 90, 128)
+    rep, zrow = tsne_repulsion_reference(y, 90)
+    assert rep.shape == (3, 128, 2) and zrow.shape == (3, 128)
+    for i in range(3):
+        r1, z1 = tsne_repulsion_reference(y[i], 90)
+        assert torch.equal(rep[i], r1) and torch.equal(zrow[i], z1)
+    wr, wz = tsne_repulsion_rows(y, 90, rows=(40, 128))
+    assert torch.equal(wr, rep[:, 40:]) and torch.equal(wz, zrow[:, 40:])
+    assert torch.all(wr[:, 50:] == 0)
+    with pytest.raises(ValueError):
+        tsne_repulsion_rows(y, 90, rows=(10, 129))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,n,npad", [(1, 5358, 6144), (3, 1025, 1536),
+                                      (16, 2304, 2560), (2, 0, 16)])
+def test_repulsion_cuda_scenes_bit_equal_to_one_scene(s, n, npad):
+    """One launch for S scenes: each scene's rows bit-equal to its own
+    one-scene call, and one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    y = _scene_layouts(s, n, npad).cuda()
+    before = tsne_repulsion.launches
+    rep, zrow = tsne_repulsion_rows(y, n)
+    assert tsne_repulsion.launches == before + 1
+    for i in range(s):
+        r1, z1 = tsne_repulsion_rows(y[i].contiguous(), n)
+        assert torch.equal(rep[i], r1) and torch.equal(zrow[i], z1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,npad,rows", [(5358, 6144, (0, 3072)),
+                                         (5358, 6144, (3072, 6144)),
+                                         (5358, 6144, (700, 5000)),
+                                         (65536, 65536, (32768, 65536)),
+                                         (100, 128, (100, 128))])
+def test_repulsion_cuda_window_bit_equal_to_full(n, npad, rows):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    y = _repulsion_layout(n, npad, seed=n).cuda()
+    rep, zrow = tsne_repulsion_rows(y, n)
+    wr, wz = tsne_repulsion_rows(y, n, rows=rows)
+    assert torch.equal(wr, rep[rows[0]:rows[1]])
+    assert torch.equal(wz, zrow[rows[0]:rows[1]])

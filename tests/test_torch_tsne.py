@@ -130,7 +130,8 @@ def test_unported_tiers_raise(monkeypatch):
     """A kNN graph is taken; above 32768 points the default tier is the
     grid, SPH_TSNE_GRID=0 takes the exact tier, and compute_umap runs (the
     grid tier and UMAP raised until they were ported).  What still raises:
-    the u16-packed gathers and the UMAP edge-list tier."""
+    the u16-packed gathers; the UMAP edge-list tier runs since it was
+    ported."""
     for name in ("SPH_TSNE_GRID", "SPH_TSNE_DENSE_P", "SPH_TSNE_GRID_MIN",
                  "SPH_TSNE_DENSE_P_MAX", "SPH_TSNE_ATTR_PACKED",
                  "SPH_UMAP_EDGE_PATH", "SPH_UMAP_PACKED"):
@@ -159,8 +160,12 @@ def test_unported_tiers_raise(monkeypatch):
     es.umap.num_epochs = 5
     assert T.ComputeEmbedding(es, device="cpu").compute_umap(small).shape == (
         40, 2)
-    for name in ("SPH_UMAP_EDGE_PATH", "SPH_UMAP_PACKED"):
-        monkeypatch.setenv(name, "1")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.ComputeEmbedding(es, device="cpu").compute_umap(small)
-        monkeypatch.delenv(name)
+    monkeypatch.setenv("SPH_UMAP_EDGE_PATH", "1")
+    ce = T.ComputeEmbedding(es, device="cpu")
+    assert ce.compute_umap(small).shape == (40, 2)
+    assert ce.last_computation.tier == "edges"
+    monkeypatch.delenv("SPH_UMAP_EDGE_PATH")
+    monkeypatch.setenv("SPH_UMAP_PACKED", "1")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.ComputeEmbedding(es, device="cpu").compute_umap(small)
+    monkeypatch.delenv("SPH_UMAP_PACKED")

@@ -237,10 +237,17 @@ def test_ab_epochs_and_schedule_match():
 @pytest.mark.parametrize("env", [{"SPH_UMAP_EDGE_PATH": "1"},
                                  {"SPH_UMAP_PACKED": "1"}])
 def test_unported_umap_paths_raise(umap_env, blobs, env):
+    """The u16-packed gather raises; the edge-list tier, ported since,
+    runs when SPH_UMAP_EDGE_PATH=1 asks for it."""
     for name, value in env.items():
         umap_env.setenv(name, value)
     u = tumap.UmapComputation(device="cpu")
     u.set_neighbor_graph(*blobs[1:])
+    if "SPH_UMAP_EDGE_PATH" in env:
+        u.params.num_epochs = 3
+        u.compute()
+        assert u.tier == "edges" and np.all(np.isfinite(u.embedding))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         u.compute()
 
