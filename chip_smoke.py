@@ -16,7 +16,8 @@ Phases, each printing one JSON line, and each raising on failure:
    (n, Npad) = (1000, 1024), (5358, 6144) (the Pines KL's), (21025, 21504)
    (a Pines-sized scene, one of multi_scene's 16) and
    (65536, 65536) in full and at (1000000, 1000448) on 4096 sampled rows,
-   two calls bit-equal, its launch plan and its SFU floor.
+   two calls bit-equal, its launch plan and its SFU floor.  tsne_attraction
+   is held at the P its paths give it (phases 12 and 15).
 4. main    — the Pines configuration of bench.py:89-136 at 145x145x200
    through ComputeHierarchy(device="cuda") and 2000 level-1 t-SNE
    iterations through ComputeEmbedding(device="cuda"), counting kernel
@@ -28,10 +29,14 @@ Phases, each printing one JSON line, and each raising on failure:
    docs/anchors_pines.json, and the levels against the JAX-on-CPU record in
    docs/torch_port_pines_reference.json.
 6. umap    — the same level 1 through ComputeEmbedding.compute_umap for
-   the reference's 500 epochs (rows tier): seconds, epochs/s, and the
+   the reference's 500 epochs (rows tier), on the default u16-packed
+   gathers and again with float32 ones (SPH_UMAP_PACKED=0): seconds,
+   epochs/s, an epoch's milliseconds packed and float32 in turns, and the
    trustworthiness at k = 10 against the components' mean spectra, at
-   least 0.99 x the JAX-on-CPU record in
-   docs/torch_port_pines_umap_reference.json.
+   least 0.99 x the JAX-on-CPU record of the same gathers
+   (docs/torch_port_packed_reference.json, whose run is the JAX package's
+   defaults, and docs/torch_port_pines_umap_reference.json's, whose
+   headline run is too; its float32 run for the float32 one).
    Then explorer: sph_tpu_torch.vis_server.ExplorerServer on the card over
    the same hierarchy with level 1's embedding, served on 127.0.0.1 at a
    free port: the page and /api/meta; /api/knn at level 0 (k = 16) and
@@ -108,9 +113,14 @@ Phases, each printing one JSON line, and each raising on failure:
    Z against tsne_repulsion's (at most 1e-3 apart) and the final KL with
    the exact Z, milliseconds an iteration by part, two calls of the
    grid's repulsion bit-equal (the deposit sums in a fixed order), peak
-   memory; no kernel launches on this tier.
+   memory; tsne_attraction launched once an iteration, on the u16-packed
+   table (the default), and no other kernel.  Then tsne_attraction against
+   its twin at this P (1,000,448 x 64) and layout, unpacked and packed:
+   within 1e-5 x max|twin|, two calls bit-equal, two row windows equal to
+   the full call's rows; ms against the bound.
 13. large  — the same graph on the exact sparse-P tier (SPH_TSNE_GRID=0),
-   cut to 10 iterations; the KL before and after, the launches.
+   cut to 10 iterations; the KL before and after, the launches
+   (tsne_attraction, float32, and tsne_repulsion on every iteration).
 14. large_checks — a symmetric P whose conditional rows sum to 1, the
    exact tier (tsne_repulsion on every iteration, tsne_forces_dense never),
    a falling KL, a finite embedding with zero pad rows, and tsne_repulsion
@@ -118,7 +128,9 @@ Phases, each printing one JSON line, and each raising on failure:
 15. grid_vs_exact — the 1M recipe at 256x256 (65536 points), 1000
    iterations on the grid and the exact tier from the same P and initial
    layout, both scored under that P with the exact Z: KL_grid <= 1.001 x
-   KL_exact.
+   KL_exact (the grid tier on its defaults, so its attraction reads the
+   packed table); tsne_attraction once an iteration of each; then
+   tsne_attraction against its twin at this P, as in phase 12.
 16. ivf_recall — benchmarks/bench_recall.py's clustered data at 10^6 x
    100 (seed 0), a full self-kNN on HNSW, HNSWSQ and HNSW_IVFPQ, recall@16
    on 1024 sampled rows against float64 distances, each at least the JAX
@@ -150,9 +162,11 @@ Phases, each printing one JSON line, and each raising on failure:
    JAX-CPU runs the whole grid: the maps as above, each level of at least
    100 components with its t-SNE KL within 1 % of the record's, the UMAP
    levels without memberships the record's, level 1's UMAP
-   trustworthiness at least 0.99 x the record's.  Then both kernels
-   against their twins at every shape the t-SNE levels of eval_pines_tsne
-   and eval_record gave them (n >= 2, Npad of the dense tier).
+   trustworthiness at least 0.99 x the record's (the UMAP grid with
+   float32 gathers, SPH_UMAP_PACKED=0, as the record was made).  Then
+   both kernels against their twins at every shape the t-SNE levels of
+   eval_pines_tsne and eval_record gave them (n >= 2, Npad of the dense
+   tier).
 20. eval_pines_walks — the evaluation driver on configs/pines_walk_variants
    .json (NEIGH_WALKS and NEIGH_WALKS_SINGLE_OVERLAP, each with
    MERGE_RW_NEW_WALKS, MERGE_RW_NEW_WALKS_AND_KNN and MERGE_DATA_NEW_WALKS)
@@ -170,7 +184,8 @@ Phases, each printing one JSON line, and each raising on failure:
    through sph_tpu_torch.parallel.sharded.multi_scene_hierarchy on
    [cuda] (batched stage 1, then each scene's levels), then every scene's
    level-0 P through multi_scene_tsne for 1000 iterations (one
-   tsne_repulsion launch an iteration for all 16); bench_multiscene.py's
+   tsne_repulsion launch an iteration for all 16; the attraction over P's
+   live entries in torch ops); bench_multiscene.py's
    A/B (batched against a serial loop of the one-scene stage 1) on 4
    scenes.  Gates: each scene's stage 1 against the JAX-CPU record
    (docs/torch_port_multiscene_reference.json, scripts/multiscene_
@@ -191,7 +206,8 @@ Phases, each printing one JSON line, and each raising on failure:
    logical shards): sharded_knn on the Pines scene (ids equal),
    sharded_tsne and sharded_grid_tsne for 100 iterations on
    grid_vs_exact's 65536-point P (KL of 2 shards within 0.5 % of 1
-   shard's, each with the exact Z), sharded_umap for 200 epochs on Pines
+   shard's, each with the exact Z; tsne_attraction once a shard and an
+   iteration, on the shard's rows), sharded_umap for 200 epochs on Pines
    level 1's memberships beside the one-card edge-list tier (two runs
    bit-equal) and native.umap_sequential (the Pines path's level 1, phase
    4, whose memberships are connected): trustworthiness at k = 10 at
@@ -337,6 +353,16 @@ def repulsion_bound(n: int, npad: int) -> dict:
     return bound(8 * npad + 12 * npad, REPULSION_FLOPS_PER_PAIR * n * n)
 
 
+def attraction_bound(rows: int, width: int, npad: int, live: int,
+                     packed: bool) -> dict:
+    """tsne_attraction: P's ids and values read once (8 bytes an entry),
+    the gathered positions once (the u16 table's 4 bytes a point packed,
+    y's 8 unpacked), each row's own y read and its attr written once; 12
+    flops a live entry (16 with the unpack's two multiply-adds)."""
+    return bound(8 * rows * width + (4 if packed else 8) * npad + 16 * rows,
+                 (16 if packed else 12) * live)
+
+
 def sfu_floor_ms(n: int, sms: int, clock_hz: float) -> float:
     """tsne_repulsion's floor beside its operations bound: its reciprocals,
     one a pair, at 16 a clock on each of `sms` SMs at `clock_hz`."""
@@ -437,6 +463,59 @@ def check_forces_kernel(n: int, npad: int, seed: int, calls: int = 200
             "z_rel_err": abs(z - z_r) / abs(z_r), "ms": ms,
             "plain_ms": plain_ms, "calls_timed": calls,
             **forces_bound(n, npad)}
+
+
+def check_attraction_kernel(y, p_idx, p_val, calls: int = 20,
+                            twin_calls: int = 3, windows: int = 2) -> dict:
+    """tsne_attraction against its twin at one path's P (ids int32) and
+    layout, unpacked and packed: the largest error (raises above 1e-5 x
+    max|twin|), two calls bit-equal and `windows` row windows (a shard's
+    rows with row0) bit-equal to the full call's rows (raises otherwise),
+    ms a call of the kernel, of the twin and of the packing, each against
+    the bound."""
+    import torch
+    from sph_tpu_torch.ops.packing import pack_positions
+    from sph_tpu_torch.ops.tsne_kernels import (tsne_attraction,
+                                                tsne_attraction_reference)
+    rows, width = p_idx.shape
+    npad = y.shape[0]
+    live = int((p_idx >= 0).sum())
+    out = {"rows": rows, "width": width, "npad": npad, "live_entries": live}
+    for packed in (False, True):
+        table, prm = (pack_positions(y[:, 0], y[:, 1]) if packed
+                      else (None, None))
+        got = tsne_attraction(y, p_idx, p_val, 0, table, prm)
+        again = tsne_attraction(y, p_idx, p_val, 0, table, prm)
+        ref = tsne_attraction_reference(y, p_idx, p_val, 0, table, prm)
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        name = "packed" if packed else "unpacked"
+        if not err <= 1e-5 * scale:
+            raise AssertionError(f"tsne_attraction {name} at {rows} x "
+                                 f"{width}: error {err} > 1e-5 x {scale}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"tsne_attraction {name}: two calls differ")
+        cuts = [rows * i // windows for i in range(windows + 1)]
+        for r0, r1 in zip(cuts, cuts[1:]):
+            part = tsne_attraction(y, p_idx[r0:r1], p_val[r0:r1], r0, table,
+                                   prm)
+            if not torch.equal(part, got[r0:r1]):
+                raise AssertionError(f"tsne_attraction {name}: rows {r0} .. "
+                                     f"{r1} differ from the full call's")
+        run = {"max_abs_err": err, "max_abs_ref": scale,
+               "bits_equal_two_calls": True, "windows_equal_full": windows,
+               "ms": cuda_ms(lambda: tsne_attraction(
+                   y, p_idx, p_val, 0, table, prm), calls, 3),
+               "plain_ms": cuda_ms(lambda: tsne_attraction_reference(
+                   y, p_idx, p_val, 0, table, prm), twin_calls, 1),
+               "calls_timed": calls,
+               **attraction_bound(rows, width, npad, live, packed)}
+        if packed:
+            run["pack_ms"] = cuda_ms(lambda: pack_positions(y[:, 0], y[:, 1]),
+                                     calls, 3)
+        out[name] = run
+    return out
 
 
 def repulsion_layout(n: int, npad: int, seed: int):
@@ -675,13 +754,13 @@ def env(**values):
 
 
 def zero_launches(tsne_kernels) -> None:
-    for kern in (tsne_kernels.tsne_forces_dense, tsne_kernels.tsne_repulsion):
-        kern.launches = 0
+    for name in tsne_kernels.KERNELS:
+        getattr(tsne_kernels, name).launches = 0
 
 
 def read_launches(tsne_kernels) -> dict:
-    return {"tsne_forces_dense": tsne_kernels.tsne_forces_dense.launches,
-            "tsne_repulsion": tsne_kernels.tsne_repulsion.launches}
+    return {name: getattr(tsne_kernels, name).launches
+            for name in tsne_kernels.KERNELS}
 
 
 def scene_graph(rows: int, cols: int, k: int = 16) -> dict:
@@ -804,13 +883,16 @@ def z_gap(comp) -> dict:
 
 def grid_split(comp, calls: int = 10) -> dict:
     """Milliseconds of one grid-tier iteration by part at the computation's
-    layout, CUDA events: the attraction, the box and taps, the deposit
-    (sorted segment sums), the FFT convolution, the interpolation (gather),
-    the update, and the whole step; and the points in the fullest base
-    cell.  The state is put back afterwards."""
+    layout, CUDA events: the attraction as _forces calls it (the packed
+    table and the tsne_attraction kernel), the same unpacked, the packing
+    alone, the box and taps, the deposit (sorted segment sums), the FFT
+    convolution, the interpolation (gather), the update, and the whole
+    step; and the points in the fullest base cell.  The state is put back
+    afterwards."""
     import torch
     from sph_tpu_torch.models.tsne import attractive_forces
     from sph_tpu_torch.ops import tsne_grid as G
+    from sph_tpu_torch.ops.packing import pack_positions
     y, n, g = comp._y, comp._n, comp._grid
     lo, h = G.grid_box(y, n, g)
     yv = y[:n]
@@ -824,8 +906,13 @@ def grid_split(comp, calls: int = 10) -> dict:
         comp._update(*forces)
         comp._y, comp._vel, comp._gain, comp._iteration = state
 
-    ms = {"grid": g, "attraction": cuda_ms(lambda: attractive_forces(
-        y, comp._p_idx, comp._p_val), calls, 2),
+    ms = {"grid": g, "attraction_packed": comp.attr_packed,
+        "attraction": cuda_ms(lambda: attractive_forces(
+            y, comp._p_idx32, comp._p_val, packed=comp.attr_packed), calls,
+            2),
+        "attraction_unpacked": cuda_ms(lambda: attractive_forces(
+            y, comp._p_idx32, comp._p_val), calls, 2),
+        "pack": cuda_ms(lambda: pack_positions(y[:, 0], y[:, 1]), calls, 2),
         "box_and_taps": cuda_ms(lambda: G.grid_taps(
             yv, *G.grid_box(y, n, g), g), calls, 2),
         "deposit": cuda_ms(lambda: G.deposit_charges(yv, cells, wx, wy, g),
@@ -2335,11 +2422,15 @@ def eval_record(tsne_kernels, ref: dict) -> dict:
     from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
     img = create_hyperspectral_scene(*EVAL_RECORD_SHAPE, seed=EVAL_SEED)
     out = {}
-    for name, changes in (("record_tsne", {}), ("record_umap", EVAL_UMAP)):
+    # the record's UMAP ran with float32 gathers (SPH_UMAP_PACKED=0)
+    for name, changes, pins in (
+            ("record_tsne", {}, {}),
+            ("record_umap", EVAL_UMAP, {"SPH_UMAP_PACKED": "0"})):
         want = ref["runs"][name]
         root = tempfile.mkdtemp(prefix=f"eval_{name}_")
         grid = eval_grid(root, img, tio.save_tiff_stack, name, **changes)
-        r = eval_run(tsne_kernels, grid)
+        with env(**pins):
+            r = eval_run(tsne_kernels, grid)
         shutil.rmtree(root, ignore_errors=True)
         levels = r["run"]["levels"]
         maps_equal = eval_maps_gate(r, want, f"eval_record {name}")
@@ -2892,26 +2983,50 @@ def component_means(data, labels, count: int):
     return sums / np.bincount(labels, minlength=count)[:, None]
 
 
-def pines_umap(ch, data, epochs: int = 500) -> dict:
+def rows_epoch_ms(comp, epochs: int = 50) -> dict:
+    """Milliseconds an epoch of a rows-tier UmapComputation with the packed
+    gathers and with float32 ones, in turns (packed, float32, float32,
+    packed), CUDA events over `epochs` epochs each from the computation's
+    state, which is put back after each turn."""
+    state = (comp._y, comp._next_sample, comp.packed)
+    epoch = comp.n_epochs // 2
+    out = {"packed": [], "float32": []}
+    for packed in (True, False, False, True):
+        comp.packed = packed
+        out["packed" if packed else "float32"].append(
+            cuda_ms(lambda: comp._rows_epoch(epoch), epochs, 2))
+        comp._y, comp._next_sample = state[:2]
+    comp.packed = state[2]
+    return out
+
+
+def pines_umap(ch, data, epochs: int = 500, packed: bool = True) -> dict:
     """UMAP of the Pines hierarchy's level 1 through
     ComputeEmbedding.compute_umap (the fuzzy union of the level's P, the
-    reference's 500 epochs); its seconds and the trustworthiness at k = 10
-    of the layout against the components' mean spectra."""
+    reference's 500 epochs), its rows tier's gathers packed (the default)
+    or float32 (SPH_UMAP_PACKED=0); its seconds, the trustworthiness at
+    k = 10 of the layout against the components' mean spectra and, on the
+    rows tier, an epoch's milliseconds packed and float32."""
     import sph_tpu_torch as T
     es = T.ComputeEmbeddingSettings()
     es.umap.num_epochs = epochs
     ce = T.ComputeEmbedding(es, device=DEV)
-    emb = ce.compute_umap(ch.level_similarities.get_prob_dist(1))
+    with env(SPH_UMAP_PACKED=None if packed else "0"):
+        emb = ce.compute_umap(ch.level_similarities.get_prob_dist(1))
     comp = ce.last_computation
     h = ch.image_hierarchy.hierarchy
     t = time.perf_counter()
     trust = trustworthiness(component_means(
         data, h.pixel_components[1], h.num_components[1]), emb, 10)
-    return {"n": emb.shape[0], "tier": comp.tier, "epochs": comp.n_epochs,
-            "width": tuple(comp._eps.shape)[1], "seconds": ce.seconds,
-            "epochs_per_s": comp.n_epochs / ce.seconds["epochs"],
-            "trustworthiness_k10": trust,
-            "trustworthiness_seconds": time.perf_counter() - t, "emb": emb}
+    out = {"n": emb.shape[0], "tier": comp.tier, "epochs": comp.n_epochs,
+           "packed": comp.packed, "width": tuple(comp._eps.shape)[1],
+           "seconds": ce.seconds,
+           "epochs_per_s": comp.n_epochs / ce.seconds["epochs"],
+           "trustworthiness_k10": trust,
+           "trustworthiness_seconds": time.perf_counter() - t, "emb": emb}
+    if comp.tier == "rows" and DEV == "cuda":
+        out["epoch_ms"] = rows_epoch_ms(comp)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3414,6 +3529,12 @@ def sharded_gates(run: dict) -> None:
         if run["tsne"][name]["launches"]["tsne_repulsion"] != want:
             raise AssertionError(f"sharded_tsne on {name} shards launched "
                                  f"{run['tsne'][name]['launches']}")
+        for key in ("tsne", "grid_tsne"):
+            got = run[key][name]["launches"]["tsne_attraction"]
+            if got != want:
+                raise AssertionError(f"sharded {key} on {name} shards "
+                                     f"launched tsne_attraction {got} times,"
+                                     f" not {want}")
     u = run["umap"]
     edge = u["edge_tier"]["trustworthiness_k10"]
     for name in ("1", "2"):
@@ -3708,25 +3829,39 @@ def main() -> int:
           "jax_cpu_levels": ref_levels, "jax_cpu_level_1_kl":
               ref["level_1_kl"]})
 
-    # ---- UMAP of the same level 1 ----------------------------------------
-    zero_launches(tsne_kernels)
-    umap = pines_umap(ch, data)
+    # ---- UMAP of the same level 1, packed (the default) and float32 -------
     with open(os.path.join(REPO, "docs",
                            "torch_port_pines_umap_reference.json")) as f:
         umap_ref = json.load(f)
-    emit({"phase": "umap", **{k: v for k, v in umap.items() if k != "emb"},
-          "jax_cpu_trustworthiness_k10": umap_ref["trustworthiness_k10"],
-          "launches": read_launches(tsne_kernels)})
-    if umap["tier"] != "rows" or umap["n"] != levels[1]:
-        raise AssertionError(f"UMAP of level 1 took the {umap['tier']} tier")
-    if not np.all(np.isfinite(umap["emb"])):
-        raise AssertionError("the UMAP embedding is not finite")
-    if not umap["trustworthiness_k10"] >= (
-            UMAP_TRUST_SLACK * umap_ref["trustworthiness_k10"]):
-        raise AssertionError(
-            f"UMAP trustworthiness {umap['trustworthiness_k10']} < "
-            f"{UMAP_TRUST_SLACK} x the JAX package's "
-            f"{umap_ref['trustworthiness_k10']}")
+    with open(os.path.join(REPO, "docs",
+                           "torch_port_packed_reference.json")) as f:
+        packed_ref = json.load(f)
+    # each run against the JAX-CPU record made with the same gathers
+    umap_gates = {True: [packed_ref["trustworthiness_k10"],
+                         umap_ref["trustworthiness_k10"]],
+                  False: [umap_ref["runs"]["unpacked"]["trustworthiness_k10"]]}
+    umap_runs = {}
+    for packed in (True, False):
+        zero_launches(tsne_kernels)
+        umap = pines_umap(ch, data, packed=packed)
+        umap_runs[packed] = umap
+        emit({"phase": "umap", **{k: v for k, v in umap.items() if k != "emb"},
+              "jax_cpu_trustworthiness_k10": umap_gates[packed],
+              "launches": read_launches(tsne_kernels)})
+        if umap["tier"] != "rows" or umap["n"] != levels[1]:
+            raise AssertionError(f"UMAP of level 1 took the {umap['tier']} "
+                                 "tier")
+        if umap["packed"] != packed:
+            raise AssertionError(f"UMAP of level 1 packed {umap['packed']}")
+        if not np.all(np.isfinite(umap["emb"])):
+            raise AssertionError("the UMAP embedding is not finite")
+        for want in umap_gates[packed]:
+            if not umap["trustworthiness_k10"] >= UMAP_TRUST_SLACK * want:
+                raise AssertionError(
+                    f"UMAP (packed {packed}) trustworthiness "
+                    f"{umap['trustworthiness_k10']} < {UMAP_TRUST_SLACK} x "
+                    f"the JAX package's {want}")
+    umap = umap_runs[True]
 
     # ---- the live explorer server on the same hierarchy -----------------
     t = time.perf_counter()
@@ -3736,7 +3871,7 @@ def main() -> int:
     h1 = ch.image_hierarchy.hierarchy
     pines_l1 = {"data": data, "p1": p1, "labels": h1.pixel_components[1],
                 "count": h1.num_components[1]}
-    del ch, cond, dense, emb, ce, umap, h1
+    del ch, cond, dense, emb, ce, umap, umap_runs, h1
 
     # ---- default level settings: the approximate kNN tiers on the path ---
     scene = scene_overlap(tsne_kernels)
@@ -3899,6 +4034,11 @@ def main() -> int:
     gap["launches"] = read_launches(tsne_kernels)
     split = grid_split(gcomp)
     repeat = scatter_repeatability(gcomp)
+    # tsne_attraction at the 1M grid tier's P and final layout
+    att_checks = [{"path_shape": "large_grid", **check_attraction_kernel(
+        gcomp._y, gcomp._p_idx32, gcomp._p_val)}]
+    emit({"phase": "kernel_vs_twin", "kernel": "tsne_attraction",
+          **att_checks[-1]})
     kls = grid["kls"]
     emit({"phase": "large_grid", "n": n_large, "tsne_tier": gcomp.tier,
           "tsne_iterations": GRID_ITERS, "seconds": grid["seconds"],
@@ -3914,14 +4054,20 @@ def main() -> int:
           "peak_memory_bytes": grid["peak_memory_bytes"],
           "embedding_max_abs": float(np.abs(grid["emb"]).max()),
           "launches": grid["launches"]})
+    grid_att_launches = grid["launches"]["tsne_attraction"]
     if not repeat["bits_equal"]:
         raise AssertionError(f"the grid tier's repulsion differs from call "
                              f"to call: {repeat}")
     if gcomp.tier != "grid":
         raise AssertionError(f"the 1M default took the {gcomp.tier} tier")
-    if any(grid["launches"].values()):
-        raise AssertionError(f"a kernel launched on the grid tier: "
-                             f"{grid['launches']}")
+    if not (grid["launches"]["tsne_attraction"] == GRID_ITERS
+            and grid["launches"]["tsne_forces_dense"] == 0
+            and grid["launches"]["tsne_repulsion"] == 0):
+        raise AssertionError(f"the grid tier's launches: {grid['launches']}"
+                             f" (tsne_attraction once an iteration, no "
+                             "other kernel)")
+    if not gcomp.attr_packed:
+        raise AssertionError("the 1M grid tier did not pack its gathers")
     if not kls[GRID_ITERS] < kls[0]:
         raise AssertionError(f"grid tier: KL {kls[GRID_ITERS]} not below "
                              f"iteration 0's {kls[0]}")
@@ -3975,10 +4121,10 @@ def main() -> int:
         raise AssertionError(f"the 1M path took the {comp.tier} tier")
     if large_launches["tsne_forces_dense"] != 0:
         raise AssertionError("tsne_forces_dense launched on the 1M path")
-    if large_launches["tsne_repulsion"] < LARGE_ITERS:
-        raise AssertionError(
-            f"tsne_repulsion launched {large_launches['tsne_repulsion']} "
-            f"times in {LARGE_ITERS} iterations")
+    for name in ("tsne_repulsion", "tsne_attraction"):
+        if large_launches[name] < LARGE_ITERS:
+            raise AssertionError(f"{name} launched {large_launches[name]} "
+                                 f"times in {LARGE_ITERS} iterations")
     if not large["kl"] < kl0:
         raise AssertionError(f"KL {large['kl']} not below iteration 0's "
                              f"{kl0}")
@@ -4006,6 +4152,19 @@ def main() -> int:
     if mid["exact"]["launches"]["tsne_repulsion"] < MID_ITERS:
         raise AssertionError("tsne_repulsion did not run every exact "
                              "iteration at 65536 points")
+    for tier in ("grid", "exact"):
+        if mid[tier]["launches"]["tsne_attraction"] != MID_ITERS:
+            raise AssertionError(f"tsne_attraction did not run every {tier}"
+                                 " iteration at 65536 points")
+    # tsne_attraction at grid_vs_exact's P and the exact tier's layout, in
+    # two shard windows
+    ex = mid["exact_computation"]
+    att_checks.append({"path_shape": "grid_vs_exact",
+                       **check_attraction_kernel(ex._y, ex._p_idx32,
+                                                 ex._p_val, calls=50,
+                                                 twin_calls=10)})
+    emit({"phase": "kernel_vs_twin", "kernel": "tsne_attraction",
+          **att_checks[-1]})
     if not mid["kl_ratio"] <= KL_RATIO_MAX:
         raise AssertionError(f"KL_grid / KL_exact = {mid['kl_ratio']} > "
                              f"{KL_RATIO_MAX} at 65536 points")
@@ -4121,6 +4280,8 @@ def main() -> int:
                   ("eval_record_tsne", ev_record["record_tsne"]),
                   ("eval_record_umap", ev_record["record_umap"])]
 
+    emit({"phase": "elapsed", "seconds": time.perf_counter() - started,
+          "limit": SMOKE_SECONDS_MAX})
     salw_runs = [(key, salw[key]) for key in ("rw_only",
                                               "new_walks_and_knn")]
     rep_main = rep_checks[1]            # the Pines KL's shape
@@ -4221,7 +4382,39 @@ def main() -> int:
                "windows": c.get("windows", 1), "ms": c["ms"],
                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                "bound_by": c["bound_by"], "sfu_floor_ms": c["sfu_floor_ms"]}
-              for c in (rep_scenes, rep_window))]}]})
+              for c in (rep_scenes, rep_window))]}, {
+        # the JAX package's XLA attraction (no pallas_call); its main path
+        # is the 1M grid run, packed, with one launch an iteration
+        "name": "tsne_attraction", "route": "cuda",
+        "source": "sph_tpu_torch/csrc/tsne_attraction.cu",
+        "replaces": "sph_tpu/models/tsne.py:128",
+        "launches": grid_att_launches,
+        "max_abs_err": max(c[m]["max_abs_err"] for c in att_checks
+                           for m in ("packed", "unpacked")),
+        "ms": att_checks[0]["packed"]["ms"],
+        "plain_ms": att_checks[0]["packed"]["plain_ms"],
+        "bound_ms": att_checks[0]["packed"]["bound_ms"],
+        "bound_by": att_checks[0]["packed"]["bound_by"],
+        "library_ms": None,
+        "shape": [att_checks[0]["rows"], att_checks[0]["width"]],
+        "launches_by_path": [
+            {"path": "large_grid", "n": n_large, "packed": True,
+             "launches": grid_att_launches},
+            {"path": "large_exact", "n": n_large,
+             "launches": large_launches["tsne_attraction"]},
+            *({"path": f"grid_vs_exact_{tier}", "n": mid["n"],
+               "packed": tier == "grid",
+               "launches": mid[tier]["launches"]["tsne_attraction"]}
+              for tier in ("grid", "exact")),
+            *({"path": f"sharded_{key}", "n": sh_n, "shards": int(name),
+               "launches": sh[key][name]["launches"]["tsne_attraction"]}
+              for key in ("tsne", "grid_tsne") for name in ("1", "2"))],
+        "at_shapes": [{
+            "path_shape": c["path_shape"], "shape": [c["rows"], c["width"]],
+            "packed": m == "packed", "ms": c[m]["ms"],
+            "plain_ms": c[m]["plain_ms"], "bound_ms": c[m]["bound_ms"],
+            "bound_by": c[m]["bound_by"], "max_abs_err": c[m]["max_abs_err"]}
+            for c in att_checks for m in ("unpacked", "packed")]}]})
     elapsed = time.perf_counter() - started
     if not elapsed <= SMOKE_SECONDS_MAX:
         raise AssertionError(f"chip_smoke took {elapsed} s, over "

@@ -26,14 +26,9 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=os.path.join(
-        REPO, "docs", "torch_port_pines_umap_reference.json"))
-    args = ap.parse_args()
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    sys.path.insert(0, REPO)
-    import jax
+def pines_level1():
+    """The Pines configuration's hierarchy with sph_tpu on JAX-CPU: (levels,
+    level 1's P, the components' mean spectra at level 1)."""
     import numpy as np
     import chip_smoke
     import sph_tpu as J
@@ -69,8 +64,22 @@ def main() -> int:
     levels = [int(c) for c in h.num_components]
     means = chip_smoke.component_means(np.asarray(data), h.pixel_components[1],
                                        levels[1])
-    p1 = ch.level_similarities.get_prob_dist(1)
+    return levels, ch.level_similarities.get_prob_dist(1), means
 
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=os.path.join(
+        REPO, "docs", "torch_port_pines_umap_reference.json"))
+    args = ap.parse_args()
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    sys.path.insert(0, REPO)
+    import jax
+    import numpy as np
+    import chip_smoke
+    import sph_tpu as J
+
+    levels, p1, means = pines_level1()
     runs = {}
     for name, env in (("defaults", {}),
                       ("unpacked", {"SPH_UMAP_PACKED": "0"}),

@@ -8,8 +8,9 @@ one NVIDIA H100, behind sph_tpu's public surface:
 
 The JAX package ``sph_tpu`` stays beside it as the reference each ported
 function is tested against.  This package imports torch and never jax.  Entry
-points take an explicit ``device`` (default CUDA; see device.py).  What is not
-ported yet raises ``NotImplementedError`` and is listed in ROADMAP.md.
+points take an explicit ``device`` (default CUDA; see device.py).  What the
+JAX package has and this one does not (XLA and TPU workarounds) is listed
+in ROADMAP.md.
 """
 
 from . import device as _device  # noqa: F401  (sets the float32 precision)

@@ -21,10 +21,11 @@ switches read at the same moment:
   from the layout's span once per dispatch chunk of
   ``DISPATCH_BUDGET // Npad`` iterations, where the JAX package picks it.
 
-The attraction always gathers both coordinates in float32.  The JAX
-package's grid tier packs them into u16 fixed point by default
-(``SPH_TSNE_ATTR_PACKED``, a TPU gather workaround and less exact); that
-gather is not ported, and an explicit ``SPH_TSNE_ATTR_PACKED=1`` raises.
+The attraction (``tsne_attraction``) reads the neighbours' positions in
+float32, or, packed, from a u16 fixed-point table over the layout's
+bounding box (ops/packing.py), as the JAX package does: ``SPH_TSNE_ATTR_
+PACKED`` "auto" (the default) packs on the grid tier only, "1" on every
+sparse tier, "0" never.  The KL always reads float32 positions.
 
 The kernels (ops/tsne_kernels.py) run on the card for a tensor there and
 their plain twins for one on the CPU.  The iterations are a Python loop of
@@ -43,9 +44,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.packing import pack_positions
 from ..ops.sparse import SparseRows, topk_rows
 from ..ops.tsne_grid import grid_repulsion, pick_grid_size
-from ..ops.tsne_kernels import tsne_forces_dense, tsne_repulsion
+from ..ops.tsne_kernels import (ATTR_FUSE_MAX, ATTR_PIECE,
+                                attraction_chunk, tsne_attraction,
+                                tsne_forces_dense, tsne_repulsion)
 from ..utils.logging import Log
 
 # defaults of the JAX package's environment switches
@@ -59,11 +63,6 @@ GRID_MAX = 1024          # SPH_TSNE_GRID_MAX
 # size is picked again
 DISPATCH_BUDGET = 1 << 24
 SPARSE_BLOCK = 512       # TsneComputation(block=512): the exact tier's padding
-# gathered entries over P's support up to which the attraction takes all
-# rows at once, and the size of each row piece above it (the JAX package's
-# _attractive_forces defaults)
-ATTR_FUSE_MAX = 1 << 25
-ATTR_PIECE = 1 << 23
 
 
 @dataclass
@@ -130,38 +129,34 @@ def _row_chunk(npts: int, width: int) -> int:
     """Rows per piece of a gather over P's support: all rows up to
     ATTR_FUSE_MAX entries, else pieces of about ATTR_PIECE entries.  The
     pieces bound memory and leave the result as it is."""
-    if npts * width <= ATTR_FUSE_MAX:
-        return max(npts, 1)
-    return min(max((ATTR_PIECE // width) // 8 * 8, 8), _ceil_to(npts, 8))
+    return attraction_chunk(npts, width, ATTR_FUSE_MAX, ATTR_PIECE)
 
 
-def _neighbor_diffs(y: torch.Tensor, p_idx: torch.Tensor, r0: int, r1: int,
-                    row0: int = 0):
+def _neighbor_diffs(y: torch.Tensor, p_idx: torch.Tensor, r0: int, r1: int):
     """(y_i - y_j) by coordinate and w = 1 / (1 + |y_i - y_j|^2) over P's
-    support for P rows r0..r1 (the points row0 + r0 .. row0 + r1 of y),
-    each [r1 - r0, R]."""
+    support for P rows r0..r1, each [r1 - r0, R]: the KL's float32 reads
+    (JAX: _neighbor_diffs)."""
     idx = torch.clamp(p_idx[r0:r1], min=0)
-    d0 = y[row0 + r0:row0 + r1, 0:1] - y[:, 0][idx]
-    d1 = y[row0 + r0:row0 + r1, 1:2] - y[:, 1][idx]
+    d0 = y[r0:r1, 0:1] - y[:, 0][idx]
+    d1 = y[r0:r1, 1:2] - y[:, 1][idx]
     return d0, d1, 1.0 / (1.0 + d0 * d0 + d1 * d1)
 
 
 def attractive_forces(y: torch.Tensor, p_idx: torch.Tensor,
-                      p_val: torch.Tensor, row0: int = 0) -> torch.Tensor:
-    """Sparse attraction sum_j p_ij w_ij (y_i - y_j) over P's support
-    (JAX: _attractive_forces, unpacked), in row pieces that bound the
-    gathered [rows, R] buffers.  P's rows are the points row0 .. row0 +
-    len(p_idx) of y (a row shard, whose column ids are global)."""
-    npts, width = p_idx.shape
-    out = torch.empty((npts, 2), dtype=torch.float32, device=y.device)
-    chunk = _row_chunk(npts, width)
-    for r0 in range(0, npts, chunk):
-        r1 = min(r0 + chunk, npts)
-        d0, d1, w = _neighbor_diffs(y, p_idx, r0, r1, row0)
-        coef = torch.where(p_idx[r0:r1] >= 0, p_val[r0:r1] * w, 0.0)
-        out[r0:r1, 0] = (coef * d0).sum(1)
-        out[r0:r1, 1] = (coef * d1).sum(1)
-    return out
+                      p_val: torch.Tensor, row0: int = 0,
+                      packed: bool = False) -> torch.Tensor:
+    """Sparse attraction sum_j p_ij w_ij (y_i - y_j) over P's support (JAX:
+    _attractive_forces): the ``tsne_attraction`` kernel, or its twin on
+    the CPU in row pieces that bound the gathered [rows, R] buffers.  P's
+    rows are the points row0 .. row0 + len(p_idx) of y (a row shard, whose
+    column ids are global); the kernel takes int32 ids.  packed=True reads
+    the neighbours from the u16 table of all of y's rows, pad rows
+    included, as the JAX package packs its padded layout."""
+    table = prm = None
+    if packed:
+        table, prm = pack_positions(y[:, 0], y[:, 1])
+    return tsne_attraction(y, p_idx, p_val, row0, table, prm,
+                           _row_chunk(*p_idx.shape))
 
 
 def repulsive_forces(y: torch.Tensor, n_valid: int, block: int = 1024):
@@ -304,10 +299,10 @@ class TsneComputation:
     def _init_gradient_descent(self):
         n = self._n
         tier = select_tier(n)
-        if os.environ.get("SPH_TSNE_ATTR_PACKED") == "1":
-            raise NotImplementedError(
-                "the u16-packed attraction gather is not ported; see ROADMAP")
         self.tier = tier
+        # the u16-packed neighbour gather: the grid tier's default
+        packed = os.environ.get("SPH_TSNE_ATTR_PACKED", "auto")
+        self.attr_packed = packed == "1" or (packed != "0" and tier == "grid")
         # bound the padded P width: one hub row otherwise sets the width of
         # every row; keep the largest-probability entries.  0 disables.
         cap = int(os.environ.get("SPH_TSNE_P_WIDTH_CAP", str(P_WIDTH_CAP)))
@@ -360,6 +355,8 @@ class TsneComputation:
                                   device=dev)
         self._p_idx[:n] = p.idx
         self._p_val[:n] = pv
+        # the attraction kernel's ids (the JAX package keeps P in int32)
+        self._p_idx32 = self._p_idx.to(torch.int32)
         self._p_dense = None
         if tier == "dense":
             live = self._p_idx >= 0
@@ -421,7 +418,8 @@ class TsneComputation:
         """(attraction, repulsion, Z) at the current layout, on the tier."""
         if self.tier == "dense":
             return tsne_forces_dense(self._y, self._p_dense, self._n)
-        attr = attractive_forces(self._y, self._p_idx, self._p_val)
+        attr = attractive_forces(self._y, self._p_idx32, self._p_val,
+                                 packed=self.attr_packed)
         if self.tier == "grid":
             return (attr, *grid_repulsion(self._y, self._n, self._grid))
         return (attr, *tsne_repulsion(self._y, self._n))

@@ -34,9 +34,13 @@ epochs-per-sample scheduling kept per edge.  Its three tiers are here:
   Two runs give the same bits on either.  The sharded UMAP
   (parallel/sharded.py) runs on this tier.
 
-The rows tier gathers positions in float32; the JAX package's default packs
-them into u16 fixed point (SPH_UMAP_PACKED, a TPU gather workaround), which
-is not ported: an explicit SPH_UMAP_PACKED=1 raises.
+The rows tier reads the neighbours' and the negatives' positions from a
+u16 fixed-point table of the layout (ops/packing.py), packed again after
+the attraction, as the JAX package's default does (SPH_UMAP_PACKED, read
+at each run_for_epochs call; "0" gathers float32).  The JAX package packs
+its layout padded with rows of 0 to a power of two (at least 64), so the
+table's bounding box takes in 0 exactly when that padding has rows.  The
+dense and edge tiers gather float32, as in the JAX package.
 
 The JAX package runs its epochs in fixed-length device programs whose
 epochs past the end are masked to no-ops (alpha 0, the schedule held);
@@ -55,7 +59,8 @@ import torch
 
 from ..device import resolve_device
 from ..ops import rng
-from ..ops.numerics import _fma, pow
+from ..ops.numerics import _fma, fused_row_sum, pow
+from ..ops.packing import pack_positions, unpack_positions
 from ..ops.sparse import SparseRows, symmetrize_umap
 from ..utils.logging import Log
 
@@ -305,9 +310,6 @@ class UmapComputation:
         as the JAX package does."""
         if edge_path is None:
             edge_path = os.environ.get("SPH_UMAP_EDGE_PATH") == "1"
-        if os.environ.get("SPH_UMAP_PACKED") == "1":
-            raise NotImplementedError(
-                "the u16-packed UMAP gather is not ported; see ROADMAP")
         m = self.memberships = self._memberships()
         m_idx, m_val = m.indices, m.values
         self._init_embedding(m_idx, m_val)
@@ -373,6 +375,8 @@ class UmapComputation:
             self._neg_budget = (
                 budget if budget < wpad * self.params.negative_sample_rate
                 else 0)
+            # the JAX package's layout has zero pad rows up to this count
+            self._pads = _next_pow2(n, lo=64) > n
         self._eps = torch.as_tensor(eps, device=dev)
         self._next_sample = self._eps.clone()
         self._y = torch.as_tensor(self._embedding, device=dev)
@@ -386,6 +390,7 @@ class UmapComputation:
         if not self._initialized:
             self.init_optimization()
         end = min(self.current_epoch + epochs, self.n_epochs)
+        self.packed = os.environ.get("SPH_UMAP_PACKED", "1") != "0"
         for epoch in range(self.current_epoch, end):
             if self._should_stop:
                 break
@@ -411,20 +416,25 @@ class UmapComputation:
         n, w = self._nbr.shape
         active = self._next_sample <= float(epoch)
         y0, y1 = self._y[:, 0], self._y[:, 1]
-        d0 = y0[:, None] - y0[self._nbr]
-        d1 = y1[:, None] - y1[self._nbr]
-        gc = _attract_coeff(d0 * d0 + d1 * d1, a, b)
-        # head update of (i, j) plus the tail update of its mirror (j, i)
-        att0 = 2.0 * torch.where(active, _clip4(gc * d0), 0.0).sum(1)
-        att1 = 2.0 * torch.where(active, _clip4(gc * d1), 0.0).sum(1)
-        y0m = y0 + alpha * att0
-        y1m = y1 + alpha * att1
+        n0, n1 = self._gather(y0, y1, self._nbr)
+        d0 = y0[:, None] - n0
+        d1 = y1[:, None] - n1
+        gc = _attract_coeff(_sq_len(d0, d1), a, b)
+        # head update of (i, j) plus the tail update of its mirror (j, i);
+        # on the CPU in XLA-CPU's arithmetic, so the positions the second
+        # gather packs are the JAX package's bit for bit
+        att0 = 2.0 * fused_row_sum(torch.where(active, _clip4(gc * d0),
+                                                0.0))
+        att1 = 2.0 * fused_row_sum(torch.where(active, _clip4(gc * d1),
+                                                0.0))
+        y0m = _fma(alpha, att0, y0)
+        y1m = _fma(alpha, att1, y1)
 
         draws = self._neg_budget or w * rate
         negs = rng.randint(rng.fold_in(self._key, epoch), (n, draws), 0, n,
                            self._y.device)
-        r0, r1 = _repel(y0m[:, None] - y0m[negs], y1m[:, None] - y1m[negs],
-                        a, b)
+        g0, g1 = self._gather(y0m, y1m, negs)
+        r0, r1 = _repel(y0m[:, None] - g0, y1m[:, None] - g1, a, b)
         rows = torch.arange(n, device=self._y.device)[:, None]
         if self._neg_budget:
             # a self draw adds nothing but counts as a draw
@@ -440,6 +450,15 @@ class UmapComputation:
         self._y = torch.stack([y0m + alpha * rep0, y1m + alpha * rep1], 1)
         self._next_sample = torch.where(active, self._next_sample + self._eps,
                                         self._next_sample)
+
+    def _gather(self, y0: torch.Tensor, y1: torch.Tensor, ids: torch.Tensor):
+        """Both coordinates at `ids` for the rows tier: from a u16 table of
+        (y0, y1) when packed (JAX: _pack_positions, _unpack_positions),
+        else in float32."""
+        if not self.packed:
+            return y0[ids], y1[ids]
+        table, prm = pack_positions(y0, y1, with_zero=self._pads)
+        return unpack_positions(table[ids], prm)
 
     def _edges_epoch(self, epoch: int):
         """One epoch of the edge-list tier (JAX: _epoch_update)."""

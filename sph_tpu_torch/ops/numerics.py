@@ -18,6 +18,11 @@ tensor gets the same bits as a CPU one.
   fused multiply-add, left to right, except over 5 to 8 terms, where it
   adds the rounded products left to right; over more than 32 it sums the
   rounded products as ``row_sum`` does.
+- ``fused_row_sum``: a row sum fused with its elementwise producer (UMAP's
+  rows tier).  Over 32 terms XLA-CPU vectorises it: eight running sums,
+  entry j into sum j mod 8, then the eight added as a tree (halves); over
+  at most 16 it adds left to right, and over more than
+  32 it sums windows as ``row_sum`` does (measured at 8, 16, 32 and 128).
 - ``cumsum``: XLA's cumulative sum runs left to right inside chunks of 16;
   the chunk totals are scanned the same way and added back.
 - ``np_row_sum``: numpy's own float32 row sum (``x.sum(axis=1)``), for
@@ -67,6 +72,20 @@ def row_sum(x: torch.Tensor, width: int = 0) -> torch.Tensor:
     xp = F.pad(x, (pad // 2, pad - pad // 2))
     return row_sum(_sum_left_to_right(
         xp.reshape(*x.shape[:-1], m, _SUM_WINDOW)))
+
+
+def fused_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """XLA-CPU's order for a row sum fused with its producer (see module
+    doc): at width 32 eight running sums, entry j into sum j mod 8, added
+    in halves; else ``row_sum``."""
+    if x.shape[-1] != _SUM_WINDOW:
+        return row_sum(x)
+    acc = _sum_left_to_right(x.reshape(*x.shape[:-1], -1, 8)
+                             .transpose(-1, -2))
+    while acc.shape[-1] > 1:
+        half = acc.shape[-1] // 2
+        acc = acc[..., :half] + acc[..., half:]
+    return acc[..., 0]
 
 
 def _pairwise_sum(x: torch.Tensor) -> torch.Tensor:

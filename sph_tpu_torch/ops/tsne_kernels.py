@@ -6,7 +6,14 @@ Replaces the two TPU kernels of sph_tpu/ops/pallas/tsne_kernels.py:
   repulsion over a dense joint P, every iteration of the dense-P tier;
 - ``tsne_repulsion`` (``csrc/tsne_repulsion.cu``): the exact all-pairs
   repulsion, every iteration of the exact sparse-P tier and the Z of the
-  KL divergence on the card.
+  KL divergence on the card;
+
+and the JAX package's XLA attraction over P's support
+(sph_tpu/models/tsne.py ``_attractive_forces``, no Pallas source):
+
+- ``tsne_attraction`` (``csrc/tsne_attraction.cu``): the sparse
+  attraction, float32 or from the u16-packed table, every iteration of the
+  grid and exact tiers and of the sharded steps.
 
 Each ``.cu`` under ``csrc/`` is compiled with nvcc for sm_90a into its own
 content-hashed shared library in ``_build/`` (all missing ones at once, one
@@ -41,6 +48,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "tsne_forces_dense": [_P, _P, _I, _I, _P, _P, _P, _P],
     "tsne_repulsion": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "tsne_attraction": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _P,
+                        _P],
 }
 KERNELS = tuple(_SIGNATURES)
 
@@ -393,3 +402,122 @@ def tsne_repulsion_reference(y: torch.Tensor, n_valid: int, rows=None,
             1).float()
         zrow[b0 - r0:b1 - r0] = w.sum(1, dtype=f64).float()
     return rep, zrow
+
+
+# ---------------------------------------------------------------------------
+# tsne_attraction
+# ---------------------------------------------------------------------------
+
+# gathered entries up to which the twin takes all rows at once, and the size
+# of each row piece above it (the JAX package's _attractive_forces defaults)
+ATTR_FUSE_MAX = 1 << 25
+ATTR_PIECE = 1 << 23
+
+
+def attraction_chunk(npts: int, width: int, fuse_max: int = ATTR_FUSE_MAX,
+                     piece: int = ATTR_PIECE) -> int:
+    """Rows a piece of the twin's gather: all rows up to `fuse_max`
+    entries, else pieces of about `piece` entries (a multiple of 8 rows).
+    The pieces bound memory and leave the result as it is."""
+    if npts * width <= fuse_max:
+        return max(npts, 1)
+    rows8 = -(-npts // 8) * 8
+    return min(max((piece // width) // 8 * 8, 8), rows8)
+
+
+def _check_attraction(y: torch.Tensor, p_idx: torch.Tensor,
+                      p_val: torch.Tensor, row0: int, table, prm):
+    name = "tsne_attraction"
+    _check_y(name, y, 0)
+    if p_idx.dim() != 2 or tuple(p_val.shape) != tuple(p_idx.shape):
+        raise ValueError(f"{name}: P ids {tuple(p_idx.shape)} and values "
+                         f"{tuple(p_val.shape)} must be one [rows, W] shape")
+    if p_idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{name}: P ids must be int32, got {p_idx.dtype}")
+    if p_val.dtype != torch.float32:
+        raise TypeError(f"{name}: P values must be float32, got "
+                        f"{p_val.dtype}")
+    if not 0 <= row0 <= y.shape[0] - p_idx.shape[0]:
+        raise ValueError(f"{name}: rows {row0} .. {row0 + p_idx.shape[0]} "
+                         f"outside y's {y.shape[0]}")
+    if (table is None) != (prm is None):
+        raise ValueError(f"{name}: a packed call takes both table and prm")
+    if table is not None:
+        if table.dtype != torch.int32 or tuple(table.shape) != (y.shape[0],):
+            raise ValueError(f"{name}: the table must be int32 [{y.shape[0]}]"
+                             f", got {table.dtype} {tuple(table.shape)}")
+        if prm.dtype != torch.float32 or prm.numel() != 4:
+            raise ValueError(f"{name}: prm must be float32 (lo0, s0, lo1, "
+                             "s1)")
+    devices = {t.device for t in (y, p_idx, p_val, table, prm)
+               if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: inputs lie on different devices "
+                         f"{sorted(map(str, devices))}")
+
+
+def tsne_attraction(y: torch.Tensor, p_idx: torch.Tensor,
+                    p_val: torch.Tensor, row0: int = 0, table=None,
+                    prm=None, chunk: int = 0) -> torch.Tensor:
+    """The sparse attraction sum_j p_ij w_ij (y_i - y_j) over P's support.
+
+    y [Npad, 2] float32; p_idx [rows, W] int32 (-1 pads) and p_val [rows, W]
+    float32 are the P rows of the points row0 .. row0 + rows of y (a row
+    shard, whose column ids are global) -> attr [rows, 2].  With table and
+    prm from ``ops.packing.pack_positions`` (over all of y's rows) the
+    neighbours' positions are read from the u16 table, as the JAX package's
+    packed gather reads them.  The kernel on a CUDA tensor (counted in
+    ``tsne_attraction.launches``); on a CPU one the twin, in row pieces of
+    `chunk` rows (0: ``attraction_chunk``).
+    """
+    row0 = int(row0)
+    _check_attraction(y, p_idx, p_val, row0, table, prm)
+    if y.device.type == "cpu":
+        return tsne_attraction_reference(y, p_idx, p_val, row0, table, prm,
+                                         chunk)
+    _check_kernel_device("tsne_attraction", y, p_idx, p_val,
+                         *((table, prm) if table is not None else ()))
+    if p_idx.dtype != torch.int32:
+        raise TypeError("tsne_attraction: the kernel takes int32 P ids (cast "
+                        "them once at set-up)")
+    rows, width = p_idx.shape
+    out = torch.empty((rows, 2), dtype=torch.float32, device=y.device)
+    _launch("tsne_attraction", y.device, y.data_ptr(),
+            None if table is None else table.data_ptr(),
+            None if prm is None else prm.data_ptr(), p_idx.data_ptr(),
+            p_val.data_ptr(), rows, width, row0, out.data_ptr())
+    tsne_attraction.launches += 1
+    return out
+
+
+tsne_attraction.launches = 0
+
+
+def tsne_attraction_reference(y: torch.Tensor, p_idx: torch.Tensor,
+                              p_val: torch.Tensor, row0: int = 0, table=None,
+                              prm=None, chunk: int = 0) -> torch.Tensor:
+    """The plain PyTorch twin of ``tsne_attraction`` (JAX:
+    ``_attractive_forces``, packed or not), on whatever device the tensors
+    lie, in row pieces that bound the gathered [rows, W] buffers."""
+    from .packing import unpack_positions
+    row0 = int(row0)
+    _check_attraction(y, p_idx, p_val, row0, table, prm)
+    npts, width = p_idx.shape
+    out = torch.empty((npts, 2), dtype=torch.float32, device=y.device)
+    chunk = chunk or attraction_chunk(npts, width)
+    for r0 in range(0, npts, chunk):
+        r1 = min(r0 + chunk, npts)
+        ids = p_idx[r0:r1]
+        safe = torch.clamp(ids, min=0)
+        if table is None:
+            n0, n1 = y[:, 0][safe], y[:, 1][safe]
+        else:
+            n0, n1 = unpack_positions(table[safe], prm)
+        d0 = y[row0 + r0:row0 + r1, 0:1] - n0
+        d1 = y[row0 + r0:row0 + r1, 1:2] - n1
+        w = 1.0 / (1.0 + d0 * d0 + d1 * d1)
+        coef = torch.where(ids >= 0, p_val[r0:r1] * w, 0.0)
+        out[r0:r1, 0] = (coef * d0).sum(1)
+        out[r0:r1, 1] = (coef * d1).sum(1)
+    return out
+

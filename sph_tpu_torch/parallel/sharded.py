@@ -180,7 +180,8 @@ def make_sharded_tsne_step(mesh: MeshLike = None):
 
     Returns step(y, vel, gain, p_idx, p_val, n_valid, params_vec, it) ->
     (y, vel, gain): each state argument a list of row shards on the mesh's
-    devices (``shard_rows``), P rows [shard, R] with global column ids.
+    devices (``shard_rows``), P rows [shard, R] with global column ids
+    (int32 on a card: ``tsne_attraction`` takes them so).
     The repulsion of a shard's rows is ``tsne_repulsion`` with that row
     window over the gathered y: the kernel on a card, its twin on the CPU.
     """
@@ -229,13 +230,13 @@ def _tsne_state(p_indices, p_values, m, seed: int, params):
     params.exaggeration_factor = default_exaggeration(n)
     y0 = np.zeros((npad, 2), np.float32)
     y0[:n] = random_disk_init(n, 0.1, seed)
-    pi = np.full((npad, r), -1, np.int64)
+    pi = np.full((npad, r), -1, np.int32)      # the attraction kernel's ids
     pv = np.zeros((npad, r), np.float32)
     pi[:n] = p_indices
     pv[:n] = p_values / max(p_values.sum(), 1e-12)
     y, vel, gain, pis, pvs = _shard_tensors(
         m, [y0, np.zeros_like(y0), np.ones_like(y0), pi, pv],
-        [torch.float32] * 3 + [torch.int64, torch.float32])
+        [torch.float32] * 3 + [torch.int32, torch.float32])
     return n, y0, y, vel, gain, pis, pvs, params_vector(params)
 
 
@@ -624,8 +625,12 @@ def _scene_probs(dist: torch.Tensor, norm) -> torch.Tensor:
     from ..settings import NormalizationScheme
     mask = torch.ones_like(dist, dtype=torch.bool)
     if norm == NormalizationScheme.TSNE:
+        # the JAX function does not bucket its k columns: above 32 XLA sums
+        # them in its windows over k, at or below 32 in one fused chain (the
+        # bucketed width 32 gives that chain)
         return gaussian_row_distributions(dist, mask, -1.0,
-                                          ignore_first=True)
+                                          ignore_first=True,
+                                          sum_width=max(dist.shape[1], 32))
     m2 = mask.clone()
     m2[:, 0] = False
     if norm == NormalizationScheme.LINEAR:

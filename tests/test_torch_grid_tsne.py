@@ -3,9 +3,9 @@
 ``grid_repulsion`` (taps, scatter-add, FFT, gather) against the JAX
 package's dense Lagrange-matmul form and against the exact repulsion; the
 grid tier step by step and over 1000 iterations with the grid size picked
-again at the JAX package's dispatch boundaries.  The JAX side runs its grid
-tier with the float32 attraction gather (``SPH_TSNE_ATTR_PACKED=0``), the
-only one the port has.
+again at the JAX package's dispatch boundaries.  Both packages run the grid
+tier with the float32 attraction gather (``SPH_TSNE_ATTR_PACKED=0``); the
+packed default is held in tests/test_torch_packed.py.
 """
 
 import numpy as np
@@ -43,7 +43,7 @@ def one_torch_thread():
 
 @pytest.fixture
 def grid_env(monkeypatch):
-    """Both packages on the grid tier, the JAX one with unpacked gathers."""
+    """Both packages on the grid tier with unpacked gathers."""
     for name in TSNE_ENV:
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv("SPH_TSNE_GRID", "1")
@@ -244,11 +244,23 @@ def test_grid_tier_1000_iterations_with_grid_repicks(grid_env, monkeypatch):
 
 
 def test_packed_gather_is_not_ported(grid_env):
+    """Named when the packed gather raised; it is ported since.  With
+    SPH_TSNE_ATTR_PACKED=1 the grid tier reads the neighbours from the u16
+    table: five steps, the port taking the JAX state before each, each
+    within 1e-5 of the scale (the step test's bound above)."""
     grid_env.setenv("SPH_TSNE_ATTR_PACKED", "1")
-    tt = ttsne.TsneComputation(device="cpu")
-    tt.set_neighbor_graph(*_scene_graph(8, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.compute(1)
+    tj, tt = _pair(_scene_graph(16, 16))
+    assert tj._attr_packed and tt.attr_packed
+    for _ in range(5):
+        s = tj._state
+        tt._y = torch.tensor(np.array(s.embedding))
+        tt._vel = torch.tensor(np.array(s.velocity))
+        tt._gain = torch.tensor(np.array(s.gain))
+        tt._iteration = s.iteration
+        tt.continue_gradient_descent(1)
+        tj.continue_gradient_descent(1)
+        ref = np.asarray(tj._state.embedding)
+        assert np.abs(tt._y.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
 # ---------------------------------------------------------------------------

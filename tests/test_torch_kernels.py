@@ -112,11 +112,17 @@ def test_forces_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_kernel_source_notes_the_tpu_kernel_it_replaces():
-    assert tsne_kernels.KERNELS == ("tsne_forces_dense", "tsne_repulsion")
+    """Each source names what it replaces: the two Pallas kernels, and for
+    tsne_attraction the JAX package's XLA attraction."""
+    replaces = {"tsne_forces_dense": "sph_tpu/ops/pallas/tsne_kernels.py",
+                "tsne_repulsion": "sph_tpu/ops/pallas/tsne_kernels.py",
+                "tsne_attraction":
+                    "sph_tpu/models/tsne.py::_attractive_forces"}
+    assert tsne_kernels.KERNELS == tuple(replaces)
     for name in tsne_kernels.KERNELS:
         with open(tsne_kernels.source(name)) as f:
             src = f.read()
-        assert "sph_tpu/ops/pallas/tsne_kernels.py" in src and name in src
+        assert replaces[name] in src and name in src
         assert f'extern "C" int {name}_launch' in src
         # one library per kernel and source content
         assert os.path.basename(tsne_kernels.library_path(name)).startswith(

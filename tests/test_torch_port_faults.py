@@ -16,6 +16,12 @@ test (ROADMAP queue 3, items 17-20).
 20. The exact NEIGH_OVERLAP kNN builds no [C, N] membership matrix: its
     largest allocation stays within its block budget, and its ids and
     distances equal the JAX package's at every budget.
+22. multi_scene_stage1's TSNE probabilities sum each row over its own k
+    entries, as the JAX function (which does not bucket) does: above 32
+    neighbours the bucketed width (128 at k = 91) moved XLA's summation
+    windows, the perplexity search parted in the last bits, and the walk
+    draws with it (multi_scene's walk rows drifted from the JAX-CPU
+    record).
 """
 
 import functools
@@ -204,3 +210,27 @@ def test_exact_overlap_knn_within_its_block_budget(monkeypatch):
         assert largest[0] <= n * block
         if budget < tck.OVERLAP_MEMORY_BUDGET:
             assert block < c and 4 * n * block <= budget
+
+
+# ---- 22 -------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [32, 40, 91])
+def test_multi_scene_probabilities_sum_over_k(k):
+    """At 32 neighbours (one fused chain) and above (XLA's windows over k,
+    Pines' k = 91): the kNN, the probabilities and the CONSTANT-weight walk
+    rows bit-equal to the JAX function's."""
+    from sph_tpu.parallel import sharded as jsh
+    from sph_tpu_torch.parallel import sharded as tsh
+    datas = np.stack([create_checker_image(
+        12, 12, channels=6, block=3, noise=0.05, seed=200 + i).reshape(144, 6)
+        for i in range(2)]).astype(np.float32)
+    want = jsh.multi_scene_stage1(datas, k, rws=J.RandomWalkSettings(
+        num_random_walks=10, single_walk_length=5, random_seed=3,
+        importance_weighting=J.ImportanceWeighting.CONSTANT),
+        norm=J.NormalizationScheme.TSNE)
+    got = tsh.multi_scene_stage1(datas, k, rws=T.RandomWalkSettings(
+        num_random_walks=10, single_walk_length=5, random_seed=3,
+        importance_weighting=T.ImportanceWeighting.CONSTANT),
+        norm=T.NormalizationScheme.TSNE, mesh=[torch.device("cpu")])
+    for key in ("idx", "probs", "walks_idx", "walks_val"):
+        assert np.array_equal(got[key], np.asarray(want[key])), key

@@ -43,7 +43,8 @@ def test_large_path_runs_the_exact_tier_and_cuts_p(small_path):
     assert set(small_path["seconds"]) == {"data", "knn", "p_and_set_up",
                                           "tsne", "kl"}
     assert small_path["launches"] == {"tsne_forces_dense": 0,
-                                      "tsne_repulsion": 0}   # CPU: twins
+                                      "tsne_repulsion": 0,
+                                      "tsne_attraction": 0}  # CPU: twins
     assert small_path["emb"].shape == (1200, 2)
     assert np.all(np.isfinite(small_path["emb"]))
 
@@ -120,8 +121,10 @@ def test_grid_path_takes_the_default_grid_tier_and_its_kls(
     out = chip_smoke.grid_path(tsne_kernels, graph, 60, kl_at=(0, 50))
     comp = out["ce"].last_computation
     assert comp.tier == "grid" and sorted(out["kls"]) == [0, 50, 60]
+    assert comp.attr_packed                   # the default: the u16 table
     assert out["kls"][60] < out["kls"][0]
-    assert out["launches"] == {"tsne_forces_dense": 0, "tsne_repulsion": 0}
+    assert out["launches"] == {"tsne_forces_dense": 0, "tsne_repulsion": 0,
+                               "tsne_attraction": 0}
     assert chip_smoke.grid_sizes(comp.grid_history) == [[0, 128]]
     gap = chip_smoke.z_gap(comp)
     assert gap["z_rel_gap"] <= chip_smoke.Z_GAP_MAX
@@ -333,7 +336,8 @@ def test_scene_overlap_phase_small(monkeypatch):
     assert out["tsne_tier"] == "dense" and sorted(out["kl_at"]) == [
         "0", "100", "50"]
     assert out["kl_at"]["100"] < out["kl_at"]["0"]
-    assert out["launches"] == {"tsne_forces_dense": 0, "tsne_repulsion": 0}
+    assert out["launches"] == {"tsne_forces_dense": 0, "tsne_repulsion": 0,
+                               "tsne_attraction": 0}
 
 
 def test_reference_kth_distances_equal_the_exact_kernel():
@@ -413,7 +417,8 @@ def test_salinas_euclid_phase_small(small_salinas):
         assert run["embedding_finite"] and sorted(run["kl_at"]) == ["0", "100"]
         assert out["p"][level]["p_asymmetry"] == 0
         assert out["p"][level]["conditional_row_sum_err"] <= 1e-3
-    assert out["launches"] == {"tsne_forces_dense": 0, "tsne_repulsion": 0}
+    assert out["launches"] == {"tsne_forces_dense": 0, "tsne_repulsion": 0,
+                               "tsne_attraction": 0}
     assert out["umap"]["n"] == levels[1] and out["umap"]["embedding_finite"]
     assert set(out["seconds"]) >= {"stage1_knn", "stage2_hierarchy",
                                    "stage3_level_similarities"}

@@ -71,7 +71,8 @@ def test_rgb_geo_phase_small(small_geo):
         assert run["embedding_finite"]
         assert sorted(run["kl_at"]) == ["0", str(ITERS)]
         assert out["p"][level]["conditional_row_sum_err"] <= 1e-3
-    assert out["launches"] == {"tsne_forces_dense": 0, "tsne_repulsion": 0}
+    assert out["launches"] == {"tsne_forces_dense": 0, "tsne_repulsion": 0,
+                               "tsne_attraction": 0}
     assert out["peak_memory_bytes"]["stage1_knn"] == "not measured"
 
 

@@ -70,8 +70,15 @@ def small(tmp_path_factory):
             tsne_kernels.tsne_repulsion.launches += 1
             return rep_twin(*a, **kw)
 
+        attraction_fn = sharded.attractive_forces
+
+        def attraction(*a, **kw):
+            tsne_kernels.tsne_attraction.launches += 1
+            return attraction_fn(*a, **kw)
+
         mp.setattr(sharded, "tsne_repulsion_rows", rows)
         mp.setattr(ttsne, "repulsive_forces", repulsion)
+        mp.setattr(sharded, "attractive_forces", attraction)
         ms = chip_smoke.multi_scene(
             tsne_kernels, ref["full"], shape=FULL, scenes=SCENES, k=K,
             iters=100, serial=2)

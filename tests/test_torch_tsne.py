@@ -129,9 +129,10 @@ def test_compute_embedding_chunks_and_kl():
 def test_unported_tiers_raise(monkeypatch):
     """A kNN graph is taken; above 32768 points the default tier is the
     grid, SPH_TSNE_GRID=0 takes the exact tier, and compute_umap runs (the
-    grid tier and UMAP raised until they were ported).  What still raises:
-    the u16-packed gathers; the UMAP edge-list tier runs since it was
-    ported."""
+    grid tier and UMAP raised until they were ported).  The u16-packed
+    gathers and the UMAP edge-list tier, which raised too, run since they
+    were ported: the grid tier packs by default, the exact tier when
+    SPH_TSNE_ATTR_PACKED=1, and SPH_UMAP_PACKED=1 packs the rows tier."""
     for name in ("SPH_TSNE_GRID", "SPH_TSNE_DENSE_P", "SPH_TSNE_GRID_MIN",
                  "SPH_TSNE_DENSE_P_MAX", "SPH_TSNE_ATTR_PACKED",
                  "SPH_UMAP_EDGE_PATH", "SPH_UMAP_PACKED"):
@@ -147,13 +148,16 @@ def test_unported_tiers_raise(monkeypatch):
                        ttsne.DENSE_P_MAX + 1, device="cpu")
     tt.set_probability_distribution(big)
     tt._init_gradient_descent()
-    assert tt.tier == "grid"
+    assert tt.tier == "grid" and tt.attr_packed
     monkeypatch.setenv("SPH_TSNE_GRID", "0")
     tt._init_gradient_descent()
-    assert tt.tier == "exact"
+    assert tt.tier == "exact" and not tt.attr_packed
     monkeypatch.setenv("SPH_TSNE_ATTR_PACKED", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt._init_gradient_descent()
+    tt._init_gradient_descent()
+    assert tt.tier == "exact" and tt.attr_packed
+    attr = ttsne.attractive_forces(tt._y, tt._p_idx32, tt._p_val,
+                                   packed=True)
+    assert attr.shape == tt._y.shape and bool(torch.isfinite(attr).all())
     p = _joint_p(n=40, k=6)
     small = T.SparseRows(p.indices, p.values, 40, device="cpu")
     es = T.ComputeEmbeddingSettings()
@@ -166,6 +170,10 @@ def test_unported_tiers_raise(monkeypatch):
     assert ce.last_computation.tier == "edges"
     monkeypatch.delenv("SPH_UMAP_EDGE_PATH")
     monkeypatch.setenv("SPH_UMAP_PACKED", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.ComputeEmbedding(es, device="cpu").compute_umap(small)
+    monkeypatch.setenv("SPH_UMAP_DENSE_MAX", "10")
+    ce = T.ComputeEmbedding(es, device="cpu")
+    emb = ce.compute_umap(small)
+    assert ce.last_computation.tier == "rows" and ce.last_computation.packed
+    assert emb.shape == (40, 2) and np.all(np.isfinite(emb))
     monkeypatch.delenv("SPH_UMAP_PACKED")
+    monkeypatch.delenv("SPH_UMAP_DENSE_MAX")

@@ -4,8 +4,9 @@ jax's threefry split and randint (the rows tier's negatives), the smooth-knn
 memberships, the fuzzy union, and the dense and rows optimizer tiers epoch
 by epoch (the port takes the JAX state before each epoch: free-running SGD
 trajectories part within a few epochs), then ComputeEmbedding.compute_umap
-end to end on the 8x8 fingerprint scene.  The JAX side runs its rows tier
-with float32 gathers (SPH_UMAP_PACKED=0), the only ones the port has.
+end to end on the 8x8 fingerprint scene.  Both packages run the rows tier
+with float32 gathers (SPH_UMAP_PACKED=0); the packed default is held in
+tests/test_torch_packed.py.
 """
 
 import numpy as np
@@ -237,8 +238,11 @@ def test_ab_epochs_and_schedule_match():
 @pytest.mark.parametrize("env", [{"SPH_UMAP_EDGE_PATH": "1"},
                                  {"SPH_UMAP_PACKED": "1"}])
 def test_unported_umap_paths_raise(umap_env, blobs, env):
-    """The u16-packed gather raises; the edge-list tier, ported since,
-    runs when SPH_UMAP_EDGE_PATH=1 asks for it."""
+    """Named when both raised; both are ported since.  The edge-list tier
+    runs when SPH_UMAP_EDGE_PATH=1 asks for it; SPH_UMAP_PACKED=1 packs
+    the rows tier's gathers, and three epochs from the same layout end
+    within 5e-5 of the scale of the JAX package's packed ones
+    (tests/test_torch_packed.py holds them epoch by epoch)."""
     for name, value in env.items():
         umap_env.setenv(name, value)
     u = tumap.UmapComputation(device="cpu")
@@ -248,8 +252,19 @@ def test_unported_umap_paths_raise(umap_env, blobs, env):
         u.compute()
         assert u.tier == "edges" and np.all(np.isfinite(u.embedding))
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        u.compute()
+    umap_env.setenv("SPH_UMAP_DENSE_MAX", "100")
+    init = (np.random.default_rng(5).standard_normal((600, 2))
+            * 10).astype(np.float32)
+    uj = jumap.UmapComputation(jumap.UmapParameters(num_epochs=200, seed=3))
+    u.params = tumap.UmapParameters(num_epochs=200, seed=3)
+    for c in (uj, u):
+        c.set_neighbor_graph(*blobs[1:])
+        c.set_initial_embedding(init)
+        c.init_optimization()
+        c.run_for_epochs(3)
+    assert u.tier == "rows" and u.packed
+    want = np.asarray(uj._y)[:600]
+    assert np.abs(u.embedding - want).max() <= 5e-5 * np.abs(want).max()
 
 
 def _fingerprint(pkg, size=8, norm=None, **kw):
