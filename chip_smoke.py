@@ -12,7 +12,9 @@ Phases, each printing one JSON line, and each raising on failure:
    sph_tpu_torch/native/graphops.cpp.
 3. kernel_vs_twin — each kernel against its plain PyTorch twin on the card
    at the paths' shapes, with the time per call of both (CUDA events):
-   tsne_forces_dense at the Pines level-1 shapes, tsne_repulsion at
+   tsne_forces_dense's reciprocal against IEEE 1 / x on every float32 in
+   [1, 2^126), the kernel at FORCES_SHAPES (Npad 512 to 28672; Z from the
+   kernel, two calls bit-equal, pad rows 0), tsne_repulsion at
    (n, Npad) = (1000, 1024), (5358, 6144) (the Pines KL's), (21025, 21504)
    (a Pines-sized scene, one of multi_scene's 16) and
    (65536, 65536) in full and at (1000000, 1000448) on 4096 sampled rows,
@@ -156,8 +158,11 @@ Phases, each printing one JSON line, and each raising on failure:
    every level (500 epochs at level 0, 175 from the level below after
    that): the maps against the record's second entry as above, the levels
    without UMAP memberships exactly the record's (where the JAX package's
-   UMAP raises; the port keeps their starting layout), every membership in
-   (0, 1], finite layouts, level 1's trustworthiness at k = 10.
+   UMAP raises; the port keeps their starting layout), level 0's
+   memberships exactly the record's count (the fuzzy union of a
+   device-resident P takes the JAX package's device path, its reverse
+   cap included), every membership in (0, 1], finite layouts, level 1's
+   trustworthiness at k = 10.
 19. eval_record — both grids through run_evaluation at 64x64x200, where
    JAX-CPU runs the whole grid: the maps as above, each level of at least
    100 components with its t-SNE KL within 1 % of the record's, the UMAP
@@ -230,6 +235,8 @@ import subprocess
 import sys
 import time
 
+_STARTED = time.perf_counter()
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 KL_SLACK = 1.01            # bench.py:344-360: KL <= 1.01 x sklearn anchor
 LEVEL1_TOLERANCE = 0.02    # level-1 count within 2 % of the JAX record
@@ -252,8 +259,8 @@ KL_RATIO_MAX = 1.001       # 65536 points: KL_grid / KL_exact
 REPULSION_SHAPES = ((1000, 1024, 200, 100, False),
                     (5358, 6144, 200, 20, False),
                     (21025, 21504, 200, 20, False),
-                    (65536, 65536, 100, 5, False),
-                    (1_000_000, 1_000_448, 20, 0, True))
+                    (65536, 65536, 100, 2, False),
+                    (1_000_000, 1_000_448, 5, 0, True))
 UMAP_TRUST_SLACK = 0.99    # Pines UMAP trustworthiness vs the JAX-CPU record
 IVF_N = 1_000_000          # ivf_recall: bench_recall.py's clustered data
 # recall@16 gates of the approximate tiers on that data: the JAX package's
@@ -329,6 +336,12 @@ FP32_FLOPS_PER_S = 67e12
 # multiply-adds 4 -> 20
 REPULSION_FLOPS_PER_PAIR = 14
 FORCES_FLOPS_PER_PAIR = 20
+# tsne_forces_dense's own shapes in kernel_vs_twin, (n, Npad): the driver's
+# small levels (launch-bound), a walk variant's level 1, rgb_geo's level 2,
+# the Pines main path's level 1, the driver's Pines level 0 and
+# salinas_walks' level 1
+FORCES_SHAPES = ((402, 512), (1286, 2048), (3306, 4096), (5284, 6144),
+                 (21025, 21504), (28548, 28672))
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -341,9 +354,12 @@ def bound(nbytes: float, flops: float) -> dict:
 
 
 def forces_bound(n: int, npad: int) -> dict:
-    """tsne_forces_dense: P [npad, npad] and y read once, attr, rep and the
-    row Z written once; n^2 pairs."""
-    return bound(4 * npad * npad + 8 * npad + 4 * 5 * npad,
+    """tsne_forces_dense: the n x n block of P that the function reads
+    (rows and columns past n are pads it does not need) and y's n rows
+    read once, attr and rep [npad, 2] and Z written once; n^2 pairs.
+    The kernel's own workspace (the column splits' partial sums) is not
+    counted: it is not an input or an output of the function."""
+    return bound(4 * n * n + 8 * n + 16 * npad + 4,
                  FORCES_FLOPS_PER_PAIR * n * n)
 
 
@@ -363,6 +379,29 @@ def attraction_bound(rows: int, width: int, npad: int, live: int,
                  (16 if packed else 12) * live)
 
 
+def grid_repulsion_bound(n: int, npad: int, grid: int) -> dict:
+    """The grid tier's repulsion (ops/tsne_grid.py) at n points on a
+    grid x grid grid, each stage's inputs read once and outputs written
+    once: the deposit reads y (8 bytes a point) and writes the [3, G, G]
+    charges; the FFT convolution reads them and writes the [4, G, G]
+    fields; the interpolation reads the fields and y and writes rep
+    [npad, 2] and Z.  Operations: nine real 2-D FFTs of [2G, 2G] (three
+    forward of the charges, two of the kernels, four inverse) at 2.5 m
+    log2 m flops each for m = 4 G^2, the spectral products (6 flops a
+    complex product, four [2G, G + 1] of them), and about 300 flops a
+    point for the taps' weights, the 48 deposit and 80 interpolation
+    multiply-adds."""
+    import math
+    g2 = grid * grid
+    nbytes = (8 * n + 12 * g2) + (12 * g2 + 16 * g2) + (16 * g2 + 8 * n
+                                                        + 8 * npad + 4)
+    m = 4 * g2
+    flops = (9 * 2.5 * m * math.log2(m) + 6 * 4 * (2 * grid) * (grid + 1)
+             + 300 * n)
+    return {**bound(nbytes, flops), "bytes": nbytes, "flops": flops,
+            "grid": grid}
+
+
 def sfu_floor_ms(n: int, sms: int, clock_hz: float) -> float:
     """tsne_repulsion's floor beside its operations bound: its reciprocals,
     one a pair, at 16 a clock on each of `sms` SMs at `clock_hz`."""
@@ -376,6 +415,11 @@ def sync() -> None:
 
 
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line also says when it was written, in
+    seconds since the script started (``t_s``), so that a slow run shows
+    which phases took the time."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _STARTED}
     print(json.dumps(obj), flush=True)
 
 
@@ -413,55 +457,77 @@ def cuda_ms(fn, calls: int, warmup: int = 10) -> float:
 
 
 def random_joint_p(n: int, npad: int, seed: int):
-    """A seeded sparse symmetric joint P (about 90 neighbors a row), zero
-    diagonal and pads, summing to 1."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    rows = np.repeat(np.arange(n), 45)
-    cols = rng.integers(0, n, rows.size)
-    vals = rng.random(rows.size).astype(np.float32)
-    p = np.zeros((npad, npad), np.float32)
-    np.add.at(p, (rows, cols), vals)
-    p[:n, :n] += p[:n, :n].T.copy()
-    np.fill_diagonal(p, 0.0)
+    """A seeded sparse symmetric joint P (about 90 neighbours a row), zero
+    diagonal and pads, summing to 1, and a layout with pad rows 0, both
+    made on DEV from a torch generator (a numpy P of 28672^2 would take
+    seconds to build and copy)."""
+    import torch
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    rows = torch.arange(n, device=DEV).repeat_interleave(45)
+    cols = torch.randint(0, n, (rows.numel(),), generator=g, device=DEV)
+    vals = torch.rand(rows.numel(), generator=g, device=DEV)
+    p = torch.zeros((npad, npad), dtype=torch.float32, device=DEV)
+    p.index_put_((rows, cols), vals, accumulate=True)
+    p[:n, :n] += p[:n, :n].T.clone()
+    p.fill_diagonal_(0.0)
     p /= p.sum()
-    y = np.zeros((npad, 2), np.float32)
-    y[:n] = rng.standard_normal((n, 2)).astype(np.float32) * 5.0
+    y = torch.zeros((npad, 2), dtype=torch.float32, device=DEV)
+    y[:n] = torch.randn((n, 2), generator=g, device=DEV) * 5.0
     return y, p
 
 
-def check_forces_kernel(n: int, npad: int, seed: int, calls: int = 200
-                        ) -> dict:
-    """tsne_forces_dense against its twin, each timed over `calls` calls,
-    with the bound of the shape; raises on disagreement."""
+def forces_checks(got, again, ref, n: int, name: str) -> dict:
+    """A tsne_forces_dense result against its twin's: Z within 1e-5 of the
+    twin's, relative; attr and rep within 1e-5 x max|twin|; pad rows 0;
+    two calls bit-equal.  Raises on any; returns the largest error."""
     import torch
-    from sph_tpu_torch.ops.tsne_kernels import (tsne_forces_dense,
-                                                tsne_forces_dense_reference)
-    y_np, p_np = random_joint_p(n, npad, seed)
-    y = torch.from_numpy(y_np).cuda()
-    p = torch.from_numpy(p_np).cuda()
-    attr, rep, z = tsne_forces_dense(y, p, n)
-    attr_r, rep_r, z_r = tsne_forces_dense_reference(y, p, n)
-    torch.cuda.synchronize()
-    z, z_r = float(z), float(z_r)
+    z, z_r = float(got[2]), float(ref[2])
     if not abs(z - z_r) <= 1e-5 * abs(z_r):
-        raise AssertionError(f"tsne_forces_dense n={n}: Z {z} vs twin {z_r}")
+        raise AssertionError(f"{name} n={n}: Z {z} vs twin {z_r}")
     err = 0.0
-    for name, got, ref in (("attr", attr, attr_r), ("rep", rep, rep_r)):
-        scale = float(ref.abs().max())
-        e = float((got - ref).abs().max())
+    for label, g, r in (("attr", got[0], ref[0]), ("rep", got[1], ref[1])):
+        scale = float(r.abs().max())
+        e = float((g - r).abs().max())
         if not e <= 1e-5 * scale:
-            raise AssertionError(f"tsne_forces_dense n={n}: {name} max "
-                                 f"error {e} > 1e-5 x {scale}")
-        if bool((got[n:] != 0).any()):
-            raise AssertionError(f"tsne_forces_dense n={n}: {name} pad rows "
-                                 "are not 0")
+            raise AssertionError(f"{name} n={n}: {label} max error {e} > "
+                                 f"1e-5 x {scale}")
+        if bool((g[n:] != 0).any()):
+            raise AssertionError(f"{name} n={n}: {label} pad rows are not 0")
         err = max(err, e)
-    ms = cuda_ms(lambda: tsne_forces_dense(y, p, n), calls)
-    plain_ms = cuda_ms(lambda: tsne_forces_dense_reference(y, p, n), calls)
-    return {"n": n, "npad": npad, "max_abs_err": err,
-            "z_rel_err": abs(z - z_r) / abs(z_r), "ms": ms,
-            "plain_ms": plain_ms, "calls_timed": calls,
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name} n={n}: two calls differ")
+    return {"max_abs_err": err, "z_rel_err": abs(z - z_r) / abs(z_r),
+            "bits_equal_two_calls": True}
+
+
+def check_forces_kernel(n: int, npad: int, seed: int, calls: int = 200,
+                        plain_calls: int = 0) -> dict:
+    """tsne_forces_dense against its twin (``forces_checks``), Z from the
+    kernel; ms a call of the kernel into caller-owned buffers, as the dense
+    tier calls it (back-to-back calls: the host's cost shows where it is the
+    larger), and of the twin over `plain_calls` calls (up to 20 to Npad
+    8192, else 5), with the shape's bound and the launch plan."""
+    from sph_tpu_torch.ops.tsne_kernels import (DenseForces,
+                                                tsne_forces_dense,
+                                                tsne_forces_dense_reference)
+    y, p = random_joint_p(n, npad, seed)
+    bufs = (DenseForces(npad, y.device), DenseForces(npad, y.device))
+    got = tsne_forces_dense(y, p, n, out=bufs[0])
+    again = tsne_forces_dense(y, p, n, out=bufs[1])
+    ref = tsne_forces_dense_reference(y, p, n)
+    sync()
+    out = {"n": n, "npad": npad, **forces_checks(got, again, ref, n,
+                                                 "tsne_forces_dense")}
+    plain_calls = plain_calls or (min(calls, 20) if npad <= 8192 else 5)
+    ms = cuda_ms(lambda: tsne_forces_dense(y, p, n, out=bufs[0]), calls)
+    plain_ms = cuda_ms(lambda: tsne_forces_dense_reference(y, p, n),
+                       plain_calls, warmup=min(10, plain_calls))
+    plan = bufs[0].plan
+    return {**out, "ms": ms, "plain_ms": plain_ms, "calls_timed": calls,
+            "plain_calls_timed": plain_calls,
+            "plan": {"tiles": plan.tiles, "splits": plan.splits,
+                     "split_cols": plan.split_cols, "blocks": plan.blocks},
             **forces_bound(n, npad)}
 
 
@@ -705,10 +771,67 @@ def p_checks(p, idx, dist, perplexity: float) -> dict:
     return {**out, "conditional_row_sum_err": worst}
 
 
-def p_mirror_checks(p) -> dict:
+def keeping_conditional_rows(ch, level: int, kept: dict):
+    """Stage 3 of `ch` (compute_level_similarities), with a copy of the
+    level's conditional rows, taken just before they are symmetrized, in
+    kept[level] (for ``shed_reverse_keys``)."""
+    ls = ch.level_similarities
+    symmetrize = ls.symmetrize_output
+
+    def keep_then_symmetrize(method):
+        if ls.prob_dists[level] is not None:
+            kept[level] = ls.prob_dists[level].copy()
+        symmetrize(method)
+
+    ls.symmetrize_output = keep_then_symmetrize
+    try:
+        ch.compute_level_similarities()
+    finally:
+        del ls.symmetrize_output
+
+
+def shed_reverse_keys(cond):
+    """The reverse entries that the JAX package's device path
+    (ops/sparse.symmetrize_device_path) sheds when it symmetrizes the
+    conditional rows `cond`, worked out here on the host: the rows first
+    cut to SPH_SYM_P_WIDTH_CAP by value where the matrix passes
+    SPH_SYM_FLAT_BUDGET elements (t-SNE renormalizes them), then each
+    entry (i, j, v) goes to row j as a reverse entry, and row j keeps its
+    ``reverse_width`` largest (ties to the lower i).  Returns the sorted
+    keys j * n + i of the P entries (j, i) that lost i's reverse value."""
+    import numpy as np
+    import torch
+    from sph_tpu_torch.ops.sparse import (normalize_rows, reverse_width,
+                                          topk_rows)
+    n = cond.num_rows
+    budget = int(os.environ.get("SPH_SYM_FLAT_BUDGET", str(48 * 2**20)))
+    wcap = int(os.environ.get("SPH_SYM_P_WIDTH_CAP", "256"))
+    if 0 < wcap < cond.width and n * cond.width > budget:
+        cond = normalize_rows(topk_rows(cond, wcap))
+    idx, val = cond.indices, cond.values
+    live = (idx >= 0) & (val != 0)
+    rows = np.broadcast_to(np.arange(n)[:, None], idx.shape)[live]
+    cols, vals = idx[live].astype(np.int64), val[live]
+    in_degree = np.bincount(cols, minlength=n)
+    wrev = reverse_width(n, cond.width,
+                         int(in_degree.max()) if cols.size else 0)
+    order = np.lexsort((rows, -vals, cols))     # by column, value, row
+    starts = np.cumsum(in_degree) - in_degree
+    rank = np.empty(cols.size, np.int64)
+    rank[order] = np.arange(cols.size) - starts[cols[order]]
+    shed = rank >= wrev
+    keys = np.sort(cols[shed] * n + rows[shed])
+    return torch.as_tensor(keys)
+
+
+def p_mirror_checks(p, shed_keys=None) -> dict:
     """A joint P as t-SNE holds it: every entry's mirror is there with the
     same value, unless the mirror's row is a full (capped) row; its nnz,
-    width, cut rows and mass a row."""
+    width, cut rows and mass a row.  shed_keys: for a P symmetrized on the
+    JAX package's device path, the entries that lost their reverse value
+    there (``shed_reverse_keys``): a pair one of whose two entries is
+    among them may lack its mirror or differ from it; every other pair,
+    hub rows' included, must match."""
     import torch
     n = p.num_rows
     live = p._live()
@@ -718,19 +841,35 @@ def p_mirror_checks(p) -> dict:
     keys, order = torch.sort(rows * n + cols)
     vals = vals[order]
     rows, cols = keys // n, keys % n
-    pos = torch.searchsorted(keys, cols * n + rows)
+    mirror = cols * n + rows
+    pos = torch.searchsorted(keys, mirror)
     pos.clamp_(max=keys.numel() - 1)
-    found = keys[pos] == cols * n + rows
-    if not bool((found | (nnz[cols] == p.width)).all()):
+    found = keys[pos] == mirror
+    excused = torch.zeros_like(found)
+    shed_n = 0
+    if shed_keys is not None and shed_keys.numel():
+        shed_keys = shed_keys.to(p.device)
+        shed_n = shed_keys.numel()
+
+        def among(k):
+            at = torch.searchsorted(shed_keys, k).clamp_(max=shed_n - 1)
+            return shed_keys[at] == k
+
+        excused = among(keys) | among(mirror)
+    if not bool((found | (nnz[cols] == p.width) | excused).all()):
         raise AssertionError("P: an entry's mirror is missing from a row "
                              "that was not cut")
-    asym = float((vals[found] - vals[pos[found]]).abs().max())
+    both = found & ~excused
+    asym = (float((vals[both] - vals[pos[both]]).abs().max())
+            if bool(both.any()) else 0.0)
     if not asym <= 1e-6 * float(vals.abs().max()):
         raise AssertionError(f"P is not symmetric: {asym}")
     return {"p_nnz": int(live.sum()), "p_width": p.width,
             "p_rows_cut_to_width": int((nnz == p.width).sum()),
             "p_mirrors_cut": int((~found).sum()),
-            "p_mass_kept": float(vals.sum()) / n, "p_asymmetry": asym}
+            "p_mass_kept": float(vals.sum()) / n, "p_asymmetry": asym,
+            "p_reverse_entries_shed": shed_n,
+            "p_entries_excused": int(excused.sum())}
 
 
 @contextlib.contextmanager
@@ -2293,6 +2432,21 @@ def eval_umap_empty_gate(r: dict, want: dict, maps_equal: bool,
             "jax_cpu_umap_memberships": want["umap_memberships"]}
 
 
+def umap_level0_gate(r: dict, want: dict, name: str) -> dict:
+    """Level 0's UMAP memberships exactly the record's count.  Level 0's P
+    is the JAX package's bit for bit, and its driver unions that
+    device-resident P on its device path, which keeps at most
+    SPH_SYM_WREV_MAX reverse entries a row; so does the port's."""
+    got = [e["memberships"] for e in r["run"]["embeddings"]
+           if e["method"] == "umap" and e["level"] == 0]
+    ref = want["umap_memberships"][0]
+    if got != [ref]:
+        raise AssertionError(f"{name}: level 0 has {got} UMAP memberships, "
+                             f"the JAX record {ref}")
+    return {"level_0_umap_memberships": ref,
+            "level_0_umap_memberships_equal_to_record": True}
+
+
 def eval_tsne_gates(r: dict, name: str) -> None:
     """A run's t-SNE levels: ``tsne_level_gates`` and
     ``tsne_launch_gates``."""
@@ -2389,6 +2543,7 @@ def eval_pines_umap(tsne_kernels, ref: dict) -> dict:
     levels = r["run"]["levels"]
     maps_equal = eval_maps_gate(r, ref, "eval_pines_umap")
     empty = eval_umap_empty_gate(r, ref, maps_equal, "eval_pines_umap")
+    empty.update(umap_level0_gate(r, ref, "eval_pines_umap"))
     for e in r["run"]["embeddings"]:
         rng = e.get("membership_range")
         if rng is not None and not (rng[0] > 0.0 and rng[1] <= 1.0):
@@ -2692,10 +2847,12 @@ def salinas_walks(tsne_kernels, shape=SALINAS_SHAPE,
             knn_cache=cache)
         zero_launches(tsne_kernels)
         seconds = {}
+        conditional = {}
         for name, stage in (("stage1_knn", ch.compute_knn_graph),
                             ("stage2_hierarchy", ch.compute_image_hierarchy),
                             ("stage3_level_similarities",
-                             ch.compute_level_similarities)):
+                             lambda: keeping_conditional_rows(
+                                 ch, 1, conditional))):
             t = time.perf_counter()
             stage()
             sync()
@@ -2733,7 +2890,13 @@ def salinas_walks(tsne_kernels, shape=SALINAS_SHAPE,
                         "embedding_finite": bool(np.all(np.isfinite(emb)))},
                "launches": read_launches(tsne_kernels)}
         if handling == "merge_rw_only":
-            run["p"] = p_mirror_checks(p1)
+            # pairwise walk similarities: the JAX package's rows are
+            # device-resident, so level 1 took its device path, which sheds
+            # hub rows' faintest reverse entries
+            if not ls.device_path(1):
+                raise AssertionError("salinas_walks level 1: pairwise walk "
+                                     "rows did not take the device path")
+            run["p"] = p_mirror_checks(p1, shed_reverse_keys(conditional[1]))
         else:
             walks1 = h.random_walks[1]
             ids1, d1 = ls.distance_graphs[1]
@@ -3011,8 +3174,10 @@ def pines_umap(ch, data, epochs: int = 500, packed: bool = True) -> dict:
     es = T.ComputeEmbeddingSettings()
     es.umap.num_epochs = epochs
     ce = T.ComputeEmbedding(es, device=DEV)
+    ls = ch.level_similarities
     with env(SPH_UMAP_PACKED=None if packed else "0"):
-        emb = ce.compute_umap(ch.level_similarities.get_prob_dist(1))
+        emb = ce.compute_umap(ls.get_prob_dist(1),
+                              device_path=ls.device_path(1))
     comp = ce.last_computation
     h = ch.image_hierarchy.hierarchy
     t = time.perf_counter()
@@ -3418,12 +3583,11 @@ def sharded_paths(tsne_kernels, mid: dict, pines: dict,
     grid_vs_exact's 65536-point P, each scored with the exact Z; and
     sharded_umap for `epochs` epochs beside the one-card edge-list tier
     (twice, for bit-equality) and the sequential oracle, all on the
-    memberships of the Pines path's level 1, each scored by
-    trustworthiness at k = 10.  `pines` holds the scene's data, its level
-    1's P ("p1"), pixel labels and component count."""
+    memberships of the Pines path's level 1 (its host-path union), each
+    scored by trustworthiness at k = 10.  `pines` holds the scene's data,
+    its level 1's P ("p1"), pixel labels and component count."""
     import numpy as np
     import torch
-    import sph_tpu_torch as T
     from sph_tpu_torch import native
     from sph_tpu_torch.models.tsne import tsne_kl_divergence
     from sph_tpu_torch.models.umap import UmapComputation
@@ -3467,6 +3631,9 @@ def sharded_paths(tsne_kernels, mid: dict, pines: dict,
         out[key]["kl_rel_gap_1_2"] = abs(a - b) / a
 
     x = component_means(data, pines["labels"], pines["count"])
+    # the memberships of level 1's P by the host union
+    # (UmapComputation's default): the edge tier's oracle and the sharded
+    # epochs take them as a given input, whichever union made them
     uc = UmapComputation(device=dev)
     uc.set_neighbor_matrix(pines["p1"])
     m = uc._memberships()
@@ -3714,8 +3881,18 @@ def main() -> int:
     emit({"phase": "build", "library": "graphops (host, g++)",
           "seconds": time.perf_counter() - t0})
 
-    checks = [check_forces_kernel(5284, 6144, seed=11),
-              check_forces_kernel(1000, 1024, seed=12)]
+    # the kernel's branch-free reciprocal against IEEE 1 / x on every
+    # float32 in [1, 2^126): one launch
+    t0 = time.perf_counter()
+    rcp_bad = tsne_kernels.forces_rcp_mismatches()
+    emit({"phase": "kernel_vs_twin", "kernel": "tsne_forces_dense",
+          "reciprocal_mismatches_in_1_to_2e126": rcp_bad,
+          "seconds": time.perf_counter() - t0})
+    if rcp_bad:
+        raise AssertionError(f"tsne_forces_dense: the reciprocal differs "
+                             f"from IEEE 1 / x on {rcp_bad} floats")
+    checks = [check_forces_kernel(n, npad, seed=11 + i)
+              for i, (n, npad) in enumerate(FORCES_SHAPES)]
     for c in checks:
         emit({"phase": "kernel_vs_twin", "kernel": "tsne_forces_dense", **c})
 
@@ -4046,6 +4223,8 @@ def main() -> int:
           "p_width": gcomp._p_val.shape[1],
           "grid_sizes": grid_sizes(gcomp.grid_history),
           "grid_picks": len(gcomp.grid_history),
+          "repulsion_bound_at_last_grid": grid_repulsion_bound(
+              n_large, gcomp._npad, gcomp.grid_history[-1][1]),
           "kl_at": {str(i): v for i, v in sorted(kls.items())},
           "kl_final_exact_z": kls[GRID_ITERS] + gap["log_z_ratio"],
           "z": gap, "ms_per_iteration_by_part": split,

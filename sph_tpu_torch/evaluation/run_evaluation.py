@@ -323,7 +323,9 @@ def _run_embeddings(settings: EvalSettings, run: dict, ch, out_dir: str,
             _init_embedding(settings, ch, level, num_comp, ce, out_dir,
                             "umap")
             t = time.perf_counter()
-            emb = ce.compute_umap(pd)      # applies the fuzzy union itself
+            # applies the fuzzy union itself, on the level's path
+            emb = ce.compute_umap(
+                pd, device_path=ch.level_similarities.device_path(level))
             rec = {"level": level, "method": "umap", "n": num_comp,
                    "epochs": ces.umap.num_epochs,
                    "seconds": time.perf_counter() - t}
@@ -358,8 +360,10 @@ def _run_embeddings(settings: EvalSettings, run: dict, ch, out_dir: str,
                     kl_start.append(comp.kl_divergence())
 
             t = time.perf_counter()
-            emb = ce.compute_tsne(symmetrize_tsne(pd), track_kl=detail,
-                                  progress=first_kl)
+            emb = ce.compute_tsne(
+                symmetrize_tsne(pd, device_path=ch.level_similarities
+                                .device_path(level)),
+                track_kl=detail, progress=first_kl)
             rec = {"level": level, "method": "tsne", "n": num_comp,
                    "iterations": ces.tsne.num_iterations,
                    "seconds": time.perf_counter() - t}

@@ -123,15 +123,17 @@ class ComputeEmbedding:
         self._init_embedding = None
         return self.current_embedding
 
-    def compute_umap(self, inp: Union[SparseRows, tuple]) -> np.ndarray:
+    def compute_umap(self, inp: Union[SparseRows, tuple],
+                     device_path: bool = False) -> np.ndarray:
         """Reference: computeUMAP (:131-174).  `inp` is a similarity
-        SparseRows (combined with the fuzzy union) or an (indices,
-        distances) kNN graph tuple.  Keeps the wall seconds of the set-up
-        and of the epochs in ``seconds`` and the computation in
+        SparseRows (combined with the fuzzy union, on the JAX package's
+        device path where `device_path`: ``symmetrize_umap``) or an
+        (indices, distances) kNN graph tuple.  Keeps the wall seconds of the
+        set-up and of the epochs in ``seconds`` and the computation in
         ``last_computation``."""
         umap = UmapComputation(self.settings.umap, device=self.device)
         if isinstance(inp, SparseRows):
-            umap.set_neighbor_matrix(inp)
+            umap.set_neighbor_matrix(inp, device_path)
             n = inp.num_rows
         else:
             umap.set_neighbor_graph(*inp)

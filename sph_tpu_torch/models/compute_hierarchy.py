@@ -310,6 +310,8 @@ class ComputeHierarchy:
             ls.prob_dists[i] = SparseRows(
                 payload[f"pd_idx_{i}"], payload[f"pd_val_{i}"],
                 ls.hierarchy.num_components[i], device=self.device)
+        # the JAX package loads host arrays: its host-path symmetrizations
+        ls.device_paths = [False] * len(ls.prob_dists)
         ls._symmetric = self._lss.compute_symmetric_prob_dist
         Log.info("ComputeHierarchy:: level similarities loaded from cache")
         return True
@@ -323,3 +325,6 @@ class ComputeHierarchy:
             payload[f"pd_idx_{i}"] = pd.indices
             payload[f"pd_val_{i}"] = pd.values
         self._cache.write("lss", self._lss, payload)
+        # the JAX package's write reads the rows on its host, and later
+        # symmetrizations of host rows take its host path
+        ls.device_paths = [False] * len(ls.prob_dists)

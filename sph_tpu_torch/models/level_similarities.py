@@ -100,6 +100,9 @@ class LevelSimilarities:
         # None where the level has none
         self.knn_tiers: list[Optional[str]] = []
         self.perplexity_on_level: list[float] = []
+        # per level, whether its rows take the JAX package's device-path
+        # symmetrization (``device_path``)
+        self.device_paths: list[bool] = []
         self._symmetric: NormalizationScheme = NormalizationScheme.NONE
         self.init_output()
 
@@ -112,6 +115,7 @@ class LevelSimilarities:
         self.distance_graphs = [None] * num_levels
         self.knn_tiers = [None] * num_levels
         self.perplexity_on_level = [0.0] * num_levels
+        self.device_paths = [False] * num_levels
         self._symmetric = NormalizationScheme.NONE
         self.update_number_of_neighbors()
 
@@ -316,9 +320,55 @@ class LevelSimilarities:
                 f"LevelSimilarities: level {level} probability rows are "
                 f"all-zero ({c} components) — upstream op produced an "
                 "empty distribution")
-        self.prob_dists[level] = shrink_width(
-            pd, int(nnz.max()) if nnz.size else 1)
+        pd = shrink_width(pd, int(nnz.max()) if nnz.size else 1)
+        self.device_paths[level] = self._jax_device_resident(level)
+        self.prob_dists[level] = pd
         self.stats.avg_num_neighbors.append(float(nnz.mean()))
+
+    def device_path(self, level: int) -> bool:
+        """Whether ``symmetrize_tsne`` / ``symmetrize_umap`` take the JAX
+        package's device path for this level's rows: ``symmetrize_output``
+        asks it, and so do the evaluation driver's per-level t-SNE and UMAP
+        (``device_path=``), as the JAX package's run on its device-resident
+        rows.  Decided once, when the level's rows are made
+        (``_jax_device_resident``); a level cache written or loaded makes it
+        False for every level (``ComputeHierarchy``)."""
+        return self.device_paths[level]
+
+    def _jax_device_resident(self, level: int) -> bool:
+        """Whether the JAX package holds this level's rows only on its
+        device when it symmetrizes them (its ``SparseRows.device_only``),
+        so that the port takes its device path's caps here as there (in
+        ``symmetrize_output``, and in its evaluation driver's per-level
+        t-SNE and UMAP, which run no level cache):
+
+        - level 0 from the image hierarchy: its data-level rows are a view
+          of device arrays (its level_similarities.py:270-278); from the
+          data graph, host arrays;
+        - walk levels (no MERGE_RW_NEW_WALKS_AND_KNN) with pairwise walk
+          similarities: the device product's rows (sparse.py:714-800);
+        - walk levels from each row's top-k walk values: only where the
+          level's walk rows are still device-only, i.e. simulated walks
+          (MERGE_DATA_NEW_WALKS, or the top level of MERGE_RW_NEW_WALKS,
+          whose lower levels the next merge reads on the host), and no
+          force_compute_distances (it reads them on the host first);
+        - every level from a kNN graph: Gaussian rows over host arrays.
+
+        A level cache makes the JAX package's rows host arrays: its write
+        reads them, its load is host arrays."""
+        if level == 0:
+            return self._image_hierarchy is not None
+        if self._lss.component_sim not in WALK_SIMS or self._walks_knn():
+            return False
+        if self._lss.random_walk_pair_sims:
+            return True
+        if self._lss.force_compute_distances:
+            return False
+        handling = self.hierarchy.settings.rw_handling
+        if handling == RandomWalkHandling.MERGE_DATA_NEW_WALKS:
+            return True
+        return (handling == RandomWalkHandling.MERGE_RW_NEW_WALKS
+                and level == self.hierarchy.num_levels - 1)
 
     def _probdist_from_data_graph(self, perp: float) -> SparseRows:
         """Reference: :528-538 — the data kNN graph normalized directly
@@ -428,7 +478,7 @@ class LevelSimilarities:
                NormalizationScheme.UMAP: symmetrize_umap}.get(method)
         for i, pd in enumerate(self.prob_dists):
             if pd is not None and sym is not None:
-                self.prob_dists[i] = sym(pd)
+                self.prob_dists[i] = sym(pd, device_path=self.device_paths[i])
         self._symmetric = method
 
     def get_prob_dist(self, level: int) -> SparseRows:

@@ -47,7 +47,7 @@ from ..device import resolve_device
 from ..ops.packing import pack_positions
 from ..ops.sparse import SparseRows, topk_rows
 from ..ops.tsne_grid import grid_repulsion, pick_grid_size
-from ..ops.tsne_kernels import (ATTR_FUSE_MAX, ATTR_PIECE,
+from ..ops.tsne_kernels import (ATTR_FUSE_MAX, ATTR_PIECE, DenseForces,
                                 attraction_chunk, tsne_attraction,
                                 tsne_forces_dense, tsne_repulsion)
 from ..utils.logging import Log
@@ -365,6 +365,8 @@ class TsneComputation:
                                         device=dev)
             self._p_dense.index_put_((rows[live], self._p_idx[live]),
                                      self._p_val[live], accumulate=True)
+            # the kernel's outputs and workspace, once a run
+            self._forces_out = DenseForces(npad, dev)
         self._y = y
         self._vel = torch.zeros_like(y)
         self._gain = torch.ones_like(y)
@@ -417,7 +419,8 @@ class TsneComputation:
     def _forces(self):
         """(attraction, repulsion, Z) at the current layout, on the tier."""
         if self.tier == "dense":
-            return tsne_forces_dense(self._y, self._p_dense, self._n)
+            return tsne_forces_dense(self._y, self._p_dense, self._n,
+                                     out=self._forces_out)
         attr = attractive_forces(self._y, self._p_idx32, self._p_val,
                                  packed=self.attr_packed)
         if self.tier == "grid":

@@ -219,6 +219,7 @@ class UmapComputation:
         self.params = params or UmapParameters()
         self.device = resolve_device(device)
         self._p: Optional[SparseRows] = None
+        self._p_device_path = False
         self._graph = None
         self._preset_memberships: Optional[SparseRows] = None
         self._n = 0
@@ -234,10 +235,12 @@ class UmapComputation:
 
     # ------------------------------------------------------------------
 
-    def set_neighbor_matrix(self, p: SparseRows):
+    def set_neighbor_matrix(self, p: SparseRows, device_path: bool = False):
         """Similarities computed upstream (reference: setNeighborMatrix);
-        combined with the fuzzy union here."""
+        combined with the fuzzy union here, on the JAX package's device path
+        where `device_path` (``symmetrize_umap``)."""
         self._p, self._graph, self._preset_memberships = p, None, None
+        self._p_device_path = device_path
         self._n = p.num_rows
         self._preset = False
 
@@ -272,9 +275,9 @@ class UmapComputation:
             return self._preset_memberships
         if self._p is not None:
             # fuzzy union (reference: combine_neighbor_sets with mix 0.5)
-            return symmetrize_umap(SparseRows(self._p.idx, self._p.val,
-                                              self._p.num_cols,
-                                              device=self.device))
+            return symmetrize_umap(SparseRows(
+                self._p.idx, self._p.val, self._p.num_cols,
+                device=self.device), device_path=self._p_device_path)
         from ..ops.distributions import smooth_knn_distributions
         idx, dist = self._graph
         mask = idx >= 0

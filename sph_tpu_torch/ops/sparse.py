@@ -14,6 +14,7 @@ host C++ merge (native/graphops.cpp) as the JAX package does off the TPU.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -22,7 +23,7 @@ import torch
 from .. import native
 from ..device import resolve_device
 from ..utils.logging import Log
-from .numerics import log, row_sum, sqrt
+from .numerics import _fma, log, row_sum, sqrt
 
 PAD = -1
 _BIG = torch.iinfo(torch.int64).max
@@ -432,14 +433,20 @@ def pairwise_similarities(sr: SparseRows, k: int, prune_val: float = 1e-4,
     return normalize_rows(out)
 
 
-def symmetrize_tsne(sr: SparseRows, max_width: Optional[int] = None
-                    ) -> SparseRows:
+def symmetrize_tsne(sr: SparseRows, max_width: Optional[int] = None,
+                    device_path: bool = False) -> SparseRows:
     """p_sym = (p + p^T) / 2 on the union support, rows ascending by column
-    (reference: symmetrizeTSNE, HDILibHelper.hpp:260-280).  max_width: the
-    result's rows cut to their largest values as in ``pack_coo`` (the
-    t-SNE width cap, applied before hub rows set the width of all)."""
+    (reference: symmetrizeTSNE, HDILibHelper.hpp:260-280), as the JAX
+    package's host (scipy) path gives it.  max_width: the result's rows cut
+    to their largest values as in ``pack_coo`` (the t-SNE width cap,
+    applied before hub rows set the width of all).  device_path: take
+    ``symmetrize_device_path`` instead, where the JAX package holds the
+    rows on its device (the caller decides: ``LevelSimilarities.
+    device_path``); max_width is then not used (no such caller caps)."""
     n = sr.num_rows
     assert sr.num_cols == n, "symmetrize_tsne needs a square matrix"
+    if device_path:
+        return symmetrize_device_path(sr, "tsne")
     rows, cols, vals = _live_coo(sr)
     keys = torch.cat([rows * n + cols, cols * n + rows])
     uniq, inv = torch.unique(keys, sorted=True, return_inverse=True)
@@ -449,14 +456,18 @@ def symmetrize_tsne(sr: SparseRows, max_width: Optional[int] = None
     return pack_coo(uniq // n, uniq % n, sums * 0.5, n, n, max_width)
 
 
-def symmetrize_umap(sr: SparseRows) -> SparseRows:
+def symmetrize_umap(sr: SparseRows, device_path: bool = False
+                    ) -> SparseRows:
     """The fuzzy union p + p^T - p * p^T elementwise on the union support,
     rows ascending by column (reference: symmetrizeUMAP,
     HDILibHelper.hpp:282-302), each entry as (a + b) - a * b in float32
     with a = p_ij and b = p_ji (0 where absent), as the JAX package's
-    scipy sums give it."""
+    scipy sums give it.  device_path: take ``symmetrize_device_path``
+    instead (see ``symmetrize_tsne``)."""
     n = sr.num_rows
     assert sr.num_cols == n, "symmetrize_umap needs a square matrix"
+    if device_path:
+        return symmetrize_device_path(sr, "umap")
     rows, cols, vals = _live_coo(sr)
     fwd, order = torch.sort(rows * n + cols)
     vals = vals[order]
@@ -473,3 +484,122 @@ def symmetrize_umap(sr: SparseRows) -> SparseRows:
     out = (a + b) - a * b
     keep = out != 0
     return pack_coo(keys[keep] // n, keys[keep] % n, out[keep], n, n)
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's device-path symmetrization (sph_tpu/ops/sparse.py
+# _symmetrize_p_device_dispatch, :933-1016)
+# ---------------------------------------------------------------------------
+
+def _next_pow2(x: int, lo: int = 8) -> int:
+    x = max(int(x), lo)
+    return 1 << (x - 1).bit_length()
+
+
+def _bucket_rows(x: int) -> int:
+    """The JAX package's row bucket (sph_tpu/ops/bucketing.py bucket_rows):
+    powers of two from 512 up to 2048 rows, then multiples of 4096."""
+    if x <= 2048:
+        return _next_pow2(x, lo=512)
+    return -(-x // 4096) * 4096
+
+
+def _bucket_width(w: int) -> int:
+    """The JAX package's width bucket: a power of two, at least 32."""
+    return _next_pow2(max(int(w), 1), lo=32)
+
+
+def reverse_cap(n: int) -> int:
+    """The most reverse entries a row of an n-row matrix keeps on the JAX
+    package's device path: SPH_SYM_WREV_MAX (default 1024; 0 or less for
+    no cap), and at most the rows' bucket rounded to a power of two."""
+    cap = int(os.environ.get("SPH_SYM_WREV_MAX", "1024"))
+    if cap <= 0:
+        cap = 1 << 30
+    return min(cap, _next_pow2(_bucket_rows(max(8, n))))
+
+
+def reverse_width(n: int, width: int, max_in_degree: int) -> int:
+    """The reverse-entry width the JAX package's device path ends with for
+    an n-row matrix of `width` whose busiest column has `max_in_degree`
+    entries: its start and its doubling loop (sparse.py:984-1012), with the
+    loop's overflow probe answered from the in-degree (an entry is lost at
+    width w iff some row has more than w reverse entries).  Each row keeps
+    at most this many reverse entries; it stops at ``reverse_cap``."""
+    nb = _bucket_rows(max(8, n))
+    wb = _bucket_width(width)
+    wrev_max = reverse_cap(n)
+    if nb <= 2048 and nb * wrev_max <= (1 << 26):
+        wrev = wrev_max
+    else:
+        wrev = max(min(_next_pow2(max(2 * wb, 64)), wrev_max), 1)
+    while max_in_degree > wrev and wrev < min(n, wrev_max):
+        wrev = min(_next_pow2(wrev * 2), _next_pow2(nb), wrev_max)
+    return wrev
+
+
+def symmetrize_device_path(sr: SparseRows, mode: str) -> SparseRows:
+    """The t-SNE ("tsne": (p + p^T) / 2) or UMAP ("umap": p + p^T - p p^T)
+    symmetrization as the JAX package computes it on device-resident rows
+    (``_symmetrize_p_device_dispatch``), which its driver and level
+    similarities reach wherever the rows never left the device (see
+    ``LevelSimilarities``).  Its results, not its XLA machinery:
+
+    - above SPH_SYM_FLAT_BUDGET elements (rows x width, default 48 Mi),
+      rows wider than SPH_SYM_P_WIDTH_CAP (default 256) keep their largest
+      values (``topk_rows``: ties to the lower column); "tsne" then
+      renormalizes them (XLA's row sum), "umap" does not;
+    - each row keeps at most ``reverse_width`` reverse entries, its largest
+      by value; among equal values the entry from the lower source row
+      (the JAX package's stable sort on (row, -value) over the row-major
+      entries);
+    - each entry combines its forward value a and its kept reverse value b
+      (0 where absent), forward first: (a + b) * 0.5, or (a + b) - a * b
+      with the product fused into the subtraction, as XLA-CPU contracts it
+      (one rounding; the host path rounds a * b first); where only the
+      reverse entry exists it is a.  Entries whose result is 0 stay, as
+      there.
+
+    Rows come out ascending by column at the exact widest row (the JAX
+    package slices to a power-of-two bucket)."""
+    n = sr.num_rows
+    assert sr.num_cols == n, "symmetrize_device_path needs a square matrix"
+    budget = int(os.environ.get("SPH_SYM_FLAT_BUDGET", str(48 * 2**20)))
+    wcap = int(os.environ.get("SPH_SYM_P_WIDTH_CAP", "256"))
+    if 0 < wcap < sr.width and n * sr.width > budget:
+        orig_width = sr.width
+        sr = topk_rows(sr, wcap)
+        if mode == "tsne":
+            sr = normalize_rows(sr)
+        Log.info("symmetrize: capped row width %d -> %d (row budget)",
+                 orig_width, sr.width)
+    dev = sr.device
+    rows, cols, vals = _live_coo(sr)
+    in_degree = torch.bincount(cols, minlength=n)
+    wrev = reverse_width(n, sr.width,
+                         int(in_degree.max()) if cols.numel() else 0)
+    # reverse entries grouped by target row, largest value first, ties in
+    # row-major (source row) order: two stable sorts
+    by_val = torch.sort(-vals, stable=True).indices
+    order = by_val[torch.sort(cols[by_val], stable=True).indices]
+    starts = torch.cumsum(in_degree, 0) - in_degree
+    rank = torch.arange(cols.numel(), device=dev) - starts[cols[order]]
+    kept = order[rank < wrev]
+    lost = cols.numel() - kept.numel()
+    if lost:
+        Log.info("symmetrize: wrev cap %d sheds %d faint reverse entries of "
+                 "hub rows", wrev, lost)
+    # forward entries first, then the kept reverse ones; a stable sort by
+    # (row, col) puts a key's forward entry before its reverse one
+    keys = torch.cat([rows * n + cols, cols[kept] * n + rows[kept]])
+    both = torch.cat([vals, vals[kept]])
+    keys, perm = torch.sort(keys, stable=True)
+    both = both[perm]
+    start = torch.ones_like(keys, dtype=torch.bool)
+    start[1:] = keys[1:] != keys[:-1]
+    pair = torch.zeros_like(both)
+    pair[:-1] = torch.where(keys[1:] == keys[:-1], both[1:], 0.0)
+    a, b = both[start], pair[start]
+    out = (a + b) * 0.5 if mode == "tsne" else _fma(-a, b, a + b)
+    keys = keys[start]
+    return pack_coo(keys // n, keys % n, out, n, n)

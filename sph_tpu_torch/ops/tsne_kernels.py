@@ -46,7 +46,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # kernel name -> argument types of its C entry point ``<name>_launch``
 _SIGNATURES = {
-    "tsne_forces_dense": [_P, _P, _I, _I, _P, _P, _P, _P],
+    "tsne_forces_dense": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                          _P],
     "tsne_repulsion": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "tsne_attraction": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _P,
                         _P],
@@ -150,6 +151,165 @@ def _check_kernel_device(name: str, *tensors: torch.Tensor):
 # tsne_forces_dense
 # ---------------------------------------------------------------------------
 
+FORCES_ROWS = 8             # rows a block: 4 warps of 2 (csrc kRows)
+FORCES_STEP = 128           # columns a warp reads in one step
+FORCES_MIN_SPLIT = 512      # fewest columns a column split takes
+FORCES_MAX_SPLIT = 16384    # most columns a block takes
+FORCES_BLOCKS_PER_SM = 1    # blocks a plan aims at for each SM
+FORCES_SUMS = 7             # s2, ax, ay, z, sa, bx, by
+
+
+@dataclass(frozen=True)
+class ForcesPlan:
+    """How ``csrc/tsne_forces_dense.cu`` cuts the [npad, npad] tile for one
+    n_valid: ``tiles`` row tiles of FORCES_ROWS rows by ``splits`` column
+    ranges of ``split_cols`` columns over the live columns (the last range
+    ends at n_valid rounded up to FORCES_STEP); one block each, of which a
+    tile of pad rows runs only its first."""
+    tiles: int
+    splits: int
+    split_cols: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+
+def forces_plan(n_valid: int, npad: int, sms: int = 132,
+                blocks_per_sm: int = FORCES_BLOCKS_PER_SM,
+                max_split: int = FORCES_MAX_SPLIT) -> ForcesPlan:
+    """Row tiles alone where the tiles that hold a real row give each SM
+    `blocks_per_sm` blocks; otherwise each such tile's live columns are
+    split into ranges of at least FORCES_MIN_SPLIT columns (a multiple of
+    FORCES_STEP) until they do.  Ranges are cut to at most `max_split`
+    columns, so that the last wave of a large call is short
+    (``scripts/forces_readout.py --plans`` times other plans; PERF.md has
+    the comparison).  npad: a multiple of FORCES_STEP."""
+    live_rows = max(min(int(n_valid), npad), 1)
+    live_tiles = -(-live_rows // FORCES_ROWS)
+    cols = -(-live_rows // FORCES_STEP) * FORCES_STEP
+    want = max(-(-blocks_per_sm * sms // live_tiles), -(-cols // max_split))
+    splits = min(max(want, 1), max(cols // FORCES_MIN_SPLIT, 1))
+    split_cols = -(-cols // (splits * FORCES_STEP)) * FORCES_STEP
+    return ForcesPlan(npad // FORCES_ROWS, -(-cols // split_cols), split_cols)
+
+
+class DenseForces:
+    """Caller-owned outputs and workspace of ``tsne_forces_dense`` for one
+    Npad on one device: ``attr``, ``rep`` [npad, 2] and ``z`` (0-d), which
+    every call with these buffers overwrites, and on a card the kernel's
+    workspace: the blocks' partial row sums, the rows' z and the
+    tickets (0 between calls: the blocks that take them reset them).  One
+    stream at a time may use it.  Allocate it once a run (the dense tier's
+    t-SNE does) and pass it as ``out``.  The launch plan is
+    ``forces_plan(n_valid, npad, <the card's SMs>, blocks_per_sm,
+    max_split)``, made once for each n_valid; ``plan`` is the last one
+    launched."""
+
+    def __init__(self, npad: int, device,
+                 blocks_per_sm: int = FORCES_BLOCKS_PER_SM,
+                 max_split: int = FORCES_MAX_SPLIT):
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.npad = int(npad)
+        self.device = device
+        self.attr = torch.empty((npad, 2), dtype=torch.float32, device=device)
+        self.rep = torch.empty((npad, 2), dtype=torch.float32, device=device)
+        self._z = torch.empty(1, dtype=torch.float32, device=device)
+        self.z = self._z[0]
+        self._p = None
+        self.plan = None
+        if device.type != "cuda":
+            return
+        if npad % FORCES_STEP:
+            raise ValueError(f"tsne_forces_dense: Npad {npad} is not a "
+                             f"multiple of {FORCES_STEP}")
+        self._sms = torch.cuda.get_device_properties(
+            device).multi_processor_count
+        self._split_args = (blocks_per_sm, max_split)
+        self._part = torch.empty(0, dtype=torch.float32, device=device)
+        # the rows' z, then the sums of pairs of row tiles
+        self._zrow = torch.empty(npad + npad // (2 * FORCES_ROWS),
+                                 dtype=torch.float32, device=device)
+        # a ticket for each row tile, the last pair, each pair of tiles
+        self._tickets = torch.zeros(
+            npad // FORCES_ROWS + 1 + npad // (2 * FORCES_ROWS),
+            dtype=torch.int32, device=device)
+        self._fn = getattr(_library("tsne_forces_dense"),
+                           "tsne_forces_dense_launch")
+        # the current stream's handle without building a Stream object
+        self._stream = torch._C._cuda_getCurrentRawStream
+        self._args = {}         # n_valid -> (plan, the launch's arguments)
+
+    def _launch_args(self, n_valid: int) -> tuple:
+        """The plan and the launch's arguments after y, P, npad and n_valid,
+        made once for each n_valid (the workspace grows to the widest)."""
+        plan = forces_plan(n_valid, self.npad, self._sms, *self._split_args)
+        need = plan.splits * FORCES_SUMS * self.npad
+        if need > self._part.numel():
+            self._part = torch.empty(need, dtype=torch.float32,
+                                     device=self.device)
+            self._args.clear()
+        args = (plan, (plan.splits, plan.split_cols, self.attr.data_ptr(),
+                       self.rep.data_ptr(), self._z.data_ptr(),
+                       self._part.data_ptr(), self._zrow.data_ptr(),
+                       self._tickets.data_ptr()))
+        self._args[n_valid] = args
+        return args
+
+    def _check_p(self, p_dense: torch.Tensor):
+        """P's checks, once for each P tensor (the dense tier passes one P
+        every iteration)."""
+        if p_dense is self._p:
+            return
+        npad = self.npad
+        if tuple(p_dense.shape) != (npad, npad):
+            raise ValueError(f"tsne_forces_dense: P must be [{npad}, {npad}],"
+                             f" got {tuple(p_dense.shape)}")
+        if p_dense.dtype != torch.float32:
+            raise TypeError("tsne_forces_dense: y and P must be float32")
+        if p_dense.device != self.device:
+            raise ValueError("tsne_forces_dense: P lies on "
+                             f"{p_dense.device}, the buffers on {self.device}")
+        if not p_dense.is_contiguous() or p_dense.data_ptr() % 16:
+            raise ValueError("tsne_forces_dense: P must be contiguous and "
+                             "16-byte aligned")
+        self._p = p_dense
+
+    def launch(self, y: torch.Tensor, p_dense: torch.Tensor, n_valid: int):
+        """One kernel launch on the current stream: only what can change
+        from call to call is checked (y; P when it is another tensor)."""
+        self._check_p(p_dense)
+        if (y.shape != (self.npad, 2) or y.dtype != torch.float32
+                or not y.is_cuda or not y.is_contiguous()
+                or y.data_ptr() % 16):
+            _check_y("tsne_forces_dense", y, n_valid)
+            raise ValueError("tsne_forces_dense: y must be a contiguous, "
+                             f"16-byte aligned [{self.npad}, 2] float32 "
+                             "tensor on the buffers' card")
+        if not 0 <= n_valid <= self.npad:
+            raise ValueError(f"tsne_forces_dense: n_valid {n_valid} outside "
+                             f"[0, {self.npad}]")
+        plan, args = (self._args.get(n_valid)
+                      or self._launch_args(n_valid))
+        self.plan = plan
+        index = self.device.index
+        if index == torch.cuda.current_device() and y.get_device() == index:
+            err = self._fn(y.data_ptr(), p_dense.data_ptr(), self.npad,
+                           n_valid, *args, self._stream(index))
+        elif y.get_device() == index:
+            with torch.cuda.device(index):
+                err = self._fn(y.data_ptr(), p_dense.data_ptr(), self.npad,
+                               n_valid, *args, self._stream(index))
+        else:
+            raise ValueError(f"tsne_forces_dense: y lies on {y.device}, the "
+                             f"buffers on {self.device}")
+        if err != 0:
+            raise RuntimeError("tsne_forces_dense: launch failed with CUDA "
+                               f"error {err}")
+
+
 def _check_inputs(y: torch.Tensor, p_dense: torch.Tensor, n_valid: int):
     npad = y.shape[0]
     _check_y("tsne_forces_dense", y, n_valid)
@@ -163,38 +323,67 @@ def _check_inputs(y: torch.Tensor, p_dense: torch.Tensor, n_valid: int):
                          f"devices ({y.device}, {p_dense.device})")
 
 
-def tsne_forces_dense(y: torch.Tensor, p_dense: torch.Tensor, n_valid: int):
+def tsne_forces_dense(y: torch.Tensor, p_dense: torch.Tensor, n_valid: int,
+                      out: DenseForces = None):
     """Fused attraction and repulsion over a dense joint P.
 
     y [Npad, 2], p_dense [Npad, Npad] (zero off the support and on pads),
     n_valid the number of real rows -> (attr [Npad, 2], rep [Npad, 2],
-    Z 0-d tensor).  Pad rows come out 0.
+    Z 0-d tensor), on the card Z summed in the kernel in a fixed order
+    (csrc/tsne_forces_dense.cu).  Pad rows come out 0.  out: a
+    ``DenseForces`` of y's Npad and device, whose buffers the results are
+    (allocated here when None; the next call with the same ``out``
+    overwrites them).  A CPU tensor takes the twin.
     """
     n_valid = int(n_valid)
-    _check_inputs(y, p_dense, n_valid)
-    if y.device.type == "cpu":
-        return tsne_forces_dense_reference(y, p_dense, n_valid)
-    _check_kernel_device("tsne_forces_dense", y, p_dense)
-    npad = y.shape[0]
-    if npad % 128:
-        raise ValueError(f"tsne_forces_dense: Npad {npad} is not a multiple "
-                         "of 128")
-    attr = torch.empty_like(y)
-    rep = torch.empty_like(y)
-    zrow = torch.empty(npad, dtype=torch.float32, device=y.device)
-    _launch("tsne_forces_dense", y.device, y.data_ptr(), p_dense.data_ptr(),
-            npad, n_valid, attr.data_ptr(), rep.data_ptr(), zrow.data_ptr())
-    tsne_forces_dense.launches += 1
-    return attr, rep, zrow.sum()
+    if y.is_cuda:
+        if out is None:
+            out = DenseForces(y.shape[0], y.device)
+        out.launch(y, p_dense, n_valid)
+        tsne_forces_dense.launches += 1
+        return out.attr, out.rep, out.z
+    if y.device.type != "cpu":
+        raise ValueError(f"tsne_forces_dense: no kernel for {y.device}")
+    attr, rep, z = tsne_forces_dense_reference(y, p_dense, n_valid)
+    if out is None:
+        return attr, rep, z
+    out.attr.copy_(attr)
+    out.rep.copy_(rep)
+    out.z.copy_(z)
+    return out.attr, out.rep, out.z
 
 
 tsne_forces_dense.launches = 0
 
 
+def forces_rcp_mismatches(device="cuda", lo: int = 0x3F800000,
+                          hi: int = 0x7E800000) -> int:
+    """How many float32 x, as bit patterns in [lo, hi) (by default every
+    float in [1, 2^126)), the kernel's reciprocal (csrc ``rcp_ge1``) gives
+    other bits for than IEEE 1 / x (``__frcp_rn``): one launch of
+    ``tsne_forces_dense_rcp_check`` on the card."""
+    fn = _library("tsne_forces_dense").tsne_forces_dense_rcp_check
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_uint, ctypes.c_uint, _P, _P]
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(count.device):
+        err = fn(lo, hi - lo, count.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("tsne_forces_dense_rcp_check: launch failed with "
+                           f"CUDA error {err}")
+    return int(count)
+
+
 def tsne_forces_dense_reference(y: torch.Tensor, p_dense: torch.Tensor,
                                 n_valid: int, row_block: int = 1024):
     """The plain PyTorch twin: the same seven row sums over row blocks of
-    the dense tile, on whatever device the tensors lie."""
+    the dense tile, on whatever device the tensors lie, and Z as torch's
+    sum of the rows' z.  The kernel adds the rows' z in another fixed
+    order (csrc/tsne_forces_dense.cu); the twin keeps torch's, because the
+    dense tier's CPU trajectory turns on Z's last bit (one ulp of Z moves
+    the KL after 250 iterations of tests/test_torch_pipeline.py's scene by
+    8-29 %)."""
     n_valid = int(n_valid)
     _check_inputs(y, p_dense, n_valid)
     npad = y.shape[0]

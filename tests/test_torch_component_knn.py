@@ -26,6 +26,9 @@ from sph_tpu_torch.ops import similarities as tsim
 from sph_tpu_torch.utils.testdata import create_checker_image
 
 from test_torch_knn_ivf import KmeansTape
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 CPU = torch.device("cpu")
 

@@ -35,6 +35,9 @@ from sph_tpu_torch.utils.logging import set_level
 from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
 
 from test_torch_knn_ivf import KmeansTape
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 EPS = float(np.finfo(np.float32).eps)
 

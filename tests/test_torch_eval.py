@@ -28,6 +28,9 @@ from sph_tpu_torch.evaluation import settings as tes
 from sph_tpu_torch.ops import sparse as tsparse
 from sph_tpu_torch.utils import io as tio
 from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KL_RTOL = 0.01          # tests/test_torch_pipeline.py:129
@@ -252,10 +255,10 @@ def _run_both(root, norm: str) -> dict:
             return super().compute_umap(inp)
 
     class PortEmbedding(tre.ComputeEmbedding):
-        def compute_umap(self, inp):
-            seen["port"].append(
-                {"m": tsparse.symmetrize_umap(inp).to_dense()})
-            return super().compute_umap(inp)
+        def compute_umap(self, inp, device_path=False):
+            seen["port"].append({"m": tsparse.symmetrize_umap(
+                inp, device_path=device_path).to_dense()})
+            return super().compute_umap(inp, device_path=device_path)
 
     out = {"seen": seen}
     for name, mod, load, kw in (

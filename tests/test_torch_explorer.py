@@ -27,6 +27,9 @@ from sph_tpu_torch.utils.logging import set_level
 from sph_tpu_torch.utils.testdata import create_checker_image
 from sph_tpu_torch.vis_interactive import export_explorer as texport
 from sph_tpu_torch.vis_server import ExplorerServer as TServer
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 
 def checker(P, handling="merge_rw_only", **kw):

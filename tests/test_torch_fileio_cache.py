@@ -19,6 +19,9 @@ import sph_tpu_torch as T
 from sph_tpu_torch import native as tnative
 from sph_tpu_torch.utils import cache as tcache
 from sph_tpu_torch.utils import fileio as tfio
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 
 @pytest.fixture(autouse=True)

@@ -30,6 +30,9 @@ from sph_tpu_torch.settings import KnnIndex
 from sph_tpu_torch.utils import distance_cache as tdc
 from sph_tpu_torch.utils.logging import set_level
 from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 
 @pytest.fixture(autouse=True)

@@ -22,6 +22,9 @@ from sph_tpu_torch.ops import shortest_path as tsp
 from sph_tpu_torch.utils.logging import set_level
 from sph_tpu_torch.utils.testdata import (create_checker_image,
                                           create_hyperspectral_scene)
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 
 @pytest.fixture(autouse=True)

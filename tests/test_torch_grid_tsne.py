@@ -23,6 +23,9 @@ import sph_tpu_torch as T
 from sph_tpu_torch.models import tsne as ttsne
 from sph_tpu_torch.ops import tsne_grid as tgrid
 from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 TSNE_ENV = ("SPH_TSNE_DENSE_P", "SPH_TSNE_DENSE_P_MAX", "SPH_TSNE_GRID",
             "SPH_TSNE_GRID_MIN", "SPH_TSNE_GRID_MAX", "SPH_TSNE_P_WIDTH_CAP",

@@ -30,6 +30,9 @@ from sph_tpu_torch.ops.tsne_kernels import (REPULSION_CHUNK,
                                             tsne_repulsion_blocks_per_sm,
                                             tsne_repulsion_reference,
                                             tsne_repulsion_rows)
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 INTERPRET = jax.default_backend() != "tpu"
 
@@ -49,6 +52,36 @@ def _inputs(n, npad, seed=2):
     return y, p
 
 
+# csrc/tsne_forces_dense.cu's order of Z: kZRows rows a tile, kZLanes
+# partials of the tiles
+Z_ROWS, Z_LANES = 16, 256
+
+
+def forces_z(zrow: torch.Tensor) -> torch.Tensor:
+    """Z from the rows' z (0 on pad rows) in csrc/tsne_forces_dense.cu's
+    order, vectorized: each tile of Z_ROWS rows added in row order, tile t
+    added into partial t mod Z_LANES in tile order, then the partials
+    halved pairwise (lane i + lane i + h for h = Z_LANES / 2, ..., 1)."""
+    lanes_n = Z_LANES
+    rows = zrow.reshape(-1, Z_ROWS)
+    tile_z = rows[:, 0]
+    for r in range(1, Z_ROWS):
+        tile_z = tile_z + rows[:, r]
+    m = -(-tile_z.numel() // lanes_n)
+    lanes = torch.zeros(max(m, 1) * lanes_n, dtype=zrow.dtype,
+                        device=zrow.device)
+    lanes[:tile_z.numel()] = tile_z
+    lanes = lanes.reshape(-1, lanes_n)
+    acc = lanes[0]
+    for i in range(1, lanes.shape[0]):
+        acc = acc + lanes[i]
+    h = lanes_n // 2
+    while h:
+        acc = acc[:h] + acc[h:2 * h]
+        h //= 2
+    return acc[0]
+
+
 def _assert_close(attr, rep, z, attr_ref, rep_ref, z_ref, n):
     assert np.isclose(float(z), float(z_ref), rtol=1e-5)
     for got, ref in ((rep, rep_ref), (attr, attr_ref)):
@@ -57,16 +90,28 @@ def _assert_close(attr, rep, z, attr_ref, rep_ref, z_ref, n):
         assert np.all(got[n:] == 0)
 
 
-@pytest.mark.parametrize("n,npad", [(100, 256), (256, 256)])
+@pytest.mark.parametrize("n,npad", [(100, 256), (256, 256), (700, 1024)])
 def test_forces_twin_matches_pallas_interpret(n, npad):
+    """The twin against the Pallas kernel in interpret mode, and Z summed
+    in the kernel's order (forces_z over the rows' z): Z within 1e-5
+    relative, attr and rep within 1e-5 x max|JAX| (float32 sums in other
+    orders), pad rows 0."""
     y, p = _inputs(n, npad)
     attr_j, rep_j, z_j = jax_forces(jnp.asarray(y), jnp.asarray(p),
                                     jnp.int32(n), row_block=128,
-                                    col_block=256, interpret=INTERPRET)
+                                    col_block=min(npad, 512),
+                                    interpret=INTERPRET)
     attr, rep, z = tsne_forces_dense(torch.from_numpy(y), torch.from_numpy(p),
                                      n)
     _assert_close(attr.numpy(), rep.numpy(), z, np.asarray(attr_j),
                   np.asarray(rep_j), z_j, n)
+    d2 = ((y[:n, None, :] - y[None, :n, :]) ** 2).sum(-1)
+    w = (1.0 / (1.0 + d2)).astype(np.float32)
+    np.fill_diagonal(w, 0.0)
+    zrow = np.zeros(npad, np.float32)
+    zrow[:n] = w.sum(1)
+    z_kernel_order = forces_z(torch.from_numpy(zrow))
+    assert np.isclose(float(z_kernel_order), float(z_j), rtol=1e-5)
 
 
 @pytest.mark.parametrize("n,npad", [(100, 256), (256, 256)])
@@ -94,6 +139,146 @@ def test_forces_cpu_tensor_takes_twin_and_counts_no_launch():
     assert tsne_forces_dense.launches == before
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,npad", [(50, 128), (700, 1024)])
+def test_forces_caller_owned_buffers_on_the_cpu(n, npad):
+    """With ``out`` the results are the buffers' tensors, equal to the
+    twin's, and a second call overwrites the same buffers."""
+    y, p = _inputs(n, npad)
+    y_t, p_t = torch.from_numpy(y), torch.from_numpy(p)
+    out = tsne_kernels.DenseForces(npad, "cpu")
+    got = tsne_forces_dense(y_t, p_t, n, out=out)
+    assert got[0] is out.attr and got[1] is out.rep and got[2] is out.z
+    ref = tsne_forces_dense_reference(y_t, p_t, n)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    ptrs = [t.data_ptr() for t in got]
+    y2 = y_t * 1.5
+    again = tsne_forces_dense(y2, p_t, n, out=out)
+    assert [t.data_ptr() for t in again] == ptrs
+    for a, b in zip(again, tsne_forces_dense_reference(y2, p_t, n)):
+        assert torch.equal(a, b)
+
+
+def _kernel_z_order(zrow: np.ndarray) -> np.float32:
+    """csrc/tsne_forces_dense.cu's Z, step by step in numpy float32: each
+    tile of Z_ROWS rows left to right, partial t of Z_LANES over tiles t,
+    t + Z_LANES, ... left to right, then the halving tree."""
+    threads = Z_LANES
+    tiles = zrow.reshape(-1, Z_ROWS)
+    tz = []
+    for row in tiles:
+        acc = np.float32(row[0])
+        for v in row[1:]:
+            acc = np.float32(acc + v)
+        tz.append(acc)
+    red = []
+    for t in range(threads):
+        acc = np.float32(0.0)
+        for j in range(t, len(tz), threads):
+            acc = np.float32(acc + tz[j])
+        red.append(acc)
+    h = threads // 2
+    while h:
+        red = [np.float32(red[i] + red[i + h]) for i in range(h)]
+        h //= 2
+    return red[0]
+
+
+@pytest.mark.parametrize("npad", [128, 256, 8192, 16384, 28672])
+def test_forces_z_sums_in_the_kernel_order(npad):
+    """forces_z (the kernel's order, vectorized) is the step-by-step
+    emulation bit for bit, on rows with pad zeros, at one and at several
+    tiles per thread."""
+    r = np.random.default_rng(npad)
+    zrow = np.zeros(npad, np.float32)
+    zrow[:npad - 40] = r.random(npad - 40, dtype=np.float32) * 100
+    got = forces_z(torch.from_numpy(zrow))
+    assert got.dtype == torch.float32
+    assert float(got) == float(_kernel_z_order(zrow))
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("npad", [128, 256, 512, 768, 1024, 2048, 4096, 6144,
+                                  16384, 21504, 28672])
+@pytest.mark.parametrize("pads", [0, 7])
+def test_forces_plan_covers_every_column_once(npad, sms, pads):
+    """For n_valid = npad (pads 0) or npad less a seventh, rounded to whole
+    rows (pads 7): the splits cut the live columns [0, ceil128(n_valid))
+    into ranges of whole warp steps; the row tiles cover the rows; where
+    the columns allow it, the plan gives each SM at least
+    FORCES_BLOCKS_PER_SM blocks of tiles that hold a real row."""
+    n = npad - (npad // pads if pads else 0)
+    plan = tsne_kernels.forces_plan(n, npad, sms)
+    step = tsne_kernels.FORCES_STEP
+    cols = -(-n // step) * step
+    live_tiles = -(-n // tsne_kernels.FORCES_ROWS)
+    assert plan.tiles * tsne_kernels.FORCES_ROWS == npad
+    assert plan.split_cols % step == 0
+    ranges = [(s * plan.split_cols, min((s + 1) * plan.split_cols, cols))
+              for s in range(plan.splits)]
+    assert _partition(ranges, cols)
+    if plan.splits > 1:
+        assert plan.split_cols >= tsne_kernels.FORCES_MIN_SPLIT
+    if cols // tsne_kernels.FORCES_MIN_SPLIT > plan.splits:
+        assert plan.split_cols <= tsne_kernels.FORCES_MAX_SPLIT
+    if cols // tsne_kernels.FORCES_MIN_SPLIT >= plan.splits + 1:
+        assert live_tiles * plan.splits >= (
+            tsne_kernels.FORCES_BLOCKS_PER_SM * sms)
+    assert live_tiles * plan.splits >= min(
+        live_tiles, tsne_kernels.FORCES_BLOCKS_PER_SM * sms)
+
+
+def test_dense_tier_steps_match_jax_with_caller_owned_buffers(monkeypatch):
+    """Five dense-tier iterations, each from the JAX package's state (its
+    Pallas kernel in interpret mode), n_valid 300 of Npad 512: the port's
+    step through one DenseForces allocated once a run gives the JAX
+    package's layout, velocity and gain within 1e-5 x their largest
+    value."""
+    import sph_tpu as J
+    from sph_tpu.ops.pallas import tsne_kernels as jax_kernels
+    from sph_tpu.ops.sparse import normalize_rows, symmetrize_tsne
+    import sph_tpu_torch as T
+    from sph_tpu_torch.models import tsne as ttsne
+    from sph_tpu_torch.ops.math import random_disk_init
+    import functools
+    monkeypatch.setattr(jax_kernels, "tsne_forces_dense", functools.partial(
+        jax_kernels.tsne_forces_dense, interpret=True))
+    n = 300
+    r = np.random.default_rng(8)
+    idx = np.sort(np.stack([r.choice(n, 20, replace=False)
+                            for _ in range(n)]), 1).astype(np.int32)
+    p = symmetrize_tsne(normalize_rows(J.SparseRows(
+        idx, r.random((n, 20), dtype=np.float32), n)))
+    init = random_disk_init(n, 0.1, seed=0)
+    tj = J.TsneComputation(J.TsneParameters(), use_pallas=True)
+    tj.set_probability_distribution(p)
+    tj.set_initial_embedding(init)
+    tj._init_gradient_descent()
+    tt = ttsne.TsneComputation(T.TsneParameters(), device="cpu")
+    tt.set_probability_distribution(T.SparseRows(p.indices, p.values, n,
+                                                  device="cpu"))
+    tt.set_initial_embedding(init)
+    tt._init_gradient_descent()
+    assert tt.tier == "dense" and tt._npad == 512
+    bufs = tt._forces_out
+    assert isinstance(bufs, tsne_kernels.DenseForces) and bufs.npad == 512
+    for _ in range(5):
+        s = tj._state
+        tt._y = torch.tensor(np.array(s.embedding))
+        tt._vel = torch.tensor(np.array(s.velocity))
+        tt._gain = torch.tensor(np.array(s.gain))
+        tt._iteration = s.iteration
+        tt._step()
+        tj.continue_gradient_descent(1)
+        s = tj._state
+        for got, ref in ((tt._y, s.embedding), (tt._vel, s.velocity),
+                         (tt._gain, s.gain)):
+            ref = np.asarray(ref)
+            scale = float(np.abs(ref).max())
+            assert np.abs(got.numpy() - ref).max() <= 1e-5 * scale
+        assert tt._forces_out is bufs
 
 
 @pytest.mark.parametrize("bad", ["shape", "dtype", "n_valid"])
@@ -131,17 +316,34 @@ def test_kernel_source_notes_the_tpu_kernel_it_replaces():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,npad", [(1000, 1024), (5284, 6144)])
+def test_forces_cuda_reciprocal_is_ieee():
+    """The kernel's branch-free reciprocal gives IEEE 1 / x's bits on every
+    float32 in [1, 2^126)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    assert tsne_kernels.forces_rcp_mismatches() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,npad", [(1, 256), (255, 256),
+                                    (402, 512), (1000, 1024), (1286, 2048),
+                                    (5284, 6144)])
 def test_forces_cuda_kernel_matches_twin(n, npad):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
     y, p = _inputs(n, npad, seed=5)
     y_d, p_d = torch.from_numpy(y).cuda(), torch.from_numpy(p).cuda()
     before = tsne_forces_dense.launches
-    attr, rep, z = tsne_forces_dense(y_d, p_d, n)
+    out = tsne_kernels.DenseForces(npad, y_d.device)
+    attr, rep, z = tsne_forces_dense(y_d, p_d, n, out=out)
+    first = [t.clone() for t in (attr, rep, z)]
+    again = tsne_forces_dense(y_d, p_d, n, out=out)
+    fresh = tsne_forces_dense(y_d, p_d, n)
     attr_r, rep_r, z_r = tsne_forces_dense_reference(y_d, p_d, n)
     torch.cuda.synchronize()
-    assert tsne_forces_dense.launches == before + 1
+    assert tsne_forces_dense.launches == before + 3
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert all(torch.equal(a, b) for a, b in zip(first, fresh))
     _assert_close(attr.cpu().numpy(), rep.cpu().numpy(), z.cpu(),
                   attr_r.cpu().numpy(), rep_r.cpu().numpy(), z_r.cpu(), n)
 

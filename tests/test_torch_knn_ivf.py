@@ -30,6 +30,9 @@ from sph_tpu.ops import knn as jknn
 import sph_tpu_torch as T
 from sph_tpu_torch.ops import knn as tknn
 from sph_tpu_torch.utils.testdata import create_clustered_points
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 CPU = torch.device("cpu")
 N, D, K = 3000, 16, 10

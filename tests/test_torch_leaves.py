@@ -37,6 +37,9 @@ from sph_tpu_torch.utils import profiling as tprof
 from sph_tpu_torch.utils import progress as tprog
 from sph_tpu_torch.utils import stats as tstats
 from sph_tpu_torch.utils import testdata as tdata
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 CPU = torch.device("cpu")
 

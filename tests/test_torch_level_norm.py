@@ -20,6 +20,9 @@ from sph_tpu_torch.ops import math as tmath
 from sph_tpu_torch.ops.numerics import np_row_sum
 from sph_tpu_torch.utils.testdata import (create_checker_image,
                                           create_hyperspectral_scene)
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 RTOL = 1e-6
 

@@ -24,6 +24,9 @@ from sph_tpu_torch.ops import knn as tknn
 from sph_tpu_torch.ops import numerics, rng
 from sph_tpu_torch.ops import sparse as tsparse
 from sph_tpu_torch.ops import walks as twalks
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 CPU = torch.device("cpu")
 

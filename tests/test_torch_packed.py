@@ -31,6 +31,9 @@ from sph_tpu_torch.models import umap as tumap
 from sph_tpu_torch.ops import tsne_kernels
 from sph_tpu_torch.ops.packing import pack_positions, unpack_positions
 from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 SWITCHES = ("SPH_TSNE_DENSE_P", "SPH_TSNE_DENSE_P_MAX", "SPH_TSNE_GRID",
             "SPH_TSNE_GRID_MIN", "SPH_TSNE_GRID_MAX", "SPH_TSNE_P_WIDTH_CAP",

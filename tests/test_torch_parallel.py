@@ -38,6 +38,9 @@ from sph_tpu_torch.ops import rng
 from sph_tpu_torch.ops import tsne_kernels
 from sph_tpu_torch.parallel import mesh as tmesh
 from sph_tpu_torch.parallel import sharded as tsh
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 CPU = torch.device("cpu")
 MESH8 = [CPU] * 8

@@ -20,6 +20,9 @@ import sph_tpu.ops.pallas.tsne_kernels as jax_kernels
 import sph_tpu_torch as T
 from sph_tpu_torch.utils.testdata import (create_checker_image,
                                           create_hyperspectral_scene)
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIDE = 24          # a <= 32 x 32 scene

@@ -19,6 +19,9 @@ import sph_tpu_torch as T
 import sph_tpu_torch.settings as tset
 from sph_tpu_torch import interop
 from sph_tpu_torch.device import resolve_device
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -49,6 +49,9 @@ from sph_tpu_torch.utils.logging import set_level
 from sph_tpu_torch.utils.testdata import create_checker_image
 
 from test_torch_knn_ivf import KmeansTape
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -16,6 +16,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke  # noqa: E402
 import sph_tpu_torch as T  # noqa: E402
 from sph_tpu_torch.ops import tsne_kernels  # noqa: E402
+from test_torch_reference_native import use_reference_native  # noqa: E402
+
+use_reference_native()
 
 _spec = importlib.util.spec_from_file_location(
     "repulsion_readout", os.path.join(os.path.dirname(chip_smoke.__file__),
@@ -152,7 +155,9 @@ def test_grid_vs_exact_scores_both_layouts_under_one_p(small_grid_default):
 def test_kernel_bounds_from_the_shapes():
     dense = chip_smoke.forces_bound(5358, 6144)
     assert dense["bound_by"] == "bytes"
-    assert abs(dense["bound_ms"] - 4 * 6144 ** 2 / 3.35e12 * 1e3) < 1e-4
+    # P's 5358 x 5358 live block, not its 6144^2 pads included
+    assert abs(dense["bound_ms"] - 4 * 5358 ** 2 / 3.35e12 * 1e3) < 1e-4
+    assert dense["bound_ms"] < 0.8 * 4 * 6144 ** 2 / 3.35e12 * 1e3
     rep = chip_smoke.repulsion_bound(10 ** 6, 1_000_448)
     assert rep["bound_by"] == "operations"
     assert abs(rep["bound_ms"] - 14e12 / 67e12 * 1e3) < 1e-6
@@ -658,3 +663,169 @@ def test_padded_lists_share_one_width():
     a, b = chip_smoke.padded_lists([[1, 2], [3]], [[4, 5, 6], []])
     assert a.tolist() == [[1, 2, -1], [3, -1, -1]]
     assert b.tolist() == [[4, 5, 6], [-1, -1, -1]]
+
+
+# ---------------------------------------------------------------------------
+# tsne_forces_dense's kernel_vs_twin checks and the level-0 membership gate
+# ---------------------------------------------------------------------------
+
+def _forces_result(n: int, npad: int, seed: int):
+    """A stand-in (attr, rep, Z) at the shape: pad rows 0."""
+    g = torch.Generator().manual_seed(seed)
+    attr = torch.zeros((npad, 2))
+    rep = torch.zeros((npad, 2))
+    attr[:n] = torch.randn((n, 2), generator=g)
+    rep[:n] = torch.randn((n, 2), generator=g)
+    return attr, rep, torch.tensor(float(n) * 3.5)
+
+
+@pytest.mark.parametrize("n,npad", chip_smoke.FORCES_SHAPES)
+@pytest.mark.parametrize("fault", ["none", "z", "pad_row", "second_call"])
+def test_forces_checks_catch_a_wrong_z_a_pad_row_and_unequal_calls(
+        n, npad, fault):
+    """Each kernel_vs_twin shape's check: passes on the twin's own result,
+    raises on a Z off by 1e-4 relative, on a pad row that is not 0 and on
+    a second call that differs in one bit."""
+    ref = _forces_result(n, npad, seed=npad)
+    got = tuple(t.clone() for t in ref)
+    again = tuple(t.clone() for t in ref)
+    if fault == "z":
+        got = (got[0], got[1], got[2] * (1 + 1e-4))
+    elif fault == "pad_row":
+        got[1][npad - 1, 0] = 1e-30
+    elif fault == "second_call":
+        again[0][0, 0] = torch.nextafter(again[0][0, 0], torch.tensor(1.0))
+    if fault == "none":
+        out = chip_smoke.forces_checks(got, again, ref, n, "forces")
+        assert out["max_abs_err"] == 0 and out["bits_equal_two_calls"]
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke.forces_checks(got, again, ref, n, "forces")
+
+
+def test_forces_shapes_are_the_dense_tiers_own():
+    """Each of FORCES_SHAPES is an (n, Npad) that the dense tier gives n
+    points: Npad 512 to 28672, as the paths run them."""
+    from sph_tpu_torch.models.tsne import dense_npad
+    npads = [npad for _, npad in chip_smoke.FORCES_SHAPES]
+    assert npads == [512, 2048, 4096, 6144, 21504, 28672]
+    assert all(dense_npad(n) == npad for n, npad in chip_smoke.FORCES_SHAPES)
+
+
+def test_random_joint_p_is_a_joint_p(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    y, p = chip_smoke.random_joint_p(300, 512, seed=3)
+    again = chip_smoke.random_joint_p(300, 512, seed=3)
+    assert torch.equal(p, again[1]) and torch.equal(y, again[0])
+    assert torch.allclose(p, p.T, atol=1e-12)
+    assert float(p.diagonal().abs().max()) == 0
+    assert float(p[300:].abs().max()) == 0 == float(p[:, 300:].abs().max())
+    assert abs(float(p.sum()) - 1.0) < 1e-5
+    assert float(y[300:].abs().max()) == 0
+
+
+@pytest.mark.parametrize("count,ok", [(2987706, True), (2988314, False)])
+def test_umap_level0_gate_holds_the_record_count(count, ok):
+    """eval_pines_umap's level-0 gate: the record's 2987706 passes, the
+    host path's union (the port before its device path) is caught."""
+    ref = {"umap_memberships": [2987706, 808858, 10178, 118, 0, None]}
+    r = {"run": {"embeddings": [
+        {"level": 0, "method": "umap", "memberships": count},
+        {"level": 1, "method": "umap", "memberships": 808858}]}}
+    if ok:
+        out = chip_smoke.umap_level0_gate(r, ref, "eval_pines_umap")
+        assert out["level_0_umap_memberships_equal_to_record"]
+    else:
+        with pytest.raises(AssertionError, match="2988314"):
+            chip_smoke.umap_level0_gate(r, ref, "eval_pines_umap")
+
+
+def test_grid_repulsion_bound_counts_each_stage_once():
+    """At 10^6 points on the 1024 grid: 82.7 MB over the three stages and
+    about 2.4 GFLOP, nine 2-D FFTs of 2048^2 most of it, so the operations
+    bound it; on a 128 grid the bytes do."""
+    big = chip_smoke.grid_repulsion_bound(1_000_000, 1_000_448, 1024)
+    assert big["bytes"] == 8 * 10**6 + 56 * 1024**2 + 8 * 10**6 \
+        + 8 * 1_000_448 + 4
+    assert big["bound_by"] == "operations"
+    assert 2.3e9 < big["flops"] < 2.5e9
+    assert abs(big["bound_ms"] - big["flops"] / chip_smoke.FP32_FLOPS_PER_S
+               * 1e3) < 1e-12
+    assert chip_smoke.grid_repulsion_bound(
+        1_000_000, 1_000_448, 128)["bound_by"] == "bytes"
+
+
+def _hub_joint_p(n: int = 300, width: int = 5, hubs: int = 4, seed: int = 5):
+    """Conditional rows with a few hub columns (their in-degree far past
+    16), symmetrized on the device path with SPH_SYM_WREV_MAX 16 and on
+    the host path, and the device path's shed entries as the smoke test
+    works them out."""
+    from sph_tpu_torch.ops import sparse as tsp
+    r = np.random.default_rng(seed)
+    idx = np.full((n, width), -1, np.int64)
+    val = np.zeros((n, width), np.float32)
+    for i in range(n):
+        m = int(r.integers(2, width + 1))
+        hub = np.setdiff1d(np.arange(hubs), [i])[:2]
+        rest = r.choice(np.setdiff1d(np.arange(n), np.r_[hub, i]), m - 2,
+                        replace=False)
+        cols = np.sort(np.r_[hub, rest])
+        idx[i, :m] = cols
+        v = r.random(m).astype(np.float32)
+        val[i, :m] = v / v.sum()
+    cond = tsp.SparseRows(idx, val, n, device="cpu")
+    mp = pytest.MonkeyPatch()
+    mp.setenv("SPH_SYM_WREV_MAX", "16")
+    try:
+        dev = tsp.symmetrize_tsne(cond, device_path=True)
+        shed = chip_smoke.shed_reverse_keys(cond)
+    finally:
+        mp.undo()
+    host = tsp.symmetrize_tsne(cond)
+    return dev, host, shed
+
+
+def _entries(p) -> dict:
+    n = p.num_rows
+    out = {}
+    for i in range(n):
+        for j, v in zip(p.indices[i], p.values[i]):
+            if j >= 0 and v != 0:
+                out[i * n + int(j)] = float(v)
+    return out
+
+
+def test_shed_reverse_keys_are_where_the_device_path_differs():
+    """The entries that the smoke test works out as shed are exactly those
+    where the device path's P lacks the host union's entry or holds
+    another value."""
+    dev, host, shed = _hub_joint_p()
+    d, h = _entries(dev), _entries(host)
+    differ = {k for k, v in h.items() if d.get(k) != v}
+    assert set(d) <= set(h)
+    assert differ and differ == set(shed.tolist())
+
+
+def test_p_mirror_checks_allow_only_the_device_paths_hub_shedding():
+    """The device path's P passes with its shed entries given and fails
+    without them; the host path's P passes either way; an entry changed on
+    a hub row, away from the shed entries, is still caught."""
+    dev, host, shed = _hub_joint_p()
+    out = chip_smoke.p_mirror_checks(dev, shed)
+    assert out["p_reverse_entries_shed"] == shed.numel() >= 1
+    assert out["p_asymmetry"] == 0
+    with pytest.raises(AssertionError):
+        chip_smoke.p_mirror_checks(dev)
+    for keys in (None, shed):
+        assert chip_smoke.p_mirror_checks(host, keys)["p_mirrors_cut"] == 0
+    n = dev.num_rows
+    shed_set = set(shed.tolist())
+    bad = dev.copy()
+    row, slot = next(
+        (i, j) for i in range(4) for j in range(dev.width)
+        if dev.indices[i, j] >= 0
+        and i * n + int(dev.indices[i, j]) not in shed_set
+        and int(dev.indices[i, j]) * n + i not in shed_set)
+    bad.val[row, slot] *= 1.5
+    with pytest.raises(AssertionError, match="symmetric"):
+        chip_smoke.p_mirror_checks(bad, shed)

@@ -20,6 +20,9 @@ import chip_smoke  # noqa: E402
 from sph_tpu_torch.ops import shortest_path as tsp  # noqa: E402
 from sph_tpu_torch.ops import tsne_kernels  # noqa: E402
 from sph_tpu_torch.utils.logging import set_level  # noqa: E402
+from test_torch_reference_native import use_reference_native  # noqa: E402
+
+use_reference_native()
 
 ITERS = 100
 

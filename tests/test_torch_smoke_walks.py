@@ -27,6 +27,9 @@ from sph_tpu.evaluation import run_evaluation as jre  # noqa: E402
 from sph_tpu_torch.models import tsne as ttsne  # noqa: E402
 from sph_tpu_torch.ops import tsne_kernels  # noqa: E402
 from sph_tpu_torch.utils.logging import set_level  # noqa: E402
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 PINES = (14, 12, 8)
 SALINAS = (48, 40, 16)

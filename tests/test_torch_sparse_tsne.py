@@ -29,6 +29,9 @@ from sph_tpu_torch.ops.tsne_kernels import (tsne_repulsion,
                                             tsne_repulsion_reference,
                                             tsne_repulsion_rows)
 from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 TIER_ENV = ("SPH_TSNE_DENSE_P", "SPH_TSNE_DENSE_P_MAX", "SPH_TSNE_GRID",
             "SPH_TSNE_GRID_MIN", "SPH_TSNE_P_WIDTH_CAP",

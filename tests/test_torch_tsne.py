@@ -27,6 +27,9 @@ from sph_tpu.models.tsne import _repulsive_forces, tsne_kl_divergence
 from sph_tpu.ops.math import random_disk_init
 from sph_tpu.ops.sparse import normalize_rows, symmetrize_tsne
 from sph_tpu_torch.models import tsne as ttsne
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 
 @pytest.fixture

@@ -27,6 +27,9 @@ from sph_tpu_torch.models import umap as tumap
 from sph_tpu_torch.ops import distributions as tdist
 from sph_tpu_torch.ops import rng
 from sph_tpu_torch.ops import sparse as tsparse
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 CPU = torch.device("cpu")
 UMAP_ENV = ("SPH_UMAP_DENSE_MAX", "SPH_UMAP_ROWS_WIDTH", "SPH_UMAP_NEG_BUDGET",

@@ -26,6 +26,9 @@ from sph_tpu.ops.knn import knn_bruteforce
 from sph_tpu.utils.testdata import create_3d_gaussians
 from sph_tpu_torch import native as tnative
 from sph_tpu_torch.models import umap as tumap
+from test_torch_reference_native import use_reference_native
+
+use_reference_native()
 
 UMAP_ENV = ("SPH_UMAP_DENSE_MAX", "SPH_UMAP_ROWS_WIDTH", "SPH_UMAP_NEG_BUDGET",
             "SPH_UMAP_EDGE_PATH", "SPH_UMAP_DISPATCH_BUDGET")
