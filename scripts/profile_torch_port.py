@@ -32,7 +32,10 @@ a warm-up at 48x48, each stage under its own window, and also gives each
 stage's Bellman-Ford relax sweeps (ops/shortest_path.relax, under a
 record_function span): the device time of the operations launched inside
 the spans, as their host trees list them, in seconds and as a share of
-the stage's device time, and the number of spans.
+the stage's device time, and the number of spans; and the device time of
+the kernel bellman_ford_relax (``relax_kernel``) by its name, with its
+launch count (a launch through ctypes may be missing from the span's
+host tree).
 
 Prints, per stage, the wall seconds, the device seconds (the sum of its
 kernels and copies, counted as torch.profiler counts its "Self CUDA time
@@ -52,9 +55,11 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the __global__ names of csrc/: tsne_forces_dense, tsne_repulsion's unit
-# and split-sum kernels, and its earlier single kernel (older checkouts)
+# and split-sum kernels, its earlier single kernel (older checkouts),
+# tsne_attraction and bellman_ford_relax
 KERNEL_NAMES = ("forces_dense_kernel", "repulsion_units", "reduce_splits",
-                "repulsion_kernel")
+                "repulsion_kernel", "attraction_kernel", "relax_kernel")
+RELAX_KERNEL = "relax_kernel"
 RELAX_SPAN = "shortest_path.relax"
 
 
@@ -287,6 +292,8 @@ def main() -> int:
             with torch.profiler.record_function(RELAX_SPAN):
                 return relax(*a, **kw)
 
+        # the wrapper counts its launches on the module's `relax`: this span
+        spanned_relax.launches = relax.launches
         shortest_path.relax = spanned_relax
         run(lambda name: contextlib.nullcontext(), 48)
     elif args.path == "ivf":
@@ -333,6 +340,11 @@ def main() -> int:
             lines.append(f"{'  of which relax sweeps':28s} {'':10s} "
                          f"{relax_s:10.4f} {relax_s / max(dev_s, 1e-12):7.1%}"
                          f" {spans:11d}")
+            kern = [e for e in ops if RELAX_KERNEL in e.name]
+            kern_s = sum(e.self_device_time_total for e in kern) / 1e6
+            lines.append(f"{'  of which relax_kernel':28s} {'':10s} "
+                         f"{kern_s:10.4f} {kern_s / max(dev_s, 1e-12):7.1%}"
+                         f" {len(kern):11d}")
         tables += ["", f"{name}: top operations by self device time",
                    prof.key_averages().table(
                        sort_by="self_device_time_total", row_limit=12)]

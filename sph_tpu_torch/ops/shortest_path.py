@@ -16,9 +16,12 @@ same sweeps laid out for a GPU:
 
 - fields are [N + 1, F], node-major, so one in-edge reads F contiguous
   values; row N is an +inf sentinel that pad slots point at;
-- nodes are renumbered by descending in-degree, so the nodes that have a
-  j-th in-edge are a prefix, and the slots are gathered in chunks sized
-  from a memory budget ([rows, slots, F], then ``amin``);
+- on the card a sweep is the kernel csrc/bellman_ford_relax.cu (``relax``),
+  a warp a node reading its live in-edges from a CSR; on the CPU it is the
+  plain twin ``relax_reference``: nodes renumbered by descending in-degree,
+  so the nodes that have a j-th in-edge are a prefix, and the slots are
+  gathered in chunks sized from a memory budget ([rows, slots, F], then
+  ``amin``);
 - a sweep also returns, per field, the least value among the nodes it
   changed (the frontier).  No later sweep can lower a node below it, since
   every later candidate is a frontier value plus weights >= 0.  So a field
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .cuda_build import _launch, sm_count
 from .knn import _keys
 
 _FLOAT_MAX = np.float32(np.finfo(np.float32).max)
@@ -110,7 +114,11 @@ def _pack_in_edges(n: int, src, dst, w):
 class FieldGraph:
     """An in-edge table on a device, laid out for the relax sweeps: nodes
     renumbered by descending in-degree (``rank`` maps a node id to its
-    row), pad slots pointing at row N, the +inf sentinel."""
+    row), pad slots pointing at row N, the +inf sentinel (``idx``, ``w``
+    [N, Dmax], the twin's); and the same live in-edges as a CSR in rank
+    order, slot order within a row (the kernel's): ``csr_src`` int32 [E]
+    the sources' rows, ``csr_w`` float32 [E] the weights, ``csr_off``
+    int64 [N + 1] where each row's in-edges start."""
 
     def __init__(self, in_idx, in_w, device=None):
         in_idx = np.asarray(in_idx)
@@ -135,6 +143,13 @@ class FieldGraph:
         # active[j]: the rows that have a j-th in-edge (a prefix)
         at_least = np.cumsum(np.bincount(deg, minlength=dmax + 1)[::-1])
         self.active = [int(v) for v in at_least[::-1][1:]]
+        live = idx >= 0
+        self.csr_src = torch.as_tensor(rank[idx[live]].astype(np.int32),
+                                       device=self.device)
+        self.csr_w = torch.as_tensor(in_w[order][live], device=self.device)
+        off = np.zeros(n + 1, np.int64)
+        np.cumsum(live.sum(1), out=off[1:])
+        self.csr_off = torch.as_tensor(off, device=self.device)
 
     @classmethod
     def from_graph(cls, graph, device=None) -> "FieldGraph":
@@ -168,11 +183,54 @@ def relax_chunk_slots(rows: int, fields: int,
     return max(1, memory_budget // (4 * max(rows, 1) * max(fields, 1)))
 
 
+def _check_fields(d: torch.Tensor, g: FieldGraph, name: str):
+    if d.dim() != 2 or d.shape[0] != g.n + 1:
+        raise ValueError(f"{name}: fields must be [{g.n + 1}, F], got "
+                         f"{tuple(d.shape)}")
+    if d.dtype != torch.float32:
+        raise TypeError(f"{name}: fields must be float32, got {d.dtype}")
+
+
 def relax(d: torch.Tensor, g: FieldGraph,
           memory_budget: int = FIELD_MEMORY_BUDGET):
     """One Jacobi sweep: d'[v] = min(d[v], min_j d[in_j(v)] + w_j(v)) over
     the [N + 1, F] fields `d`.  Returns (d', frontier [F]): the least new
-    value among the nodes the sweep lowered, +inf where it lowered none."""
+    value among the nodes the sweep lowered, +inf where it lowered none.
+    d' is a new tensor; `d` is left as it is.
+
+    On a CUDA tensor the kernel csrc/bellman_ford_relax.cu, counted in
+    ``relax.launches``; on a CPU tensor the twin ``relax_reference`` (in
+    chunks of `memory_budget` bytes).  The two are bit-equal."""
+    _check_fields(d, g, "relax")
+    if d.device.type == "cpu" and g.device.type == "cpu":
+        return relax_reference(d, g, memory_budget)
+    if d.device.type != "cuda":
+        raise ValueError(f"relax: no kernel for {d.device}")
+    if g.csr_src.device != d.device:
+        raise ValueError(f"relax: the fields lie on {d.device}, the graph "
+                         f"on {g.csr_src.device}")
+    if not d.is_contiguous():
+        raise ValueError("relax: the fields must be contiguous")
+    f = d.shape[1]
+    out = torch.empty_like(d)
+    frontier = torch.full((f,), torch.inf, dtype=torch.float32,
+                          device=d.device)
+    _launch("bellman_ford_relax", d.device, d.data_ptr(),
+            g.csr_src.data_ptr(), g.csr_w.data_ptr(), g.csr_off.data_ptr(),
+            g.n, f, sm_count(d.device), out.data_ptr(), frontier.data_ptr())
+    relax.launches += 1
+    return out, frontier
+
+
+relax.launches = 0
+
+
+def relax_reference(d: torch.Tensor, g: FieldGraph,
+                    memory_budget: int = FIELD_MEMORY_BUDGET):
+    """The plain PyTorch twin of ``relax``, on whatever device the tensors
+    lie: the padded in-edge slots gathered in chunks ([rows, slots, F]
+    within `memory_budget` bytes), one float32 add a candidate, ``amin``."""
+    _check_fields(d, g, "relax_reference")
     best = d.clone()
     if g.dmax and g.active[0]:
         step = relax_chunk_slots(g.active[0], d.shape[1], memory_budget)
@@ -560,6 +618,36 @@ def geodesic_hausdorff_knn(graph, hierarchy, level: int, k: int,
     return ids, dists
 
 
+def level0_pairs(idx, dist, mask, a: np.ndarray, b: np.ndarray):
+    """Level-0 pairs (a[e], b[e]) over the kNN rows.  Returns (values [E]
+    float32: the direct kNN edge's max where both directions have one,
+    else FLOAT_MAX; todo: the unresolved pairs; srcs: their unique nodes,
+    one field each; field_pos [2T], eval_nodes [2T]: the field each lookup
+    reads, as an index into srcs, and where, b in a's field, then a in
+    b's)."""
+    def direct_lookup(src, dst):
+        rows_i = idx[src]
+        rows_d = np.where(mask[src], dist[src], np.inf)
+        hit = rows_i == dst[:, None]
+        has = hit.any(axis=1) & mask[src].any(axis=1)
+        return np.where(has, np.where(hit, rows_d, np.inf).min(axis=1),
+                        np.inf)
+
+    d_ab = direct_lookup(a, b)
+    d_ba = direct_lookup(b, a)
+    resolved = np.isfinite(d_ab) & np.isfinite(d_ba)
+    vals = np.full(len(a), _FLOAT_MAX, dtype=np.float32)
+    vals[resolved] = np.maximum(d_ab, d_ba)[resolved].astype(np.float32)
+    todo = np.nonzero(~resolved)[0]
+    srcs = np.unique(np.concatenate([a[todo], b[todo]]))
+    src_pos = np.full(int(srcs.max()) + 1 if srcs.size else 0, -1,
+                      dtype=np.int64)
+    src_pos[srcs] = np.arange(len(srcs))
+    field_pos = np.concatenate([src_pos[a[todo]], src_pos[b[todo]]])
+    eval_nodes = np.concatenate([b[todo], a[todo]])
+    return vals, todo, srcs, field_pos, eval_nodes
+
+
 def geodesic_component_distances(graph, data, hierarchy, level: int,
                                  a: np.ndarray, b: np.ndarray,
                                  num_samples: int = 0,
@@ -583,28 +671,12 @@ def geodesic_component_distances(graph, data, hierarchy, level: int,
     out = np.full(e, _FLOAT_MAX, dtype=np.float32)
 
     if level == 0:
-        def direct_lookup(src, dst):
-            rows_i = idx[src]
-            rows_d = np.where(mask[src], dist[src], np.inf)
-            hit = rows_i == dst[:, None]
-            has = hit.any(axis=1) & mask[src].any(axis=1)
-            return np.where(has, np.where(hit, rows_d, np.inf).min(axis=1),
-                            np.inf)
-
-        d_ab = direct_lookup(a, b)
-        d_ba = direct_lookup(b, a)
-        resolved = np.isfinite(d_ab) & np.isfinite(d_ba)
-        out[resolved] = np.maximum(d_ab, d_ba)[resolved].astype(np.float32)
-        todo = np.nonzero(~resolved)[0]
-        srcs = np.unique(np.concatenate([a[todo], b[todo]]))
+        out, todo, srcs, field_pos, eval_nodes = level0_pairs(
+            idx, dist, mask, a, b)
         LOG.append({"what": "level0_pairs", "pairs": e,
                     "unresolved_pairs": int(todo.size),
                     "unique_sources": int(srcs.size)})
         if todo.size:
-            src_pos = np.full(int(srcs.max()) + 1, -1, dtype=np.int64)
-            src_pos[srcs] = np.arange(len(srcs))
-            field_pos = np.concatenate([src_pos[a[todo]], src_pos[b[todo]]])
-            eval_nodes = np.concatenate([b[todo], a[todo]])
             vals = _pair_values_batched(g, srcs, field_pos, eval_nodes,
                                         field_batch)
             haus0 = np.maximum(vals[:todo.size], vals[todo.size:])

@@ -16,9 +16,10 @@ and the JAX package's XLA attraction over P's support
   grid and exact tiers and of the sharded steps.
 
 Each ``.cu`` under ``csrc/`` is compiled with nvcc for sm_90a into its own
-content-hashed shared library in ``_build/`` (all missing ones at once, one
-nvcc each), with a plain C entry point loaded with ctypes.  The sources note
-what bounds each kernel and how it is laid out.
+content-hashed shared library in ``_build/`` (``ops/cuda_build.py``: all
+missing ones at once, one nvcc each, the geodesic relax kernel of
+``ops/shortest_path.py`` included), with a plain C entry point loaded with
+ctypes.  The sources note what bounds each kernel and how it is laid out.
 
 A wrapper launches its kernel for CUDA tensors and counts each launch in
 ``<wrapper>.launches``.  A CPU tensor goes to the ``*_reference`` twin, the
@@ -28,105 +29,16 @@ same sums as plain torch ops; a CUDA tensor never does.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from dataclasses import dataclass
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# the build helpers, re-exported here under their old names
+from .cuda_build import (NVCC_FLAGS, _P, _launch, _library,  # noqa: F401
+                         _nvcc, build, library_path, sm_count, source)
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-# kernel name -> argument types of its C entry point ``<name>_launch``
-_SIGNATURES = {
-    "tsne_forces_dense": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                          _P],
-    "tsne_repulsion": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    "tsne_attraction": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _P,
-                        _P],
-}
-KERNELS = tuple(_SIGNATURES)
-
-_libs: dict[str, ctypes.CDLL] = {}
-
-
-def source(name: str) -> str:
-    return os.path.join(CSRC, f"{name}.cu")
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("tsne_kernels: nvcc not found (looked on PATH and "
-                           f"at {path})")
-    return path
-
-
-def library_path(name: str) -> str:
-    """Where the kernel's library lives: one file per source content and
-    flags."""
-    with open(source(name), "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}_{key.hexdigest()[:16]}.so")
-
-
-def build(*names: str) -> dict[str, str]:
-    """Compile the named kernels (all when none is named) into BUILD_DIR,
-    one nvcc each, all started together; return each library's path."""
-    names = names or KERNELS
-    paths = {name: library_path(name) for name in names}
-    todo = [name for name in names if not os.path.exists(paths[name])]
-    if todo:
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        nvcc = _nvcc()
-        procs = {}
-        for name in todo:
-            tmp = f"{paths[name]}.{os.getpid()}.tmp"
-            procs[name] = (tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, source(name)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        failed = []
-        for name, (tmp, proc) in procs.items():
-            out, _ = proc.communicate(timeout=600)
-            if proc.returncode != 0:
-                failed.append(f"{name}:\n{out}")
-            else:
-                os.replace(tmp, paths[name])
-        if failed:
-            raise RuntimeError("tsne_kernels: nvcc failed for "
-                               + "\n".join(failed))
-    return paths
-
-
-def _library(name: str) -> ctypes.CDLL:
-    if name not in _libs:
-        lib = ctypes.CDLL(build(name)[name])
-        fn = getattr(lib, f"{name}_launch")
-        fn.restype = ctypes.c_int
-        fn.argtypes = _SIGNATURES[name]
-        _libs[name] = lib
-    return _libs[name]
-
-
-def _launch(name: str, device: torch.device, *args):
-    """Call the kernel's C entry point on `device`'s current stream and raise
-    on the launch error it returns."""
-    fn = getattr(_library(name), f"{name}_launch")
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
+# the t-SNE kernels, each with its wrapper below
+KERNELS = ("tsne_forces_dense", "tsne_repulsion", "tsne_attraction")
 
 
 def _check_y(name: str, y: torch.Tensor, n_valid: int):
@@ -461,10 +373,6 @@ def repulsion_plan(n_valid: int, sms: int = 132) -> RepulsionPlan:
     return RepulsionPlan(n_valid, tiles, split_cols, -(-n_valid // split_cols))
 
 
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def tsne_repulsion_blocks_per_sm() -> int:
     """Blocks of the kernel resident on one SM of the current card, from
     the CUDA occupancy calculator."""
@@ -519,7 +427,7 @@ def tsne_repulsion_rows(y: torch.Tensor, n_valid: int, rows=None):
     scenes = y.shape[0] if y.dim() == 3 else 1
     npad = y.shape[-2]
     r0, r1 = _window(npad, rows)
-    plan = repulsion_plan(n_valid, _sm_count(y.device))
+    plan = repulsion_plan(n_valid, sm_count(y.device))
     lead = y.shape[:-2]
     rep = torch.empty((*lead, r1 - r0, 2), dtype=torch.float32,
                       device=y.device)

@@ -35,13 +35,28 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
+def counting_relax():
+    """shortest_path.relax (the twin on the CPU) counting each sweep as the
+    card's wrapper counts its launches."""
+    twin = tsp.relax
+
+    def relax(d, g, memory_budget=tsp.FIELD_MEMORY_BUDGET):
+        relax.launches += 1
+        return twin(d, g, memory_budget)
+
+    relax.launches = 0
+    return relax
+
+
 @pytest.fixture(scope="module")
 def small_geo():
-    """rgb_geo at 24 x 24 (576 pixels) with the threshold at 100."""
+    """rgb_geo at 24 x 24 (576 pixels) with the threshold at 100, each
+    sweep counted as a launch."""
     set_level("WARNING")
     mp = pytest.MonkeyPatch()
     mp.setattr(chip_smoke, "DEV", "cpu")
     mp.setattr(tsp, "CONTRACT_THRESHOLD", 100)
+    mp.setattr(tsp, "relax", counting_relax())
     try:
         yield chip_smoke.rgb_geo(tsne_kernels, side=24, iters=ITERS,
                                  sources=8, fidelity=40)
@@ -76,6 +91,10 @@ def test_rgb_geo_phase_small(small_geo):
         assert out["p"][level]["conditional_row_sum_err"] <= 1e-3
     assert out["launches"] == {"tsne_forces_dense": 0, "tsne_repulsion": 0,
                                "tsne_attraction": 0}
+    assert out["relax_launches"]["stage1_knn"] == 0
+    for name in ("stage2_hierarchy", "stage3_level_similarities"):
+        assert out["relax_launches"][name] == sum(
+            c["sweeps_total"] for c in out["geodesic_log"][name]) > 0
     assert out["peak_memory_bytes"]["stage1_knn"] == "not measured"
 
 
@@ -109,12 +128,67 @@ def test_rgb_geo_gates_pass_and_catch_each_fault(small_geo):
             "tsne_repulsion", 0),
         "not 3 x": lambda s: s["launches"].__setitem__(
             "tsne_forces_dense", 3 * ITERS - 1),
+        "launched 1 times for 0 sweeps": lambda s: s[
+            "relax_launches"].__setitem__("stage1_knn", 1),
+        "stage3_level_similarities: bellman_ford_relax launched": lambda s: s[
+            "relax_launches"].__setitem__(
+                "stage3_level_similarities",
+                s["relax_launches"]["stage3_level_similarities"] - 1),
+        "not launched in stages 2 and 3": lambda s: [
+            s["relax_launches"].__setitem__("stage2_hierarchy", 0),
+            [c.__setitem__("sweeps_total", 0)
+             for c in s["geodesic_log"]["stage2_hierarchy"]]],
     }
     for match, change in faults.items():
         bad = copy.deepcopy(ok)
         change(bad)
         with pytest.raises(AssertionError, match=match):
             chip_smoke.rgb_geo_gates(bad, ITERS)
+
+
+def test_relax_checks_pass_and_catch_each_fault(small_geo, monkeypatch):
+    """chip_smoke's bellman_ford_relax rows on the small run's graphs (the
+    twin on both sides on the CPU, each sweep counted as a launch): the
+    comparisons at the level-0 graph (256 and 37 fields) and the contracted
+    level-1 graph, and one level-0 pair batch both ways; a differing value
+    or frontier, a start that lowers nothing, unequal sweeps, other values
+    and a wrong launch count are each caught."""
+    from sph_tpu_torch.ops import shortest_path as sp
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(tsp, "CONTRACT_THRESHOLD", 100)
+    monkeypatch.setattr(tsp, "relax", counting_relax())
+    objs = small_geo["objects"]
+    g0 = sp.FieldGraph.from_graph(objs["graph"], "cpu")
+    gc = sp._contracted_graph(objs["hierarchy"], objs["data"], 1,
+                              objs["num_samples"], objs["seed"], "cpu")
+    for g, f in ((g0, chip_smoke.RELAX_FIELDS),
+                 (g0, chip_smoke.RELAX_ODD_FIELDS),
+                 (gc, chip_smoke.RELAX_FIELDS)):
+        c = chip_smoke.relax_compare(g, chip_smoke.relax_start(g, f, seed=f))
+        assert c["fields"] == f and c["edges"] == int(g.csr_off[-1])
+        chip_smoke.relax_gate(c, "small")
+        assert c["max_abs_err"] == 0.0 and c["lowered_fields"] > 0
+        for key, match in (("d_equal", "differs"),
+                           ("frontier_equal", "differs"),
+                           ("lowered_values", "lowered no")):
+            bad = {**c, key: 0 if key == "lowered_values" else False}
+            with pytest.raises(AssertionError, match=match):
+                chip_smoke.relax_gate(bad, "small")
+    batch = chip_smoke.pair_batch_both_ways(
+        g0, objs["graph"], *chip_smoke.neighbour_pairs(objs["hierarchy"], 0))
+    chip_smoke.pair_batch_gate(batch)
+    assert batch["sweeps_kernel"] and batch["launches_twin"] == 0
+    assert batch["launches_kernel"] == sum(batch["sweeps_kernel"])
+    assert batch["fields"] == min(chip_smoke.RELAX_FIELDS,
+                                  batch["unresolved_pairs"] * 2)
+    faults = {
+        "values differ": {"values_equal": False},
+        "sweeps": {"sweeps_twin": [s + 1 for s in batch["sweeps_twin"]]},
+        "launched": {"launches_kernel": batch["launches_kernel"] + 1},
+    }
+    for match, change in faults.items():
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.pair_batch_gate({**batch, **change})
 
 
 def test_rgb_geo_record_gates_against_the_jax_package(monkeypatch):

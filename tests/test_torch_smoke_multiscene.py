@@ -98,7 +98,8 @@ def small(tmp_path_factory):
         pines = {"data": ms["pines"]["data"], "p1": ls.get_prob_dist(1),
                  "labels": ih.hierarchy.pixel_components[1],
                  "count": ih.hierarchy.num_components[1]}
-        sh = chip_smoke.sharded_paths(tsne_kernels, mid, pines,
+        # the seed gate's scene is this one (chip_smoke.seed_scene)
+        sh = chip_smoke.sharded_paths(tsne_kernels, mid, pines, pines,
                                       iters=100, epochs=100, k=K)
         yield {"ref": ref, "ms": ms, "msr": msr, "sh": sh}
     finally:
@@ -192,3 +193,29 @@ def test_sharded_phase(small):
     bad["tsne"]["kl_rel_gap_1_2"] = 0.05
     with pytest.raises(AssertionError, match="KL"):
         chip_smoke.sharded_gates(bad)
+
+
+def test_sharded_edge_oracle_gate(small):
+    """The edge tier against the sequential oracle over the seeds: each
+    seed's ratio printed, the gate passes here; a mean below 0.99, one seed
+    below the measured floor, or fewer than 8 seeds are each caught."""
+    r = small["sh"]["umap"]["edge_vs_oracle"]
+    assert r["seeds"] == list(chip_smoke.SHARDED_SEEDS)
+    assert r["epochs"] == chip_smoke.SHARDED_SEED_EPOCHS
+    assert len(r["ratios"]) == len(r["edge_tier"]) == len(r["sequential"])
+    assert r["ratios"] == [a / b for a, b in zip(r["edge_tier"],
+                                                 r["sequential"])]
+    chip_smoke.edge_oracle_gate(r)
+    floor = chip_smoke.EDGE_ORACLE_SEED_MIN
+    low_mean = {**r, "ratios": [0.985] * len(r["ratios"]),
+                "mean_ratio": 0.985}
+    one_low = {**r, "ratios": [*r["ratios"][:-1], floor - 1e-4]}
+    few = {**r, "seeds": r["seeds"][:7]}
+    for bad, match in ((low_mean, "mean ratio"), (one_low, "seed ratios"),
+                       (few, "fewer than 8")):
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.edge_oracle_gate(bad)
+        bad_run = copy.deepcopy(small["sh"])
+        bad_run["umap"]["edge_vs_oracle"] = bad
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.sharded_gates(bad_run)
