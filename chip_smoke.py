@@ -103,8 +103,14 @@ Phases, each printing one JSON line, and each raising on failure:
    level-0 field graph (57600 nodes) with 256 and 37 fields and at stage
    3's contracted level-1 graph with 256, each from 256 (37) sources
    relaxed 10 sweeps by the twin, ms a call against the bytes bound; and
-   one full level-0 pair-value batch (256 fields) through the kernel and
-   through the twin: equal values, equal sweeps.  Then rgb_geo_record:
+   two whole field batches as the paths run them, the first level-0
+   pair-value batch (256 fields) and stage 3's first contracted-graph
+   batch: each through converge on the kernel and on the twins (equal
+   values, equal sweeps, a launch a sweep) and sweep by sweep four ways
+   (the kernel's delta sweeps and full sweeps, both twins: fields,
+   frontier, stop word and sector words equal), the delta sweeps' summed
+   ms against the full-sweep loop's and the delta bound, and each sweep's
+   gathered and written sector shares.  Then rgb_geo_record:
    GEO_CENTROID and GEO_WALKS at 96x80x3 with CONTRACT_THRESHOLD 512
    against the JAX-on-CPU
    record in docs/torch_port_rgb_geo_reference.json (levels; where the
@@ -1566,9 +1572,9 @@ def padded_lists(*groups) -> list:
 def geo_log_summary(log) -> list:
     """shortest_path.LOG grouped by call (each geodesic entry point logs
     its name and level first): the field batches, the fields, the sweeps
-    per batch (max and mean), and what the call logged besides (the level-0
-    unresolved pairs and unique sources, the sketch's build and fallback
-    pairs)."""
+    per batch (max and mean), the host seconds inside the batches'
+    ``converge``, and what the call logged besides (the level-0 unresolved
+    pairs and unique sources, the sketch's build and fallback pairs)."""
     import numpy as np
     calls, cur = [], None
     for e in log:
@@ -1580,6 +1586,7 @@ def geo_log_summary(log) -> list:
                 continue
         if "sweeps" in e:
             cur["batches"] += 1
+            cur["seconds"] = cur.get("seconds", 0.0) + e.get("seconds", 0.0)
             cur["fields"] += e["fields"]
             cur["nodes"] = e["nodes"]
             cur["sweeps"].append(e["sweeps"])
@@ -1587,6 +1594,7 @@ def geo_log_summary(log) -> list:
             cur[e["what"]] = {k: v for k, v in e.items() if k != "what"}
     for c in calls:
         sw = c.pop("sweeps")
+        c["seconds_in_batches"] = c.pop("seconds", 0.0)
         c["sweeps_max"] = int(max(sw)) if sw else 0
         c["sweeps_mean"] = float(np.mean(sw)) if sw else 0.0
         c["sweeps_total"] = int(sum(sw))
@@ -2234,18 +2242,21 @@ def relax_gate(c: dict, name: str) -> None:
 
 
 def check_relax_kernel(g, d, name: str, calls: int = RELAX_CALLS) -> dict:
-    """relax_compare and its gate, then ms a call of the wrapper (kernel,
-    its output and the frontier's +inf fill) and of the twin from CUDA
-    events, warm: the same d every call, so the table is as warm in L2 as
-    50 MB allows."""
+    """relax_compare and its gate, then on the card ms a call of the
+    wrapper (kernel, its output and the frontier's +inf fill) and of the
+    twin from CUDA events, warm: the same d every call, so the table is as
+    warm in L2 as 50 MB allows."""
     from sph_tpu_torch.ops import shortest_path as sp
     c = relax_compare(g, d)
     relax_gate(c, name)
     c["path_shape"] = name
-    c["ms"] = cuda_ms(lambda: sp.relax(d, g), calls, warmup=3)
-    c["plain_ms"] = cuda_ms(lambda: sp.relax_reference(d, g), 3, warmup=1)
     c.update(relax_bound(g.n, c["edges"], c["fields"]))
-    c["gathered_tb_per_s"] = c["gathered_bytes"] / (c["ms"] * 1e-3) / 1e12
+    if DEV == "cuda":
+        c["ms"] = cuda_ms(lambda: sp.relax(d, g), calls, warmup=3)
+        c["plain_ms"] = cuda_ms(lambda: sp.relax_reference(d, g), 3,
+                                warmup=1)
+        c["gathered_tb_per_s"] = (c["gathered_bytes"] / (c["ms"] * 1e-3)
+                                  / 1e12)
     c["l2"] = ("warm: one d for every call; the table is "
                f"{(g.n + 1) * c['fields'] * 4 / 1e6:.1f} MB, L2 50 MB")
     c["library_ms"] = None
@@ -2254,83 +2265,321 @@ def check_relax_kernel(g, d, name: str, calls: int = RELAX_CALLS) -> dict:
 
 @contextlib.contextmanager
 def twin_relax():
-    """shortest_path's sweeps on the twin for the block, whatever the
-    tensors' device."""
+    """shortest_path's sweeps on the twins for the block, whatever the
+    tensors' device: ``relax`` on ``relax_reference``, ``relax_delta`` (a
+    card's batches) on ``relax_delta_reference``."""
     from sph_tpu_torch.ops import shortest_path as sp
-    kept = sp.relax
-    sp.relax = sp.relax_reference
+    kept = sp.relax, sp.relax_delta
+    sp.relax, sp.relax_delta = sp.relax_reference, sp.relax_delta_reference
     try:
         yield
     finally:
-        sp.relax = kept
+        sp.relax, sp.relax_delta = kept
 
 
-def pair_batch_both_ways(g, graph, a, b,
-                         batch: int = RELAX_FIELDS) -> dict:
-    """The first field batch of geodesic_component_distances' level-0 pair
-    values for pairs (a, b) over `graph`, once through the wrapper and once
-    on the twin: the values, the sweeps and the launches."""
+def both_ways(call) -> tuple:
+    """`call()`, a geodesic op over field batches, through the wrapper and
+    with shortest_path's sweeps on the twins: each way's seconds, the
+    LOG's sweeps and the launches; whether the values are equal.  Returns
+    (that dict, the wrapper's values as numpy)."""
     import numpy as np
+    from sph_tpu_torch.ops import shortest_path as sp
+    out, runs = {}, {}
+    for how in ("kernel", "twin"):
+        sp.LOG.clear()
+        before = sp.relax.launches
+        t = time.perf_counter()
+        with (twin_relax() if how == "twin" else contextlib.nullcontext()):
+            vals = call()
+        sync()
+        out[f"seconds_{how}"] = time.perf_counter() - t
+        out[f"sweeps_{how}"] = [e["sweeps"] for e in sp.LOG if "sweeps" in e]
+        out[f"launches_{how}"] = sp.relax.launches - before
+        runs[how] = np.asarray(vals.cpu() if hasattr(vals, "cpu") else vals)
+    out["values_equal"] = bool(np.array_equal(runs["kernel"], runs["twin"]))
+    return out, runs["kernel"]
+
+
+def pair_batch_inputs(g, graph, a, b, batch: int = RELAX_FIELDS) -> tuple:
+    """The first field batch of geodesic_component_distances' level-0 pair
+    values for pairs (a, b) over `graph`: (the arguments of
+    _pair_values_batched for it, its field samples [F, 1], its evaluated
+    (rows, fields) as _fields_pair_values gives them to converge, what it
+    holds)."""
+    import torch
     from sph_tpu_torch.ops import shortest_path as sp
     idx, dist, mask = sp._graph_arrays(graph)
     _, todo, srcs, field_pos, eval_nodes = sp.level0_pairs(idx, dist, mask,
                                                            a, b)
     sel = field_pos < batch
     args = (g, srcs[:batch], field_pos[sel], eval_nodes[sel], batch)
-    out = {"unresolved_pairs": int(todo.size), "fields": len(args[1]),
-           "lookups": int(sel.sum())}
-    runs = {}
-    for how in ("kernel", "twin"):
-        sp.LOG.clear()
-        before = sp.relax.launches
-        t = time.perf_counter()
-        with (twin_relax() if how == "twin" else contextlib.nullcontext()):
-            vals = sp._pair_values_batched(*args)
-        sync()
-        out[f"seconds_{how}"] = time.perf_counter() - t
-        out[f"sweeps_{how}"] = [e["sweeps"] for e in sp.LOG if "sweeps" in e]
-        out[f"launches_{how}"] = sp.relax.launches - before
-        runs[how] = vals
-    out["values_equal"] = bool(np.array_equal(runs["kernel"], runs["twin"]))
-    out["finite_values"] = int(np.isfinite(runs["kernel"]).sum())
+    evaluate = (g.rows(torch.as_tensor(eval_nodes[sel], device=g.device)),
+                torch.as_tensor(field_pos[sel], device=g.device))
+    meta = {"unresolved_pairs": int(todo.size), "fields": len(args[1]),
+            "lookups": int(sel.sum())}
+    return args, srcs[:batch, None], evaluate, meta
+
+
+def pair_batch_both_ways(g, graph, a, b,
+                         batch: int = RELAX_FIELDS) -> dict:
+    """The first field batch of geodesic_component_distances' level-0 pair
+    values for pairs (a, b) over `graph`, once through the wrapper (on the
+    card ``converge``'s delta sweeps, the kernel) and once on the twins:
+    the values, the sweeps and the launches."""
+    import numpy as np
+    from sph_tpu_torch.ops import shortest_path as sp
+    args, _, _, meta = pair_batch_inputs(g, graph, a, b, batch)
+    out, vals = both_ways(lambda: sp._pair_values_batched(*args))
+    out.update(meta)
+    out["finite_values"] = int(np.isfinite(vals).sum())
     return out
 
 
-def pair_batch_gate(r: dict) -> None:
+def pair_batch_gate(r: dict, name: str = "level-0 pair batch") -> None:
     if not r["values_equal"]:
-        raise AssertionError("level-0 pair batch: the kernel's values differ "
-                             "from the twin's")
+        raise AssertionError(f"{name}: the kernel's values differ from the "
+                             "twin's")
     if r["sweeps_kernel"] != r["sweeps_twin"]:
-        raise AssertionError(f"level-0 pair batch: sweeps {r['sweeps_kernel']}"
-                             f" on the kernel, {r['sweeps_twin']} on the twin")
+        raise AssertionError(f"{name}: sweeps {r['sweeps_kernel']} on the "
+                             f"kernel, {r['sweeps_twin']} on the twin")
     if not (r["launches_kernel"] == sum(r["sweeps_kernel"]) > 0
             and r["launches_twin"] == 0):
         raise AssertionError(
-            f"level-0 pair batch: bellman_ford_relax launched "
-            f"{r['launches_kernel']} and {r['launches_twin']} times for "
-            f"{r['sweeps_kernel']} sweeps")
+            f"{name}: bellman_ford_relax launched {r['launches_kernel']} "
+            f"and {r['launches_twin']} times for {r['sweeps_kernel']} "
+            "sweeps")
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and bool(torch.equal(a.view(torch.int32),
+                                                   b.view(torch.int32)))
+
+
+def sector_popcounts(words):
+    """Set bits of each int32 word of `words`, int64, same shape."""
+    import torch
+    x = words.to(torch.int64) & 0xFFFFFFFF
+    return ((x[..., None] >> torch.arange(32, device=x.device)) & 1).sum(-1)
+
+
+def delta_sweep_sectors(g, prev, new) -> tuple:
+    """(gathered, written): the sectors a delta sweep whose sweep before
+    changed `prev` and which changed `new` ([chunks, N + 1] words) gathers
+    (each live in-edge's source sectors marked in prev) and rewrites (each
+    node's sectors marked in either)."""
+    gathered = int(sector_popcounts(prev)[:, g.csr_src.long()].sum())
+    written = int(sector_popcounts(prev | new)[:, :g.n].sum())
+    return gathered, written
+
+
+def relax_delta_bound(n: int, edges: int, f: int, sweeps: int,
+                      gathered_sectors: int, written_sectors: int) -> dict:
+    """A field batch's delta sweeps (bellman_ford_relax's batch path),
+    summed over its sweeps: what any implementation must move, each sweep
+    reading the CSR's ids (4 E B) and the sweep before's words (4 (N + 1)
+    B a chunk of 256 fields) and writing its own words (the same), each
+    written sector once (32 B) and the frontier (4 F B); and one add and
+    one min a field of each gathered sector (8 fields).  The gathered
+    sectors' bytes (32 each, mostly from L2) stand beside it, not in it."""
+    chunks = -(-f // 256)
+    nbytes = (sweeps * (4 * edges + 8 * (n + 1) * chunks + 4 * f)
+              + 32 * written_sectors)
+    return {**bound(nbytes, 2 * 8 * gathered_sectors), "bytes": nbytes,
+            "gathered_bytes": 32 * gathered_sectors}
+
+
+def delta_lockstep(g, d0, evaluate, sweeps: int) -> dict:
+    """`sweeps` sweeps of one field batch from d0, four ways on the same
+    start: the delta sweeps of a RelaxBatch through ``relax_delta`` (the
+    kernel on the card) and through ``relax_delta_reference``, the full
+    twin ``relax_reference`` and the stateless ``relax`` (the kernel's
+    full sweep on the card); each sweep's fields, frontier, stop word and
+    sector words compared, and the first sweep whose stop test holds.
+    Also each sweep's gathered and written sectors
+    (``delta_sweep_sectors``) as shares of a full sweep's."""
+    from sph_tpu_torch.ops import shortest_path as sp
+    f = d0.shape[1]
+    kern = sp.RelaxBatch(g, d0.clone(), evaluate)
+    twin = sp.RelaxBatch(g, d0.clone(), evaluate)
+    d, full = d0.clone(), d0.clone()
+    edges, sectors = int(g.csr_src.numel()), -(-f // 8)
+    out = {"n": g.n, "edges": edges, "fields": f, "sweeps": sweeps,
+           "evaluated": 0 if evaluate is None else int(evaluate[0].numel()),
+           "sweeps_equal": 0, "first_unequal": None, "stopped_at": None,
+           "gathered_sectors": 0, "written_sectors": 0,
+           "gathered_share": [], "written_share": []}
+    for t in range(sweeps):
+        sp.relax_delta(kern)
+        sp.relax_delta_reference(twin)
+        want, want_front = sp.relax_reference(d, g)
+        full, full_front = sp.relax(full, g)
+        stop = bool(sp.stop_test(want, want_front, evaluate))
+        checks = {
+            "d": same_bits(kern.d, want) and same_bits(twin.d, want)
+            and same_bits(full, want),
+            "frontier": same_bits(kern.frontier, want_front)
+            and same_bits(twin.frontier, want_front)
+            and same_bits(full_front, want_front),
+            "words": bool((kern.changed == twin.changed).all()
+                          and (kern.changed
+                               == sp.sector_masks(want < d)).all()),
+            "stop": bool(kern.stop) == bool(twin.stop) == stop}
+        if all(checks.values()):
+            out["sweeps_equal"] += 1
+        elif out["first_unequal"] is None:
+            out["first_unequal"] = {"sweep": t + 1, **checks}
+        if stop and out["stopped_at"] is None:
+            out["stopped_at"] = t + 1
+        gathered, written = delta_sweep_sectors(g, kern.out_changed,
+                                                kern.changed)
+        out["gathered_sectors"] += gathered
+        out["written_sectors"] += written
+        out["gathered_share"].append(gathered / (edges * sectors))
+        out["written_share"].append(written / (g.n * sectors))
+        d = want
+    return out
+
+
+def delta_batch_ms(g, d0, evaluate, sweeps: int, rounds: int = 2,
+                   twin: bool = True) -> dict:
+    """The batch's `sweeps` sweeps from d0 timed from CUDA events on DEV,
+    in turns (delta, full, delta, full for 2 rounds): the kernel's delta
+    sweeps (``relax_delta`` on a new RelaxBatch), summed over the sweeps,
+    with each sweep's ms; the same sweeps as stateless full sweeps
+    (``relax`` called here, each on the last's output); with `twin`, the
+    delta twin's once.  Milliseconds of the whole batch."""
+    import torch
+    from sph_tpu_torch.ops import shortest_path as sp
+
+    def timed(step, state, n):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for i in range(n):
+            state = step(state)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(n)]
+
+    def delta(b):
+        sp.relax_delta(b)
+        return b
+
+    def delta_twin(b):
+        sp.relax_delta_reference(b)
+        return b
+
+    out = {"delta_ms": [], "full_loop_ms": []}
+    for _ in range(rounds):
+        per = timed(delta, sp.RelaxBatch(g, d0.clone(), evaluate), sweeps)
+        out["delta_ms"].append(sum(per))
+        out["full_loop_ms"].append(sum(timed(lambda d: sp.relax(d, g)[0],
+                                             d0.clone(), sweeps)))
+    out["delta_ms_by_sweep"] = per
+    if twin:
+        out["twin_ms"] = sum(timed(delta_twin, sp.RelaxBatch(
+            g, d0.clone(), evaluate), sweeps))
+    return out
+
+
+def delta_batch_check(g, d0, evaluate, sweeps: int, name: str) -> dict:
+    """``delta_lockstep`` of one field batch over the `sweeps` sweeps the
+    path ran it, its delta bound, and on the card its times
+    (``delta_batch_ms``): the delta sweeps' ms against the full-sweep
+    loop's and against the bound."""
+    c = delta_lockstep(g, d0, evaluate, sweeps)
+    c["path_shape"] = name
+    c.update(relax_delta_bound(g.n, c["edges"], c["fields"], sweeps,
+                               c["gathered_sectors"], c["written_sectors"]))
+    c["mean_gathered_share"] = sum(c["gathered_share"]) / sweeps
+    c["mean_written_share"] = sum(c["written_share"]) / sweeps
+    if DEV == "cuda":
+        ms = delta_batch_ms(g, d0, evaluate, sweeps)
+        c.update(ms)
+        c["ms"] = min(ms["delta_ms"])
+        c["plain_ms"] = ms["twin_ms"]
+        c["of_full_loop"] = c["ms"] / min(ms["full_loop_ms"])
+        c["share_of_bound"] = c["bound_ms"] / c["ms"]
+        c["gathered_tb_per_s"] = c["gathered_bytes"] / (c["ms"] * 1e-3) / 1e12
+    c["library_ms"] = None
+    return c
+
+
+def delta_batch_gate(c: dict, name: str) -> None:
+    """Every sweep of the lockstep equal, and the path's sweeps one past
+    the first stop on the card (where converge reads the stop a sweep
+    late), at it on the CPU, or the batch's cap."""
+    if c["sweeps_equal"] != c["sweeps"]:
+        raise AssertionError(f"{name}: the delta sweeps differ from the "
+                             f"twins: {c['first_unequal']}, "
+                             f"{c['sweeps_equal']} of {c['sweeps']} equal")
+    lag = 1 if DEV == "cuda" else 0
+    if c["stopped_at"] is None or c["sweeps"] != min(c["stopped_at"] + lag,
+                                                     c["n"]):
+        raise AssertionError(f"{name}: converge ran {c['sweeps']} sweeps, "
+                             f"the stop test first held at "
+                             f"{c['stopped_at']}")
+
+
+def relax_graphs(objects: dict) -> tuple:
+    """rgb_geo's level-0 field graph and stage 3's contracted level-1
+    component graph, from the phase's objects."""
+    from sph_tpu_torch.ops import shortest_path as sp
+    g0 = sp.FieldGraph.from_graph(objects["graph"], DEV)
+    gc = sp._contracted_graph(objects["hierarchy"], objects["data"], 1,
+                              objects["num_samples"], objects["seed"], DEV)
+    return g0, gc
 
 
 def relax_checks(objects: dict) -> dict:
-    """bellman_ford_relax against its twin at rgb_geo's shapes: its level-0
-    field graph at F = RELAX_FIELDS and RELAX_ODD_FIELDS, the contracted
-    component graph of stage 3's level 1 at RELAX_FIELDS (each from a start
-    relaxed RELAX_START_SWEEPS sweeps), and one full level-0 pair-value
-    batch over the level's spatial-neighbour pairs both ways."""
-    from sph_tpu_torch.ops import shortest_path as sp
-    graph, h = objects["graph"], objects["hierarchy"]
-    g0 = sp.FieldGraph.from_graph(graph, DEV)
-    gc = sp._contracted_graph(h, objects["data"], 1, objects["num_samples"],
-                              objects["seed"], DEV)
+    """bellman_ford_relax against its twins at rgb_geo's shapes: the
+    stateless sweep at its level-0 field graph at F = RELAX_FIELDS and
+    RELAX_ODD_FIELDS and at the contracted component graph of stage 3's
+    level 1 at RELAX_FIELDS (each from a start relaxed RELAX_START_SWEEPS
+    sweeps); then the two whole field batches of
+    ``relax_batch_checks``."""
+    g0, gc = relax_graphs(objects)
     checks = [check_relax_kernel(g0, relax_start(g0, RELAX_FIELDS, 1),
                                  "rgb_geo_level_0"),
               check_relax_kernel(g0, relax_start(g0, RELAX_ODD_FIELDS, 2),
                                  f"rgb_geo_level_0_f{RELAX_ODD_FIELDS}"),
               check_relax_kernel(gc, relax_start(gc, RELAX_FIELDS, 3),
                                  "rgb_geo_contracted_level_1")]
-    batch = pair_batch_both_ways(g0, graph, *neighbour_pairs(h, 0))
+    return {"checks": checks, **relax_batch_checks(objects, g0, gc)}
+
+
+def relax_batch_checks(objects: dict, g0, gc) -> dict:
+    """Two whole field batches as the paths run them, each through
+    converge both ways (``both_ways``: values, sweeps, launches) and sweep
+    by sweep (``delta_batch_check``): the first level-0 pair-value batch
+    over the level's spatial-neighbour pairs on `g0`, and stage 3's first
+    contracted-graph batch on `gc` (components 0-255 as sources, to the
+    fixed point) through _fields_component_max."""
+    import numpy as np
+    import torch
+    from sph_tpu_torch.ops import shortest_path as sp
+    graph = objects["graph"]
+    a, b = neighbour_pairs(objects["hierarchy"], 0)
+    batch = pair_batch_both_ways(g0, graph, a, b)
     pair_batch_gate(batch)
-    return {"checks": checks, "pair_batch": batch}
+    _, samples, evaluate, _ = pair_batch_inputs(g0, graph, a, b)
+    pair_delta = delta_batch_check(g0, g0.init(samples), evaluate,
+                                   batch["sweeps_kernel"][0],
+                                   "rgb_geo_level_0_pair_batch")
+    delta_batch_gate(pair_delta, "level-0 pair batch")
+    sources = np.arange(min(RELAX_FIELDS, gc.n))[:, None]
+    comps = torch.arange(gc.n, device=gc.device)[:, None]
+    comp, _ = both_ways(lambda: sp._fields_component_max(gc, sources, comps,
+                                                         gc.n))
+    comp["fields"] = len(sources)
+    pair_batch_gate(comp, "contracted-graph batch")
+    comp_delta = delta_batch_check(gc, gc.init(sources), None,
+                                   comp["sweeps_kernel"][0],
+                                   "rgb_geo_contracted_level_1_batch")
+    delta_batch_gate(comp_delta, "contracted-graph batch")
+    return {"pair_batch": batch, "component_batch": comp,
+            "batches": [pair_delta, comp_delta]}
 
 
 def rgb_geo_record(ref: dict) -> dict:
@@ -4463,7 +4712,14 @@ def main() -> int:
         emit({"phase": "kernel_vs_twin", "kernel": "bellman_ford_relax",
               **c})
     emit({"phase": "kernel_vs_twin", "kernel": "bellman_ford_relax",
-          "path_shape": "rgb_geo_level_0_pair_batch", **relax["pair_batch"]})
+          "path_shape": "rgb_geo_level_0_pair_batch_converge",
+          **relax["pair_batch"]})
+    emit({"phase": "kernel_vs_twin", "kernel": "bellman_ford_relax",
+          "path_shape": "rgb_geo_contracted_level_1_batch_converge",
+          **relax["component_batch"]})
+    for c in relax["batches"]:
+        emit({"phase": "kernel_vs_twin", "kernel": "bellman_ford_relax",
+              "delta": True, **c})
     # both kernels at the shapes rgb_geo's t-SNE levels gave them
     for level, run in geo["tsne"].items():
         checks.append(check_forces_kernel(run["n"], run["npad"],
@@ -4773,7 +5029,7 @@ def main() -> int:
     salw_runs = [(key, salw[key]) for key in ("rw_only",
                                               "new_walks_and_knn")]
     rep_main = rep_checks[1]            # the Pines KL's shape
-    relax_main = relax["checks"][0]     # rgb_geo's level 0 at F = 256
+    relax_main = relax["batches"][0]    # one level-0 pair batch, delta
     relax_main_launches = sum(geo["relax_launches"][name] for name in (
         "stage2_hierarchy", "stage3_level_similarities"))
     rep_timed = [c for c in rep_checks if "ms" in c]
@@ -4914,9 +5170,13 @@ def main() -> int:
                     "program: no pallas_call)",
         "launches": relax_main_launches,
         "max_abs_err": max(c["max_abs_err"] for c in relax["checks"]),
+        # the whole batch: its sweeps' delta launches summed, the delta
+        # twin's, and the delta bound (relax_delta_bound) of those sweeps
+        "unit": f"one level-0 pair batch, {relax_main['sweeps']} sweeps",
         "ms": relax_main["ms"], "plain_ms": relax_main["plain_ms"],
         "bound_ms": relax_main["bound_ms"],
         "bound_by": relax_main["bound_by"], "library_ms": None,
+        "full_loop_ms": min(relax_main["full_loop_ms"]),
         "shape": [relax_main["n"], relax_main["edges"],
                   relax_main["fields"]],
         "gathered_bytes": relax_main["gathered_bytes"],
@@ -4933,7 +5193,18 @@ def main() -> int:
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "gathered_bytes": c["gathered_bytes"],
             "gathered_tb_per_s": c["gathered_tb_per_s"],
-            "max_abs_err": c["max_abs_err"]} for c in relax["checks"]]}]})
+            "max_abs_err": c["max_abs_err"]} for c in relax["checks"]],
+        "batches": [{
+            "path_shape": c["path_shape"],
+            "shape": [c["n"], c["edges"], c["fields"]],
+            "sweeps": c["sweeps"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "full_loop_ms": min(c["full_loop_ms"]),
+            "of_full_loop": c["of_full_loop"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "share_of_bound": c["share_of_bound"],
+            "gathered_bytes": c["gathered_bytes"],
+            "mean_gathered_share": c["mean_gathered_share"],
+            "mean_written_share": c["mean_written_share"]}
+            for c in relax["batches"]]}]})
     elapsed = time.perf_counter() - started
     if not elapsed <= SMOKE_SECONDS_MAX:
         raise AssertionError(f"chip_smoke took {elapsed} s, over "

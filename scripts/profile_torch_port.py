@@ -29,13 +29,20 @@ t-SNE iterations and 500 UMAP epochs of level 1, after a warm-up at
 chip_smoke.py's rgb_geo configuration (GEO_CENTROID in both stages on the
 240x240 RGB scene), then 2000 t-SNE iterations of levels 1, 2 and 3, after
 a warm-up at 48x48, each stage under its own window, and also gives each
-stage's Bellman-Ford relax sweeps (ops/shortest_path.relax, under a
-record_function span): the device time of the operations launched inside
-the spans, as their host trees list them, in seconds and as a share of
-the stage's device time, and the number of spans; and the device time of
-the kernel bellman_ford_relax (``relax_kernel``) by its name, with its
-launch count (a launch through ctypes may be missing from the span's
-host tree).
+stage's Bellman-Ford relax sweeps (ops/shortest_path.relax and
+relax_delta, under a record_function span): the device time of the
+operations launched inside the spans, as their host trees list them, in
+seconds and as a share of the stage's device time, and the number of
+spans; the device time of the kernel bellman_ford_relax
+(``relax_kernel``) by its name, with its launch count (a launch through
+ctypes may be missing from the span's host tree); and the stage's host
+seconds split by step: inside the field batches' ``converge`` (from
+shortest_path.LOG), of which the sweeps' launches, the waits on a sweep's
+stop word (torch.cuda.Event.synchronize) and the batches' set-up
+(RelaxBatch), each under its own span; the rest of the wall is outside
+the batches, and the host seconds of each geodesic entry point and step
+(GEO_STEPS: the level-0 pair set-up, the sketch's build and pairs, ...)
+say how much of it the geodesic ops take.
 
 Prints, per stage, the wall seconds, the device seconds (the sum of its
 kernels and copies, counted as torch.profiler counts its "Self CUDA time
@@ -61,6 +68,15 @@ KERNEL_NAMES = ("forces_dense_kernel", "repulsion_units", "reduce_splits",
                 "repulsion_kernel", "attraction_kernel", "relax_kernel")
 RELAX_KERNEL = "relax_kernel"
 RELAX_SPAN = "shortest_path.relax"
+# the host steps of a field batch, each under a span of its own
+HOST_SPANS = {"launch": RELAX_SPAN, "stop_wait": "relax.stop_wait",
+              "batch_set_up": "relax.batch_set_up"}
+# the geodesic entry points and steps (ops/shortest_path's functions, each
+# under a span of its name), for the host seconds outside the batches
+GEO_STEPS = ("geodesic_component_distances", "level0_pairs",
+             "_pair_values_batched", "sketch_geodesic_pairs",
+             "get_geo_sketch", "geodesic_hausdorff_knn",
+             "contracted_geodesic_knn")
 
 
 def run_main_path(stage_context):
@@ -286,15 +302,28 @@ def main() -> int:
     elif args.path == "geo":
         run = run_geo_path
         from sph_tpu_torch.ops import shortest_path
+
+        def spanned(fn, name):
+            def call(*a, **kw):
+                with torch.profiler.record_function(name):
+                    return fn(*a, **kw)
+            return call
+
         relax = shortest_path.relax
-
-        def spanned_relax(*a, **kw):
-            with torch.profiler.record_function(RELAX_SPAN):
-                return relax(*a, **kw)
-
-        # the wrapper counts its launches on the module's `relax`: this span
+        spanned_relax = spanned(relax, RELAX_SPAN)
+        # the wrappers count their launches on the module's `relax`, which
+        # is now this span
         spanned_relax.launches = relax.launches
         shortest_path.relax = spanned_relax
+        shortest_path.relax_delta = spanned(shortest_path.relax_delta,
+                                            RELAX_SPAN)
+        shortest_path.RelaxBatch.__init__ = spanned(
+            shortest_path.RelaxBatch.__init__, HOST_SPANS["batch_set_up"])
+        torch.cuda.Event.synchronize = spanned(torch.cuda.Event.synchronize,
+                                               HOST_SPANS["stop_wait"])
+        for step in GEO_STEPS:
+            setattr(shortest_path, step, spanned(
+                getattr(shortest_path, step), f"shortest_path.{step}"))
         run(lambda name: contextlib.nullcontext(), 48)
     elif args.path == "ivf":
         run = run_ivf_path
@@ -307,14 +336,19 @@ def main() -> int:
             return run_large_path(ctx, rows, cols, iters, tier)
 
         run(lambda name: contextlib.nullcontext(), 64, 64, 2)
-    profs = {}
+    profs, batch_seconds = {}, {}
+    from sph_tpu_torch.ops import shortest_path
 
     @contextlib.contextmanager
     def stage_profile(name):
+        shortest_path.LOG.clear()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             yield
         profs[name] = prof
+        batches = [e for e in shortest_path.LOG if "sweeps" in e]
+        batch_seconds[name] = (len(batches),
+                               sum(e["seconds"] for e in batches))
 
     walls = run(stage_profile)
 
@@ -345,6 +379,30 @@ def main() -> int:
             lines.append(f"{'  of which relax_kernel':28s} {'':10s} "
                          f"{kern_s:10.4f} {kern_s / max(dev_s, 1e-12):7.1%}"
                          f" {len(kern):11d}")
+            count, inside = batch_seconds[name]
+            lines.append(f"{'  host: in field batches':28s} {inside:10.4f}"
+                         f" {'':10s} {inside / wall:7.1%} {count:11d}")
+            for step, span in HOST_SPANS.items():
+                evs = [e for e in prof.events()
+                       if e.device_type == DeviceType.CPU
+                       and e.name == span]
+                host_s = sum(e.cpu_time_total for e in evs) / 1e6
+                lines.append(f"{'    of which ' + step:28s} {host_s:10.4f}"
+                             f" {'':10s} {host_s / wall:7.1%} {len(evs):11d}")
+            lines.append(f"{'  host: outside the batches':28s} "
+                         f"{wall - inside:10.4f} {'':10s} "
+                         f"{(wall - inside) / wall:7.1%}")
+            # each geodesic step's host seconds (spans nest: a call's
+            # seconds hold its steps' and its batches')
+            for step in GEO_STEPS:
+                evs = [e for e in prof.events()
+                       if e.device_type == DeviceType.CPU
+                       and e.name == f"shortest_path.{step}"]
+                if evs:
+                    host_s = sum(e.cpu_time_total for e in evs) / 1e6
+                    lines.append(f"{'    ' + step:28s} {host_s:10.4f} "
+                                 f"{'':10s} {host_s / wall:7.1%} "
+                                 f"{len(evs):11d}")
         tables += ["", f"{name}: top operations by self device time",
                    prof.key_averages().table(
                        sort_by="self_device_time_total", row_limit=12)]

@@ -2,17 +2,24 @@
 """bellman_ford_relax on the card at rgb_geo's level-0 field graph.
 
     python3 scripts/relax_readout.py [--side 240] [--fields 256,37]
-        [--calls 50] [--out FILE]
+        [--calls 50] [--no-batches] [--out FILE]
 
 Builds the kernel (csrc/bellman_ford_relax.cu), runs stage 1 of chip_smoke's
 rgb_geo recipe (create_hyperspectral_scene(side, side, 3, seed=13),
 configs/rgb_bus_geo.json's kNN graph) on the card, and at its level-0
-FieldGraph, for each field count, holds the kernel against the twin from a
-start relaxed 10 sweeps (chip_smoke.check_relax_kernel: d' and the frontier
-equal, ms a call of both from CUDA events, the bytes bound, the gathered
-bytes' rate); prints one JSON line per field count, the nvcc resource
-usage (registers, spills) and the card's nvidia-smi line, and writes them
-to --out (default chiprun_out/relax_readout.json).
+FieldGraph, for each field count, holds the stateless sweep against the
+twin from a start relaxed 10 sweeps (chip_smoke.check_relax_kernel: d' and
+the frontier equal, ms a call of both from CUDA events, the bytes bound,
+the gathered bytes' rate).  Then, unless --no-batches, stage 2 (its
+seconds, the relax launches against the LOG's sweeps, and the seconds the
+LOG's field batches took) and chip_smoke.relax_batch_checks: the first
+level-0 pair batch and stage 3's first contracted-graph batch, each
+through converge on the kernel and on the twins and sweep by sweep four
+ways, with the delta sweeps' summed ms against the full-sweep loop's, the
+delta bound, and each sweep's gathered and written sector shares.  Prints
+one JSON line per row, the nvcc resource usage (registers, spills) and the
+card's nvidia-smi line, and writes them to --out (default
+out/relax_readout.json).
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ def main() -> int:
     ap.add_argument("--side", type=int, default=240)
     ap.add_argument("--fields", default="256,37")
     ap.add_argument("--calls", type=int, default=50)
-    ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
+    ap.add_argument("--no-batches", action="store_true")
+    ap.add_argument("--out", default=os.path.join(REPO, "out",
                                                   "relax_readout.json"))
     args = ap.parse_args()
     import torch
@@ -80,8 +88,31 @@ def main() -> int:
             f"rgb_geo_level_0_f{f}", calls=args.calls)
         out["checks"].append(c)
         print(json.dumps(c), flush=True)
-    print(json.dumps({k: v for k, v in out.items() if k != "checks"}),
-          flush=True)
+    if not args.no_batches:
+        sp.LOG.clear()
+        sp.relax.launches = 0
+        t = time.perf_counter()
+        ch.compute_image_hierarchy()
+        torch.cuda.synchronize()
+        log = chip_smoke.geo_log_summary(sp.LOG)
+        out["stage2"] = {
+            "seconds": time.perf_counter() - t,
+            "relax_launches": sp.relax.launches,
+            "sweeps": sum(c["sweeps_total"] for c in log),
+            "batches": sum(c["batches"] for c in log),
+            "seconds_in_batches": sum(c["seconds_in_batches"] for c in log)}
+        print(json.dumps({"stage2": out["stage2"]}), flush=True)
+        objects = {"graph": ch.image_hierarchy._graph,
+                   "hierarchy": ch.image_hierarchy.hierarchy, "data": data,
+                   "num_samples": ihs.num_geodesic_samples,
+                   "seed": rws.random_seed}
+        g0, gc = chip_smoke.relax_graphs(objects)
+        out["batches"] = chip_smoke.relax_batch_checks(objects, g0, gc)
+        for key, row in out["batches"].items():
+            for r in row if isinstance(row, list) else [row]:
+                print(json.dumps({"row": key, **r}), flush=True)
+    print(json.dumps({k: v for k, v in out.items()
+                      if k not in ("checks", "batches")}), flush=True)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump(out, fh, indent=1)

@@ -33,7 +33,8 @@ _SIGNATURES = {
     "tsne_repulsion": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "tsne_attraction": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _P,
                         _P],
-    "bellman_ford_relax": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "bellman_ford_relax": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                           _P, _P, _P, _P, _P, _P, _I, _P],
 }
 # every kernel of the port
 ALL_KERNELS = tuple(_SIGNATURES)

@@ -16,12 +16,16 @@ same sweeps laid out for a GPU:
 
 - fields are [N + 1, F], node-major, so one in-edge reads F contiguous
   values; row N is an +inf sentinel that pad slots point at;
-- on the card a sweep is the kernel csrc/bellman_ford_relax.cu (``relax``),
-  a warp a node reading its live in-edges from a CSR; on the CPU it is the
-  plain twin ``relax_reference``: nodes renumbered by descending in-degree,
-  so the nodes that have a j-th in-edge are a prefix, and the slots are
-  gathered in chunks sized from a memory budget ([rows, slots, F], then
-  ``amin``);
+- on the card a sweep is the kernel csrc/bellman_ford_relax.cu, a warp a
+  node reading its live in-edges from a CSR: ``relax`` a stateless full
+  sweep, ``relax_delta`` a field batch's delta sweep (``RelaxBatch``: only
+  the 8-field sectors that changed in the sweep before are gathered, only
+  the changed ones written, and the stop test is decided in the kernel);
+  on the CPU it is the plain twin ``relax_reference``: nodes renumbered by
+  descending in-degree, so the nodes that have a j-th in-edge are a
+  prefix, and the slots are gathered in chunks sized from a memory budget
+  ([rows, slots, F], then ``amin``); ``relax_delta_reference`` is the
+  delta sweep's twin;
 - a sweep also returns, per field, the least value among the nodes it
   changed (the frontier).  No later sweep can lower a node below it, since
   every later candidate is a frontier value plus weights >= 0.  So a field
@@ -111,6 +115,16 @@ def _pack_in_edges(n: int, src, dst, w):
     return in_idx, in_w
 
 
+def _locality_order(n: int, src: np.ndarray, off: np.ndarray) -> np.ndarray:
+    """int32 [n]: the rows of the in-edge CSR (src, off) in reverse
+    Cuthill-McKee order over the graph made undirected."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+    graph = csr_matrix((np.ones(src.size, np.int8), src, off), shape=(n, n))
+    return reverse_cuthill_mckee(graph, symmetric_mode=False).astype(
+        np.int32)
+
+
 class FieldGraph:
     """An in-edge table on a device, laid out for the relax sweeps: nodes
     renumbered by descending in-degree (``rank`` maps a node id to its
@@ -118,7 +132,10 @@ class FieldGraph:
     [N, Dmax], the twin's); and the same live in-edges as a CSR in rank
     order, slot order within a row (the kernel's): ``csr_src`` int32 [E]
     the sources' rows, ``csr_w`` float32 [E] the weights, ``csr_off``
-    int64 [N + 1] where each row's in-edges start."""
+    int64 [N + 1] where each row's in-edges start; ``order`` int32 [N],
+    the rows in a reverse Cuthill-McKee order of the graph, the order in
+    which the kernel's warps take the nodes (graph neighbours close
+    together, so the warps in flight share their in-neighbours)."""
 
     def __init__(self, in_idx, in_w, device=None):
         in_idx = np.asarray(in_idx)
@@ -150,6 +167,8 @@ class FieldGraph:
         off = np.zeros(n + 1, np.int64)
         np.cumsum(live.sum(1), out=off[1:])
         self.csr_off = torch.as_tensor(off, device=self.device)
+        self.order = torch.as_tensor(
+            _locality_order(n, rank[idx[live]], off), device=self.device)
 
     @classmethod
     def from_graph(cls, graph, device=None) -> "FieldGraph":
@@ -174,6 +193,25 @@ class FieldGraph:
     def node_major(self, d: torch.Tensor) -> torch.Tensor:
         """[N + 1, F] rows -> [F, N] fields in node order."""
         return d[self.rank[:self.n]].T
+
+
+# the field graph of the last graph object asked for (``field_graph``)
+_FIELD_GRAPH_CACHE: dict = {}
+
+
+def field_graph(graph, device=None) -> FieldGraph:
+    """``FieldGraph.from_graph(graph, device)``, kept for the last graph
+    object and device asked for: a hierarchy's geodesic calls at every
+    level relax over the same pixel graph, whose table is host work that
+    grows with the graph.  The entry pins the graph (a
+    collected graph's id could be reused by a new one); a FieldGraph is
+    not changed after it is built."""
+    dev = resolve_device(device)
+    hit = _FIELD_GRAPH_CACHE.get("last")
+    if hit is None or hit[0] is not graph or hit[1] != dev:
+        hit = (graph, dev, FieldGraph.from_graph(graph, dev))
+        _FIELD_GRAPH_CACHE["last"] = hit
+    return hit[2]
 
 
 def relax_chunk_slots(rows: int, fields: int,
@@ -217,11 +255,15 @@ def relax(d: torch.Tensor, g: FieldGraph,
                           device=d.device)
     _launch("bellman_ford_relax", d.device, d.data_ptr(),
             g.csr_src.data_ptr(), g.csr_w.data_ptr(), g.csr_off.data_ptr(),
-            g.n, f, sm_count(d.device), out.data_ptr(), frontier.data_ptr())
+            g.order.data_ptr(), g.n, f, d.stride(0), sm_count(d.device),
+            out.data_ptr(), frontier.data_ptr(), None, None, None, None,
+            None, None, None, 0)
     relax.launches += 1
     return out, frontier
 
 
+# launches of bellman_ford_relax, stateless (``relax``) and in batches
+# (``relax_delta``)
 relax.launches = 0
 
 
@@ -246,44 +288,220 @@ def relax_reference(d: torch.Tensor, g: FieldGraph,
     return best, frontier
 
 
+def stop_test(d: torch.Tensor, frontier: torch.Tensor,
+              evaluate: Optional[tuple] = None) -> torch.Tensor:
+    """A sweep's stop test on its output d and frontier, as a 0-d bool
+    tensor: no finite frontier value, or, with `evaluate` = (rows [E],
+    fields [E]), each of those values at or below its field's frontier."""
+    stop = ~torch.isfinite(frontier).any()
+    if evaluate is not None:
+        rows, cols = evaluate
+        stop |= (d[rows, cols] <= frontier[cols]).all()
+    return stop
+
+
+# the delta sweep's sectors: 8 contiguous fields (32 bytes) a lane, 32
+# lanes a chunk of 256 fields
+SECTOR = 8
+CHUNK = 32 * SECTOR
+
+
+def sector_masks(marked: torch.Tensor) -> torch.Tensor:
+    """[N + 1, F] bool -> the kernel's words, int32 [ceil(F / 256), N + 1]:
+    bit l of row v's word in chunk c is set when any of fields
+    256 c + 8 l .. 256 c + 8 l + 7 is marked."""
+    rows, f = marked.shape
+    chunks = -(-f // CHUNK)
+    wide = torch.zeros((rows, chunks * CHUNK), dtype=torch.bool,
+                       device=marked.device)
+    wide[:, :f] = marked
+    lanes = wide.view(rows, chunks, 32, SECTOR).any(3)
+    shifts = torch.arange(32, device=marked.device)
+    words = (lanes.to(torch.int64) << shifts).sum(2)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return words.T.to(torch.int32).contiguous()
+
+
+def sector_fields(words: torch.Tensor, f: int) -> torch.Tensor:
+    """The inverse of ``sector_masks``: [chunks, N + 1] words -> [N + 1, F]
+    bool, each field its sector's bit."""
+    shifts = torch.arange(32, device=words.device)
+    lanes = (words.T.to(torch.int64)[:, :, None] >> shifts) & 1
+    rows = lanes.shape[0]
+    return lanes.bool().repeat_interleave(SECTOR, dim=2).reshape(
+        rows, -1)[:, :f]
+
+
+class RelaxBatch:
+    """One field batch's delta sweeps (``relax_delta``; the kernel's batch
+    path, csrc/bellman_ford_relax.cu).  After `sweeps` sweeps from d_0:
+
+    - ``d``: d_t, [N + 1, F] rows of a buffer padded to a multiple of 8
+      fields (the pads +inf, never changed); ``out``: the buffer the next
+      sweep writes, which holds d_{t-1} (a copy of d_0 at the start), so
+      that sweep rewrites only the sectors that changed in either of the
+      two sweeps;
+    - ``changed``: int32 [ceil(F / 256), N + 1] words (``sector_masks``),
+      the sectors the last sweep changed (d_t < d_{t-1}); at the start
+      those holding a finite value, which are all that can lower a node;
+      ``out_changed`` is where the next sweep writes its own;
+    - ``frontier``: the last sweep's, one of two [F] buffers that alternate
+      (the kernel sets the next one to +inf);
+    - ``stop``: int32 [1], the last sweep's ``stop_test``; ``ticket`` the
+      kernel's block counter.
+
+    Skipping the sources that did not change lowers nothing that a full
+    sweep lowers, so d', the frontier and the sweep counts are
+    ``relax_reference``'s bit for bit."""
+
+    def __init__(self, g: FieldGraph, d: torch.Tensor,
+                 evaluate: Optional[tuple] = None):
+        _check_fields(d, g, "RelaxBatch")
+        self.g = g
+        rows, f = d.shape
+        dev = d.device
+        bufs = torch.full((2, rows, -(-f // SECTOR) * SECTOR), torch.inf,
+                          device=dev)
+        bufs[:, :, :f] = d
+        self.d, self.out = bufs[0, :, :f], bufs[1, :, :f]
+        self.changed = sector_masks(torch.isfinite(d))
+        self.out_changed = torch.empty_like(self.changed)
+        frontiers = torch.full((2, f), torch.inf, device=dev)
+        self.frontiers = (frontiers[0], frontiers[1])
+        self.stop = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.evaluate = evaluate
+        self.eval32 = None if evaluate is None else tuple(
+            torch.as_tensor(x, device=dev).to(torch.int32).contiguous()
+            for x in evaluate)
+        self.sweeps = 0
+
+    @property
+    def frontier(self) -> torch.Tensor:
+        """The last sweep's frontier."""
+        return self.frontiers[(self.sweeps - 1) % 2]
+
+    def advance(self):
+        """After a sweep wrote `out`, `out_changed` and the frontier."""
+        self.d, self.out = self.out, self.d
+        self.changed, self.out_changed = self.out_changed, self.changed
+        self.sweeps += 1
+
+    def run(self, max_iter: int) -> int:
+        """Sweep (``relax_delta``) until the stop test holds or `max_iter`
+        sweeps ran; returns the sweeps.  On a card each sweep's stop word
+        is copied to pinned memory without blocking and read once the next
+        sweep is queued, so the host never waits for the sweep it has just
+        queued; the one sweep run past the stop changes no value a caller
+        reads (the fields are at their fixed point, or the evaluated values
+        are final)."""
+        lag = self.d.is_cuda
+        if lag:
+            host = torch.zeros(2, dtype=torch.int32, pin_memory=True)
+            slots, flags = (host[0:1], host[1:2]), host.numpy()
+            posted = (torch.cuda.Event(), torch.cuda.Event())
+        while self.sweeps < max_iter:
+            relax_delta(self)
+            if not lag:
+                if bool(self.stop):
+                    break
+                continue
+            slot = (self.sweeps - 1) % 2
+            slots[slot].copy_(self.stop, non_blocking=True)
+            posted[slot].record()
+            if self.sweeps > 1:
+                posted[1 - slot].synchronize()
+                if flags[1 - slot]:
+                    break
+        return self.sweeps
+
+
+def relax_delta(b: RelaxBatch) -> None:
+    """One delta sweep of the batch `b`, in place: on a CUDA tensor the
+    kernel csrc/bellman_ford_relax.cu (one launch, counted in
+    ``relax.launches``, which also decides the stop test); on a CPU tensor
+    the twin ``relax_delta_reference``."""
+    d, g = b.d, b.g
+    if d.device.type == "cpu" and g.device.type == "cpu":
+        return relax_delta_reference(b)
+    if d.device.type != "cuda":
+        raise ValueError(f"relax_delta: no kernel for {d.device}")
+    if g.csr_src.device != d.device:
+        raise ValueError(f"relax_delta: the fields lie on {d.device}, the "
+                         f"graph on {g.csr_src.device}")
+    t = b.sweeps % 2
+    rows, cols = b.eval32 if b.eval32 is not None else (None, None)
+    _launch("bellman_ford_relax", d.device, d.data_ptr(),
+            g.csr_src.data_ptr(), g.csr_w.data_ptr(), g.csr_off.data_ptr(),
+            g.order.data_ptr(), g.n, d.shape[1], d.stride(0),
+            sm_count(d.device), b.out.data_ptr(), b.frontiers[t].data_ptr(),
+            b.changed.data_ptr(), b.out_changed.data_ptr(),
+            b.frontiers[1 - t].data_ptr(), b.ticket.data_ptr(),
+            b.stop.data_ptr(), None if rows is None else rows.data_ptr(),
+            None if cols is None else cols.data_ptr(),
+            0 if rows is None else rows.numel())
+    relax.launches += 1
+    b.advance()
+
+
+def relax_delta_reference(b: RelaxBatch,
+                          memory_budget: int = FIELD_MEMORY_BUDGET) -> None:
+    """The plain PyTorch twin of ``relax_delta``, on whatever device the
+    batch lies: ``relax_reference``'s chunks of in-edge slots over the
+    fields with every sector not marked in ``b.changed`` read as +inf (a
+    candidate is taken only from a marked sector); the new words mark the
+    sectors where d' < d; `out` is written only in the sectors marked in
+    either; the frontier and the stop word as the kernel writes them."""
+    g, d = b.g, b.d
+    f = d.shape[1]
+    gathered = torch.where(sector_fields(b.changed, f), d, torch.inf)
+    best = d.clone()
+    if g.dmax and g.active[0]:
+        step = relax_chunk_slots(g.active[0], f, memory_budget)
+        for j0 in range(0, g.dmax, step):
+            r = g.active[j0]
+            if r == 0:
+                break
+            cand = gathered[g.idx[:r, j0:j0 + step]]
+            cand.add_(g.w[:r, j0:j0 + step, None])
+            best[:r] = torch.minimum(best[:r], cand.amin(1))
+            del cand
+    lowered = best < d
+    new = sector_masks(lowered)
+    write = sector_fields(b.changed | new, f)
+    b.out.copy_(torch.where(write, best, b.out))
+    b.out_changed.copy_(new)
+    t = b.sweeps % 2
+    b.frontiers[t].copy_(torch.where(lowered, best, torch.inf).amin(0))
+    b.frontiers[1 - t].fill_(torch.inf)
+    b.stop.copy_(stop_test(b.out, b.frontiers[t], b.evaluate).reshape(1))
+    b.advance()
+
+
 def converge(g: FieldGraph, d: torch.Tensor, max_iter: int,
              evaluate: Optional[tuple] = None, what: str = "fields"):
     """Relax until a sweep changes nothing or `max_iter` sweeps ran.  With
     `evaluate` = (rows [E], fields [E]), stop as soon as each of those
     values is at or below its field's frontier (they are final then).
-    On a card each sweep's stop flag is copied to the host without
-    blocking and read once the next sweep is queued, so the host never
-    waits for the sweep it has just queued; the one sweep run past the stop
-    changes no value a caller reads (the fields are at their fixed point,
-    or the evaluated values are final).  Returns d and logs the batch with
-    the sweeps it ran."""
-    lag = d.is_cuda
-    if lag:
-        flags = torch.zeros(2, dtype=torch.bool, pin_memory=True)
-        posted = [None, None]
-    sweeps = 0
-    while sweeps < max_iter:
-        d, frontier = relax(d, g)
-        stop = ~torch.isfinite(frontier).any()
-        if evaluate is not None:
-            rows, cols = evaluate
-            stop |= (d[rows, cols] <= frontier[cols]).all()
-        slot = sweeps % 2
-        sweeps += 1
-        if not lag:
-            if bool(stop):
-                break
-            continue
-        flags[slot].copy_(stop, non_blocking=True)
-        posted[slot] = torch.cuda.Event()
-        posted[slot].record()
-        last = posted[1 - slot]
-        if last is not None:
-            last.synchronize()
-            if bool(flags[1 - slot]):
+    On a card the sweeps are a ``RelaxBatch``'s delta sweeps, one launch
+    each, the stop read one sweep late (``RelaxBatch.run``); on the CPU
+    full sweeps of ``relax`` (the twin), the stop read after each.
+    Returns d and logs the batch with the sweeps it ran and its
+    seconds."""
+    t0 = time.perf_counter()
+    if d.is_cuda:
+        b = RelaxBatch(g, d, evaluate)
+        sweeps = b.run(max_iter)
+        d = b.d
+    else:
+        sweeps = 0
+        while sweeps < max_iter:
+            d, frontier = relax(d, g)
+            sweeps += 1
+            if bool(stop_test(d, frontier, evaluate)):
                 break
     LOG.append({"what": what, "fields": int(d.shape[1]), "nodes": g.n,
-                "sweeps": sweeps})
+                "sweeps": sweeps, "seconds": time.perf_counter() - t0})
     return d
 
 
@@ -590,7 +808,7 @@ def geodesic_hausdorff_knn(graph, hierarchy, level: int, k: int,
     if level > 0 and c > CONTRACT_THRESHOLD and data is not None:
         return contracted_geodesic_knn(hierarchy, data, level, k,
                                        num_samples, seed, device=device)
-    g = FieldGraph.from_graph(graph, device)
+    g = field_graph(graph, device)
     reps = hierarchy.represented_points(level)
     assert all(len(r) >= 1 for r in reps), \
         "component with no represented pixels"
@@ -665,7 +883,7 @@ def geodesic_component_distances(graph, data, hierarchy, level: int,
     LOG.append({"what": "call", "fn": "geodesic_component_distances",
                 "level": level})
     idx, dist, mask = _graph_arrays(graph)
-    g = FieldGraph.from_graph(graph, device)
+    g = field_graph(graph, device)
     dev = g.device
     e = len(a)
     out = np.full(e, _FLOAT_MAX, dtype=np.float32)

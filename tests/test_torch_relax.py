@@ -10,8 +10,13 @@ weights, unreachable nodes and a node with no in-edges, at F = 1, 3, 4 and
 raises on a wrong shape, type or device; ``converge`` through the wrapper,
 and through the CSR sweep in the wrapper's place, gives the JAX package's
 fields (``sssp_fields``, its ``_bellman_ford``) bit for bit, in the twin's
-sweeps.  On the card (marked ``cuda``) the kernel against the twin, bit
-for bit."""
+sweeps.  The delta sweep: the sector words round-trip; its twin
+``relax_delta_reference`` equals ``relax_reference`` sweep by sweep (d',
+the frontier, the words marking exactly the sectors where d' < d, the stop
+word, the sweeps) at F = 1, 3, 8, 37, 256 and 300, from sources and from a
+batch stopped by evaluated values; ``RelaxBatch.run`` gives ``converge``'s
+values and sweeps.  On the card (marked ``cuda``) the kernel against the
+twins, bit for bit, stateless and in batches."""
 
 import numpy as np
 import pytest
@@ -114,6 +119,29 @@ def test_csr_holds_the_live_slots_in_slot_order(tables):
         assert torch.equal(g.csr_w[lo:hi], g.w[r][live[r]])
     # the hub's row is first (rank order), with every in-edge
     assert int(g.csr_off[1]) == int((in_idx[0] >= 0).sum()) >= 100
+    # the kernel's node order: a permutation of the rows
+    assert g.order.dtype == torch.int32
+    assert torch.equal(torch.sort(g.order.long()).values, torch.arange(g.n))
+
+
+def test_batch_rows_are_padded_to_whole_sectors(tables):
+    """A RelaxBatch keeps its fields in rows padded to a multiple of 8
+    (+inf pads, which no sweep changes), both buffers a copy of the start,
+    apart from the caller's tensor."""
+    in_idx, in_w = tables
+    g = tsp.FieldGraph(in_idx, in_w, "cpu")
+    d = g.init(sources(g.n, 37, 2, seed=3))
+    b = tsp.RelaxBatch(g, d)
+    assert b.d.shape == d.shape and b.d.stride(0) == 40
+    assert b.out.stride(0) == 40 and bits_equal(b.out, d)
+    assert torch.equal(b.d, d) and b.d.data_ptr() != d.data_ptr()
+    assert b.changed.shape == (1, g.n + 1)
+    for _ in range(3):
+        tsp.relax_delta(b)
+        for buf in (b.d, b.out):
+            pads = buf.as_strided((g.n + 1, 3), (40, 1), buf.storage_offset()
+                                  + 37)
+            assert torch.isinf(pads).all()
 
 
 @pytest.mark.parametrize("f", [1, 3, 4, 256])
@@ -137,6 +165,24 @@ def test_csr_sweep_equals_reference(tables, f):
     assert lowered_any
     # unreachable nodes and the node without in-edges stay +inf
     assert torch.isinf(d).any()
+
+
+def test_field_graph_is_kept_for_the_last_graph():
+    """field_graph builds a graph's table once for repeated calls with the
+    same graph object and device, and anew for another graph; the table
+    equals a fresh build."""
+    from sph_tpu_torch.ops.graph import KnnGraph
+    rng = np.random.default_rng(4)
+    idx = rng.integers(0, 50, (50, 6)).astype(np.int32)
+    dist = rng.random((50, 6)).astype(np.float32)
+    a, b = KnnGraph(idx, dist), KnnGraph(idx.copy(), dist.copy())
+    first = tsp.field_graph(a, "cpu")
+    assert tsp.field_graph(a, "cpu") is first
+    other = tsp.field_graph(b, "cpu")
+    assert other is not first and tsp.field_graph(b, "cpu") is other
+    fresh = tsp.FieldGraph.from_graph(b, "cpu")
+    for name in ("idx", "w", "rank", "csr_src", "csr_w", "csr_off", "order"):
+        assert torch.equal(getattr(other, name), getattr(fresh, name))
 
 
 def test_cpu_wrapper_takes_the_twin_and_counts_no_launch(tables):
@@ -234,14 +280,153 @@ def test_cuda_kernel_bit_equal_to_twin(f, monkeypatch):
             assert bits_equal(got, want) and bits_equal(front, want_front)
             cur = got
     src = sources(g.n, f, 3, seed=11)
+    before = tsp.relax.launches
     got = tsp.sssp_fields(in_idx, in_w, src, device="cuda")
     sweeps = tsp.LOG[-1]["sweeps"]
+    assert tsp.relax.launches == before + sweeps
     with monkeypatch.context() as mp:
-        mp.setattr(tsp, "relax", tsp.relax_reference)
+        mp.setattr(tsp, "relax_delta", tsp.relax_delta_reference)
         twin = tsp.sssp_fields(in_idx, in_w, src, device="cuda")
     assert np.array_equal(got, twin) and tsp.LOG[-1]["sweeps"] == sweeps
     assert np.array_equal(got, tsp.sssp_fields(in_idx, in_w, src,
                                                device="cpu"))
+
+
+# one in-edge slot a gather in the twins (the hub row makes the padded
+# table wide; its prefixes are short)
+SLOT_BUDGET = 1
+
+
+def lockstep(g, d, evaluate=None, max_iter=10_000, sweep=None, b=None):
+    """Delta sweeps of a RelaxBatch `b` (default one from a copy of d) by
+    ``sweep`` (default the twin) beside full twin sweeps from d, each sweep
+    compared bit for bit (d', frontier, stop word; the words against the
+    sectors where d' < d) until the stop test holds; returns the sweeps."""
+    sweep = sweep or (lambda b: tsp.relax_delta_reference(b, SLOT_BUDGET))
+    b = b or tsp.RelaxBatch(g, d.clone(), evaluate)
+    for t in range(max_iter):
+        want, want_front = tsp.relax_reference(d, g, SLOT_BUDGET)
+        sweep(b)
+        assert b.sweeps == t + 1
+        assert bits_equal(b.d, want) and bits_equal(b.frontier, want_front)
+        assert torch.equal(b.changed, tsp.sector_masks(want < d))
+        stop = bool(tsp.stop_test(want, want_front, evaluate))
+        assert bool(b.stop) == stop
+        d = want
+        if stop:
+            return t + 1
+    return max_iter
+
+
+def test_sector_words_round_trip():
+    """A field's sector bit: fields 256 c + 8 l .. + 7 set bit l of chunk
+    c's word, bit 31 included (a negative int32); the inverse gives each
+    field its sector's bit."""
+    marked = torch.zeros((3, 300), dtype=torch.bool)
+    marked[0, 0] = marked[0, 255] = marked[1, 263] = marked[2, 299] = True
+    words = tsp.sector_masks(marked)
+    assert words.dtype == torch.int32 and words.shape == (2, 3)
+    assert words.tolist() == [[1 | -(1 << 31), 0, 0], [0, 1, 1 << 5]]
+    back = tsp.sector_fields(words, 300)
+    sectors = marked[:, list(range(300)) + [299] * 4].view(3, 38, 8).any(2)
+    assert torch.equal(back, sectors.repeat_interleave(8, 1)[:, :300])
+
+
+@pytest.mark.parametrize("f", [1, 3, 8, 37, 256, 300])
+def test_delta_reference_equals_reference_sweep_by_sweep(tables, f):
+    """relax_delta_reference against relax_reference from padded source
+    sets until the fields stop changing: every sweep equal, the same
+    sweeps; RelaxBatch.run stops at that sweep, and the wrapper takes the
+    twin on the CPU and counts no launch."""
+    in_idx, in_w = tables
+    g = tsp.FieldGraph(in_idx, in_w, "cpu")
+    d = g.init(sources(g.n, f, 3, seed=f))
+    sweeps = lockstep(g, d)
+    assert sweeps > 2
+    before = tsp.relax.launches
+    b = tsp.RelaxBatch(g, d.clone())
+    assert b.run(g.n) == sweeps and tsp.relax.launches == before
+    tsp.LOG.clear()
+    assert bits_equal(b.d, tsp.converge(g, d, g.n))
+    assert tsp.LOG[-1]["sweeps"] == sweeps and torch.isinf(b.d[g.n]).all()
+
+
+def test_delta_reference_on_a_relaxed_start_and_evaluated_values(tables):
+    """From fields already relaxed 3 sweeps (the first words mark every
+    finite sector), and a batch stopped by evaluated values (pads read the
+    sentinel row): each sweep equal to the full twin's, and RelaxBatch.run
+    gives converge's values and sweeps."""
+    in_idx, in_w = tables
+    g = tsp.FieldGraph(in_idx, in_w, "cpu")
+    d = g.init(sources(g.n, 40, 2, seed=4))
+    for _ in range(3):
+        d, _ = tsp.relax_reference(d, g)
+    lockstep(g, d)
+    rng = np.random.default_rng(9)
+    nodes = torch.as_tensor(rng.integers(-1, g.n, 120))
+    evaluate = (g.rows(nodes), torch.as_tensor(rng.integers(0, 40, 120)))
+    start = g.init(sources(g.n, 40, 1, seed=5))
+    sweeps = lockstep(g, start, evaluate)
+    tsp.LOG.clear()
+    want = tsp.converge(g, start.clone(), g.n, evaluate=evaluate)
+    assert tsp.LOG[-1]["sweeps"] == sweeps
+    b = tsp.RelaxBatch(g, start.clone(), evaluate)
+    assert b.run(g.n) == sweeps and bits_equal(b.d, want)
+    assert lockstep(g, start, evaluate, max_iter=2) == 2
+
+
+def test_delta_wrapper_raises_on_wrong_inputs():
+    in_idx, in_w = edge_graph(n=60, hub_in=20)
+    g = tsp.FieldGraph(in_idx, in_w, "cpu")
+    d = g.init(sources(g.n, 4, 2, seed=2))
+    with pytest.raises(ValueError, match="fields must be"):
+        tsp.RelaxBatch(g, d[:-1])
+    with pytest.raises(TypeError, match="float32"):
+        tsp.RelaxBatch(g, d.double())
+    b = tsp.RelaxBatch(g, d)
+    b.d = torch.empty(d.shape, device="meta")
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        tsp.relax_delta(b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 3, 8, 37, 256, 300])
+def test_cuda_delta_kernel_against_both_twins(f):
+    """The kernel's batch path on the card, sweep by sweep against the
+    full twin and the delta twin (d', the frontier, the stop word decided
+    in the kernel, the words), one launch a sweep, until the stop; from a
+    row start that is not 16-byte aligned too (the scalar loads on the
+    sweeps that read it); and a batch stopped by evaluated values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    in_idx, in_w = edge_graph()
+    g = tsp.FieldGraph(in_idx, in_w, "cuda")
+    d = g.init(sources(g.n, f, 3, seed=f))
+    base = torch.empty(d.numel() + 1, device="cuda")
+    unaligned = base[1:].view(d.shape)
+    unaligned.copy_(d)
+    rng = np.random.default_rng(f)
+    nodes = torch.as_tensor(rng.integers(-1, g.n, 200), device="cuda")
+    evaluate = (g.rows(nodes),
+                torch.as_tensor(rng.integers(0, f, 200), device="cuda"))
+    for start, ev in ((d, None), (unaligned, None), (d, evaluate)):
+        twin = tsp.RelaxBatch(g, start.clone(), ev)
+        # the batch owns its start: the unaligned view stays unaligned
+        kernel = tsp.RelaxBatch(g, start if start is unaligned
+                                else start.clone(), ev)
+
+        def both(b):
+            before = tsp.relax.launches
+            tsp.relax_delta(b)
+            tsp.relax_delta_reference(twin)
+            torch.cuda.synchronize()
+            assert tsp.relax.launches == before + 1
+            assert bits_equal(b.d, twin.d)
+            assert bits_equal(b.frontier, twin.frontier)
+            assert torch.equal(b.changed, twin.changed)
+            assert bool(b.stop) == bool(twin.stop)
+
+        assert lockstep(g, d.clone(), ev, sweep=both, b=kernel) > 1
 
 
 def test_kernel_source_and_build_registry():
@@ -255,6 +440,7 @@ def test_kernel_source_and_build_registry():
     assert "sph_tpu/ops/shortest_path.py::_bellman_ford" in src
     assert "Replaces no TPU kernel" in src and "bound" in src
     assert 'extern "C" int bellman_ford_relax_launch' in src
+    assert "delta sweep" in src and "ticket" in src
     assert "use_fast_math" not in " ".join(cuda_build.NVCC_FLAGS)
     assert cuda_build.ALL_KERNELS == (*tsne_kernels.KERNELS,
                                       "bellman_ford_relax")

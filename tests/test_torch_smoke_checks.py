@@ -657,6 +657,23 @@ def test_geo_log_summary_groups_batches_by_call():
     assert out[1]["batches"] == 0
 
 
+def test_geo_log_summary_sums_batch_seconds():
+    """Each call's batches' host seconds (converge's LOG entries) summed;
+    a sketch build's seconds stay the build's."""
+    log = [{"what": "call", "fn": "geodesic_component_distances",
+            "level": 0},
+           {"what": "pair_values", "fields": 3, "nodes": 16, "sweeps": 4,
+            "seconds": 0.25},
+           {"what": "pair_values", "fields": 2, "nodes": 16, "sweeps": 6,
+            "seconds": 0.5},
+           {"what": "call", "fn": "sketch_geodesic_pairs", "level": 1},
+           {"what": "sketch_build", "shape": [16, 8], "seconds": 2.0}]
+    out = chip_smoke.geo_log_summary(log)
+    assert out[0]["seconds_in_batches"] == 0.75
+    assert out[1]["seconds_in_batches"] == 0.0
+    assert out[1]["sketch_build"]["seconds"] == 2.0
+
+
 def test_padded_lists_share_one_width():
     """The record's sample lists of both sides come back at one width
     (the longest list of either), -1 padded."""

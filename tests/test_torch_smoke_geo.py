@@ -191,6 +191,75 @@ def test_relax_checks_pass_and_catch_each_fault(small_geo, monkeypatch):
             chip_smoke.pair_batch_gate({**batch, **change})
 
 
+def delta_rows_and_faults(objs, whole=True):
+    """chip_smoke.relax_checks (or, not `whole`, its relax_batch_checks)
+    on a small run's objects (the twins on both sides on the CPU), its two
+    delta batch rows held to their shapes and gates, and each injected
+    fault caught."""
+    if whole:
+        out = chip_smoke.relax_checks(objs)
+        odd = chip_smoke.RELAX_ODD_FIELDS
+        assert [c["path_shape"] for c in out["checks"]] == [
+            "rgb_geo_level_0", f"rgb_geo_level_0_f{odd}",
+            "rgb_geo_contracted_level_1"]
+    else:
+        out = chip_smoke.relax_batch_checks(objs, *chip_smoke.relax_graphs(
+            objs))
+    pair, comp = out["batches"]
+    assert pair["path_shape"] == "rgb_geo_level_0_pair_batch"
+    assert comp["path_shape"] == "rgb_geo_contracted_level_1_batch"
+    assert out["pair_batch"]["sweeps_kernel"] == [pair["sweeps"]]
+    assert out["component_batch"]["sweeps_kernel"] == [comp["sweeps"]]
+    assert out["component_batch"]["values_equal"]
+    for c in (pair, comp):
+        assert c["sweeps_equal"] == c["sweeps"] == c["stopped_at"] > 1
+        assert len(c["gathered_share"]) == len(c["written_share"]) == (
+            c["sweeps"])
+        assert 0 < c["mean_gathered_share"] < 1
+        assert 0 < c["mean_written_share"] <= 1
+        assert c["gathered_share"][-1] < max(c["gathered_share"])
+        assert c["bytes"] > c["sweeps"] * 4 * c["edges"]
+        assert c["gathered_bytes"] == 32 * c["gathered_sectors"]
+        assert c["bound_ms"] > 0 and "ms" not in c    # no device time
+        chip_smoke.delta_batch_gate(c, "small")
+    assert pair["evaluated"] > 0 and comp["evaluated"] == 0
+    faults = {
+        "differ from the twins": {"sweeps_equal": pair["sweeps"] - 1,
+                                  "first_unequal": {"sweep": 2}},
+        "first held at None": {"stopped_at": None},
+        "converge ran": {"sweeps": pair["sweeps"] + 1,
+                         "sweeps_equal": pair["sweeps"] + 1},
+    }
+    for match, change in faults.items():
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.delta_batch_gate({**pair, **change}, "small")
+    return out
+
+
+def test_relax_delta_rows_small(small_geo, monkeypatch):
+    """The delta rows (a level-0 pair batch and a contracted-graph batch,
+    each sweep by sweep four ways and through converge both ways) on the
+    24 x 24 run, each twin sweep counted as a launch."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(tsp, "relax", counting_relax())
+    out = delta_rows_and_faults(small_geo["objects"])
+    assert out["batches"][0]["n"] == 576
+
+
+def test_relax_delta_rows_16x16(monkeypatch):
+    """The same batch rows on a 16 x 16 run of the phase (threshold 40,
+    no t-SNE; 10 sweeps converge its 256-node graph, so the stateless rows
+    start from fields that no sweep lowers)."""
+    set_level("WARNING")
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    monkeypatch.setattr(tsp, "CONTRACT_THRESHOLD", 40)
+    monkeypatch.setattr(tsp, "relax", counting_relax())
+    run = chip_smoke.rgb_geo(tsne_kernels, side=16, iters=1, tsne_levels=(),
+                             sources=4, fidelity=10)
+    out = delta_rows_and_faults(run["objects"], whole=False)
+    assert out["batches"][0]["n"] == 256
+
+
 def test_rgb_geo_record_gates_against_the_jax_package(monkeypatch):
     """The record sub-phase at 16 x 16 against a record the JAX package
     makes there (scripts/rgb_geo_reference.py's function): the gates pass;
