@@ -9,7 +9,8 @@ Phases, each printing one JSON line, and each raising on failure:
    ``nvidia-smi --query-gpu=name,power.limit`` line.
 2. build   — compile every CUDA kernel from csrc/ (one nvcc each, started
    together), and the host graph ops from the port's own
-   sph_tpu_torch/native/graphops.cpp.
+   sph_tpu_torch/native/graphops.cpp and the walk sort's twin
+   native/xla_sort.cpp.
 3. kernel_vs_twin — each kernel against its plain PyTorch twin on the card
    at the paths' shapes, with the time per call of both (CUDA events):
    tsne_forces_dense's reciprocal against IEEE 1 / x on every float32 in
@@ -18,14 +19,21 @@ Phases, each printing one JSON line, and each raising on failure:
    (n, Npad) = (1000, 1024), (5358, 6144) (the Pines KL's), (21025, 21504)
    (a Pines-sized scene, one of multi_scene's 16) and
    (65536, 65536) in full and at (1000000, 1000448) on 4096 sampled rows,
-   two calls bit-equal, its launch plan and its SFU floor.  tsne_attraction
-   is held at the P its paths give it (phases 12 and 15), and
-   bellman_ford_relax at rgb_geo's graphs (phase 9).
+   two calls bit-equal, its launch plan and its SFU floor; walk_row_sort
+   against its twin (std::sort, native/xla_sort.cpp), every row's order
+   and sorted keys equal, on synthetic rows of both of its paths (500 and
+   4096 keys: all equal, sorted, reverse-sorted, McIlroy's median-of-3
+   adversary, which reaches the heap path) and on 64 explorer-wide rows of
+   50000 keys, with the twin's ms, the 16-byte-an-entry bound and
+   torch.sort(stable=True)'s ms (another order).  tsne_attraction is held
+   at the P its paths give it (phases 12 and 15), bellman_ford_relax at
+   rgb_geo's graphs (phase 9), and walk_row_sort at eval_pines_walks'
+   level-0 visit record (phase 20).
 4. main    — the Pines configuration of bench.py:89-136 at 145x145x200
    through ComputeHierarchy(device="cuda") and 2000 level-1 t-SNE
    iterations through ComputeEmbedding(device="cuda"), counting kernel
-   launches; then tsne_forces_dense against its twin once more at the
-   level-1 size the path produced.
+   launches (walk_row_sort's on its NORMAL walks); then tsne_forces_dense
+   against its twin once more at the level-1 size the path produced.
 5. checks  — monotone levels, a symmetric level-1 P whose conditional rows
    each sum to 1, a finite embedding,
    the kernel on the main path, the KL gate of bench.py:344-360 against
@@ -191,13 +199,15 @@ Phases, each printing one JSON line, and each raising on failure:
    .json (NEIGH_WALKS and NEIGH_WALKS_SINGLE_OVERLAP, each with
    MERGE_RW_NEW_WALKS, MERGE_RW_NEW_WALKS_AND_KNN and MERGE_DATA_NEW_WALKS)
    and configs/pines_walk_topk.json (MERGE_RW_ONLY with top-k walk rows)
-   at 145x145x200: each run's maps against the JAX-CPU record in
-   docs/torch_port_pines_walks_reference.json (else the Pines rule), its
+   at 145x145x200: each run's maps byte-equal to the JAX-CPU record in
+   docs/torch_port_pines_walks_reference.json (a run named in
+   WALK_MAPS_EXCEPTIONS, with its traced cause, by the Pines rule), its
    walk length on each level against the record's, every output read
    back, the KL of each level of at least 100 components below its
-   start, tsne_forces_dense once an iteration of each grid's schedule;
-   then both kernels against their twins at the new shapes its levels
-   gave them.
+   start, tsne_forces_dense once an iteration of each grid's schedule,
+   walk_row_sort launched; its level-0 visit record (21025 rows of 500
+   visits) through walk_row_sort against the twin; then both t-SNE
+   kernels against their twins at the new shapes its levels gave them.
 21. multi_scene — BASELINE config 5 (benchmarks/bench_multiscene.py) at
    full width: 16 scenes create_hyperspectral_scene(145, 145, 200, seed=7
    + i) (scene 0 the Pines image) with bench.py:97-122's flagship settings
@@ -363,6 +373,14 @@ EDGE_ORACLE_MEAN_MIN = 0.99
 EDGE_ORACLE_SEED_MIN = 0.9737
 SMOKE_SECONDS_MAX = 1000   # the whole script, builds included
 DEV = "cuda"               # the helpers' device; "cpu" rehearses them small
+WALK_SORT_COLS = 500       # the walk grids' and Pines' 50 walks of 10 steps
+WALK_SORT_WIDE = (64, 50000)   # /api/walks' widest rows: 500 walks x 100 steps
+WALK_SORT_GLOBAL_COLS = 4096   # a width past the kernel's shared-memory rows
+WALK_SORT_SYNTH_ROWS = 16      # rows of each synthetic kind
+# eval_pines_walks runs whose maps may differ from the JAX-CPU record, each
+# with the traced op outside the walk rows that makes them differ (ROADMAP
+# queue 3); every other run's maps must be byte-equal
+WALK_MAPS_EXCEPTIONS: dict = {}
 
 
 # the card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W)
@@ -3137,6 +3155,105 @@ def walk_lengths_gate(run: dict, want: dict, maps_equal: bool,
     return len(got)
 
 
+def walk_sort_bound(rows: int, cols: int) -> dict:
+    """walk_row_sort: each int32 key read once, the sorted key (int32) and
+    the order (int64) written once, 16 bytes an entry; no float work."""
+    return bound(16 * rows * cols, 0)
+
+
+def check_walk_sort(walk_sort, native, keys, label: str,
+                    repeats: int = 5) -> dict:
+    """walk_row_sort on the card against its twin (native/xla_sort.cpp,
+    std::sort on the host) on `keys` [R, S]: every row's order and sorted
+    keys equal; the wrapper's mean ms over `repeats` calls (CUDA events;
+    run outside the paths' launch counts), the twin's ms (host clock, its
+    threads), the 16-byte-an-entry bound, and torch.sort(stable=True)'s ms
+    on the same keys (another order of equal keys: not the same
+    function)."""
+    import numpy as np
+    import torch
+    keys = keys.to(torch.int32).contiguous()
+    rows, cols = keys.shape
+    order, got_keys = walk_sort.xla_sort_order(keys)
+    ms = cuda_ms(lambda: walk_sort.xla_sort_order(keys), calls=repeats,
+                 warmup=0)
+    host = keys.cpu().numpy()
+    t = time.perf_counter()
+    want, want_keys = native.xla_sort_order(host)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    got = order.cpu().numpy()
+    rows_differ = int((got != want).any(axis=1).sum())
+    keys_differ = int((got_keys.cpu().numpy() != want_keys).any(axis=1).sum())
+    torch_ms = cuda_ms(lambda: torch.sort(keys, dim=1, stable=True),
+                       calls=max(1, repeats), warmup=1)
+    out = {"path_shape": label, "rows": rows, "cols": cols,
+           "kernel_path": ("shared memory" if cols <= walk_sort.SHARED_COLS
+                           else "in place"),
+           "rows_differ": rows_differ, "sorted_key_rows_differ": keys_differ,
+           "max_abs_err": float(np.abs(got - want).max()) if got.size
+           else 0.0, "ms": ms, "plain_ms": plain_ms,
+           **walk_sort_bound(rows, cols),
+           "torch_sort_stable_ms": torch_ms,
+           "torch_sort_stable_is": "another order of equal keys"}
+    if rows_differ or keys_differ:
+        raise AssertionError(f"walk_row_sort {label}: {rows_differ} rows' "
+                             f"orders and {keys_differ} rows' keys differ "
+                             "from std::sort's")
+    return out
+
+
+def walk_sort_synthetic(walk_sort, cols: int,
+                        rows: int = WALK_SORT_SYNTH_ROWS):
+    """Rows of `cols` keys, `rows` of each kind: all equal, sorted (each
+    key thrice), reverse-sorted, and McIlroy's median-of-3 adversary, which
+    drives std::sort to its heap path.  [4 * rows, cols] int32 on DEV."""
+    import numpy as np
+    import torch
+    ramp = np.arange(cols, dtype=np.int32) // 3
+    kinds = [np.full(cols, 7, np.int32), ramp, ramp[::-1].copy(),
+             walk_sort.median_of_3_adversary(cols)]
+    stats = {}
+    walk_sort.introsort_order_reference(kinds[-1], stats)
+    if not stats.get("heap"):
+        raise AssertionError(f"the adversary of {cols} keys does not reach "
+                             "the heap path")
+    return torch.from_numpy(np.repeat(np.stack(kinds), rows, axis=0)).to(DEV)
+
+
+def walk_like_rows(rows: int, cols: int, seed: int = 5):
+    """Rows of `cols` visits that stay near their start point (each row's
+    ids within +-200 of its own, heavy repeats), as long walks give them:
+    [rows, cols] int32 on DEV."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(-200, 201, (rows, cols)) + 1000 * np.arange(rows)[:, None]
+    return torch.from_numpy(ids.astype(np.int32)).to(DEV)
+
+
+@contextlib.contextmanager
+def first_visit_record(twalks, rows: int, keep: dict):
+    """While open, the first LINEAR or NORMAL visit record of `rows` start
+    points that ops.walks.accumulate is given lands in keep["ids"], as the
+    per-start visit lists [rows, W * L] the sort takes."""
+    inner = twalks.accumulate
+
+    def wrapped(visited, num_walks, walk_length, weighting, out_width):
+        steps, cw = visited.shape
+        if ("ids" not in keep and cw == rows * num_walks
+                and weighting in ("linear", "normal")):
+            keep["ids"] = visited.reshape(steps, rows, num_walks).permute(
+                1, 2, 0).reshape(rows, num_walks * steps).clone()
+            keep["walks"], keep["length"] = num_walks, walk_length
+        return inner(visited, num_walks, walk_length, weighting, out_width)
+
+    twalks.accumulate = wrapped
+    try:
+        yield keep
+    finally:
+        twalks.accumulate = inner
+
+
 def eval_pines_walks(tsne_kernels, ref: dict) -> dict:
     """The evaluation driver on both walk-variant grids (EVAL_WALK_GRIDS)
     at 145x145x200: each run's maps against the JAX-CPU record's (else
@@ -3167,6 +3284,9 @@ def eval_pines_walks(tsne_kernels, ref: dict) -> dict:
                 raise AssertionError(f"eval_pines_walks: no record of {key}")
             label = f"eval_pines_walks {key}"
             maps_equal = eval_maps_gate(r, want, label)
+            if not maps_equal and key not in WALK_MAPS_EXCEPTIONS:
+                raise AssertionError(f"{label}: the maps differ from the "
+                                     "JAX-CPU record's")
             tsne_level_gates(run["embeddings"], label)
             compared = walk_lengths_gate(run, want, maps_equal, label)
             if run["rw_handling"] == "merge_rw_new_walks_and_knn" and not all(
@@ -3185,6 +3305,11 @@ def eval_pines_walks(tsne_kernels, ref: dict) -> dict:
                 "embeddings": run["embeddings"],
                 "files_read_back": len(r["read_back"]["files"])}
     shutil.rmtree(root, ignore_errors=True)
+    equal = [k for k, r in out["runs"].items() if r["maps_equal_to_record"]]
+    out["maps_equal_to_record"] = f"{len(equal)} of {len(out['runs'])}"
+    out["maps_exceptions"] = {k: WALK_MAPS_EXCEPTIONS[k]
+                              for k in out["runs"]
+                              if k in WALK_MAPS_EXCEPTIONS}
     return out
 
 
@@ -4406,7 +4531,8 @@ def main() -> int:
     import sph_tpu_torch as T
     from sph_tpu_torch import native
     from sph_tpu_torch.ops import shortest_path as sp
-    from sph_tpu_torch.ops import tsne_kernels
+    from sph_tpu_torch.ops import tsne_kernels, walk_sort
+    from sph_tpu_torch.ops import walks as twalks
     from sph_tpu_torch.utils.logging import set_level
     set_level("WARNING")
 
@@ -4426,6 +4552,10 @@ def main() -> int:
     t0 = time.perf_counter()
     native.get_lib()
     emit({"phase": "build", "library": "graphops (host, g++)",
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    native.xla_sort_order(np.zeros((1, 1), np.int32))
+    emit({"phase": "build", "library": "xla_sort (host, g++)",
           "seconds": time.perf_counter() - t0})
 
     # the kernel's branch-free reciprocal against IEEE 1 / x on every
@@ -4455,10 +4585,28 @@ def main() -> int:
                   "plain_ms": "not measured: a full twin call at this size "
                               "takes tens of seconds"})})
 
+    # walk_row_sort: both of its paths on synthetic rows (the heap path
+    # included) and at the explorer's widest rows; the paths' own visit
+    # records follow in eval_pines_walks
+    t0 = time.perf_counter()
+    sort_checks = [
+        check_walk_sort(walk_sort, native,
+                        walk_sort_synthetic(walk_sort, WALK_SORT_COLS),
+                        "synthetic_500: equal, sorted, reversed, adversary"),
+        check_walk_sort(walk_sort, native,
+                        walk_sort_synthetic(walk_sort, WALK_SORT_GLOBAL_COLS),
+                        "synthetic_4096: equal, sorted, reversed, adversary"),
+        check_walk_sort(walk_sort, native, walk_like_rows(*WALK_SORT_WIDE),
+                        "explorer_wide_500_walks_x_100_steps", repeats=2)]
+    for c in sort_checks:
+        emit({"phase": "kernel_vs_twin", "kernel": "walk_row_sort", **c,
+              "seconds_all": time.perf_counter() - t0})
+
     # ---- the main path: bench.py:89-136 at full size --------------------
     ch, lss_main, data = pines_hierarchy("cuda")
     tsne_kernels.tsne_forces_dense.launches = 0
     tsne_kernels.tsne_repulsion.launches = 0
+    walk_sort.xla_sort_order.launches = 0
     seconds = {}
     for name, stage in (("stage1_knn", ch.compute_knn_graph),
                         ("stage2_hierarchy", ch.compute_image_hierarchy),
@@ -4468,6 +4616,10 @@ def main() -> int:
         stage()
         torch.cuda.synchronize()
         seconds[name] = time.perf_counter() - t
+    main_sort_launches = walk_sort.xla_sort_order.launches
+    if not main_sort_launches:
+        raise AssertionError("walk_row_sort: the Pines path's NORMAL walks "
+                             "launched it no time")
     levels = list(ch.image_hierarchy.hierarchy.num_components)
     p1 = ch.level_similarities.get_prob_dist(1)
     iters = 2000
@@ -4486,7 +4638,8 @@ def main() -> int:
           "tsne_iters_per_s": iters / seconds["tsne"],
           "tsne_tier": ce.last_computation.tier,
           "tsne_forces_dense_launches": launches,
-          "tsne_repulsion_launches": main_rep_launches})
+          "tsne_repulsion_launches": main_rep_launches,
+          "walk_row_sort_launches": main_sort_launches})
 
     # the kernel once more at the level-1 size the main path just gave it
     from sph_tpu_torch.models.tsne import dense_npad
@@ -4589,8 +4742,11 @@ def main() -> int:
 
     # ---- the live explorer server on the same hierarchy -----------------
     t = time.perf_counter()
+    walk_sort.xla_sort_order.launches = 0
     live = explorer(ch, emb)
+    sort_launches = {"explorer": walk_sort.xla_sort_order.launches}
     emit({"phase": "explorer", **live,
+          "walk_row_sort_launches": sort_launches["explorer"],
           "seconds": time.perf_counter() - t})
     h1 = ch.image_hierarchy.hierarchy
     pines_l1 = {"data": data, "p1": p1, "labels": h1.pixel_components[1],
@@ -4598,7 +4754,9 @@ def main() -> int:
     del ch, cond, dense, emb, ce, umap, umap_runs, h1
 
     # ---- default level settings: the approximate kNN tiers on the path ---
+    walk_sort.xla_sort_order.launches = 0
     scene = scene_overlap(tsne_kernels)
+    sort_launches["scene_overlap"] = walk_sort.xla_sort_order.launches
     with open(os.path.join(REPO, "docs",
                            "torch_port_scene_overlap_reference.json")) as f:
         scene_ref = json.load(f)
@@ -4680,7 +4838,9 @@ def main() -> int:
                            "torch_port_salinas_walks_reference.json")) as f:
         salw_ref = json.load(f)
     t = time.perf_counter()
+    walk_sort.xla_sort_order.launches = 0
     salw = salinas_walks(tsne_kernels)
+    sort_launches["salinas_walks"] = walk_sort.xla_sort_order.launches
     salw["seconds_total"] = time.perf_counter() - t
     emit({"phase": "salinas_walks", **salw,
           "jax_cpu": salw_ref["runs"]})
@@ -4918,7 +5078,9 @@ def main() -> int:
                            "torch_port_multiscene_reference.json")) as f:
         ms_ref = json.load(f)
     t = time.perf_counter()
+    walk_sort.xla_sort_order.launches = 0
     ms = multi_scene(tsne_kernels, ms_ref["full"])
+    sort_launches["multi_scene"] = walk_sort.xla_sort_order.launches
     del ms["pines"]
     emit({"phase": "multi_scene", **ms,
           "jax_cpu_levels": ms_ref["full"]["levels"],
@@ -4935,7 +5097,9 @@ def main() -> int:
     emit({"phase": "kernel_vs_twin", "kernel": "tsne_repulsion",
           "path_shape": "multi_scene_batched", **rep_scenes})
     t = time.perf_counter()
+    walk_sort.xla_sort_order.launches = 0
     msr = multi_scene_record(tsne_kernels, ms_ref["record"])
+    sort_launches["multi_scene_record"] = walk_sort.xla_sort_order.launches
     emit({"phase": "multi_scene_record", **msr,
           "seconds_total": time.perf_counter() - t})
     multi_scene_record_gates(msr, ms_ref["record"])
@@ -4994,9 +5158,25 @@ def main() -> int:
                            "torch_port_pines_walks_reference.json")) as f:
         walks_ref = json.load(f)
     t = time.perf_counter()
-    ev_walks = eval_pines_walks(tsne_kernels, walks_ref)
+    walk_sort.xla_sort_order.launches = 0
+    level0 = {}
+    with first_visit_record(twalks, EVAL_PINES_SHAPE[0] * EVAL_PINES_SHAPE[1],
+                            level0):
+        ev_walks = eval_pines_walks(tsne_kernels, walks_ref)
+    sort_launches["eval_pines_walks"] = walk_sort.xla_sort_order.launches
     emit({"phase": "eval_pines_walks", **ev_walks,
+          "walk_row_sort_launches": sort_launches["eval_pines_walks"],
           "seconds": time.perf_counter() - t})
+    if not sort_launches["eval_pines_walks"] or "ids" not in level0:
+        raise AssertionError("walk_row_sort: the walk grids launched it "
+                             f"{sort_launches['eval_pines_walks']} times, "
+                             f"level 0's record seen: {'ids' in level0}")
+    sort_checks.append(check_walk_sort(
+        walk_sort, native, level0.pop("ids"),
+        f"eval_pines_walks_level_0_{level0['walks']}_walks_x_"
+        f"{level0['length']}_steps"))
+    emit({"phase": "kernel_vs_twin", "kernel": "walk_row_sort",
+          **sort_checks[-1]})
     # both kernels at the shapes the walk variants' t-SNE levels gave them
     # (each shape once, and none already held above)
     seen = {(c["n"], c["npad"]) for c in checks}
@@ -5204,7 +5384,34 @@ def main() -> int:
             "gathered_bytes": c["gathered_bytes"],
             "mean_gathered_share": c["mean_gathered_share"],
             "mean_written_share": c["mean_written_share"]}
-            for c in relax["batches"]]}]})
+            for c in relax["batches"]]}, {
+        # the JAX package's unstable sort of walk rows (an XLA op: no
+        # pallas_call); its main path is the Pines path's NORMAL walks, one
+        # launch a walk call; ms and bound at eval_pines_walks' level 0
+        "name": "walk_row_sort", "route": "cuda",
+        "source": "sph_tpu_torch/csrc/walk_row_sort.cu",
+        "replaces": "sph_tpu/ops/walks.py:186 jax.lax.sort(..., "
+                    "is_stable=False) in _accumulate (an XLA op: no "
+                    "pallas_call)",
+        "launches": main_sort_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in sort_checks),
+        "ms": sort_checks[-1]["ms"], "plain_ms": sort_checks[-1]["plain_ms"],
+        "plain": "native/xla_sort.cpp (std::sort on the host)",
+        "bound_ms": sort_checks[-1]["bound_ms"],
+        "bound_by": sort_checks[-1]["bound_by"], "library_ms": None,
+        "torch_sort_stable_ms": sort_checks[-1]["torch_sort_stable_ms"],
+        "shape": [sort_checks[-1]["rows"], sort_checks[-1]["cols"]],
+        "launches_by_path": [
+            {"path": "pines", "n": levels[0], "launches": main_sort_launches},
+            *({"path": path, "launches": n_launch}
+              for path, n_launch in sort_launches.items())],
+        "at_shapes": [{
+            "path_shape": c["path_shape"], "shape": [c["rows"], c["cols"]],
+            "kernel_path": c["kernel_path"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"],
+            "torch_sort_stable_ms": c["torch_sort_stable_ms"],
+            "max_abs_err": c["max_abs_err"]} for c in sort_checks]}]})
     elapsed = time.perf_counter() - started
     if not elapsed <= SMOKE_SECONDS_MAX:
         raise AssertionError(f"chip_smoke took {elapsed} s, over "

@@ -59,7 +59,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import rng
-from ..ops.numerics import _fma, fused_row_sum, pow
+from ..ops.numerics import _fma, fused_row_sum, pow, row_sum
 from ..ops.packing import pack_positions, unpack_positions
 from ..ops.sparse import SparseRows, symmetrize_umap
 from ..utils.logging import Log
@@ -145,11 +145,19 @@ def _sq_len(e0: torch.Tensor, e1: torch.Tensor) -> torch.Tensor:
     return _fma(e0, e0, e1 * e1)
 
 
-def _repel(e0: torch.Tensor, e1: torch.Tensor, a: float, b: float):
+def _repel(e0: torch.Tensor, e1: torch.Tensor, a: float, b: float,
+           true_division: bool = False):
     """Clipped repulsive updates of umap-learn; a coincident pair
-    (e2 == 0) gets the constant +4 push per dimension."""
+    (e2 == 0) gets the constant +4 push per dimension.  With
+    `true_division` the coefficient 2b / den is an IEEE division, as XLA
+    computes it (the dense tier, which follows XLA-CPU bit for bit);
+    without, torch's form of a number over a tensor, the reciprocal times
+    the number, an ulp off at times (the rows and edge tiers, which follow
+    it within their tolerances)."""
     e2 = _sq_len(e0, e1)
-    gcn = (2.0 * b) / ((0.001 + e2) * _fma(a, pow(e2, b), 1.0))
+    den = (0.001 + e2) * _fma(a, pow(e2, b), 1.0)
+    gcn = (torch.full_like(den, 2.0 * b) / den if true_division
+           else (2.0 * b) / den)
     pos = e2 > 0
     return (torch.where(pos, _clip4(gcn * e0), 4.0),
             torch.where(pos, _clip4(gcn * e1), 4.0))
@@ -487,27 +495,33 @@ class UmapComputation:
     def _dense_epoch(self, epoch: int):
         """One epoch of the dense tier (JAX: _run_epochs_dense' body): the
         negatives' expectation over every other point, scaled by the row's
-        draw count c = active edges x negative_sample_rate over N."""
+        draw count c = active edges x negative_sample_rate over N.  As
+        XLA-CPU computes it: squared lengths and the position updates as
+        fused multiply-adds, and the row sums over the JAX package's
+        power-of-two padded width (its pad columns add 0)."""
         a, b = float(np.float32(self._a)), float(np.float32(self._b))
         alpha = float(self._alpha(epoch))
         n = self._n
+        width = _next_pow2(n, lo=64)
         active = self._next_sample <= float(epoch)
         y0, y1 = self._y[:, 0], self._y[:, 1]
         d0 = y0[:, None] - y0[None, :]
         d1 = y1[:, None] - y1[None, :]
-        gc = _attract_coeff(d0 * d0 + d1 * d1, a, b)
-        att0 = 2.0 * torch.where(active, _clip4(gc * d0), 0.0).sum(1)
-        att1 = 2.0 * torch.where(active, _clip4(gc * d1), 0.0).sum(1)
-        y0m = y0 + alpha * att0
-        y1m = y1 + alpha * att1
+        gc = _attract_coeff(_sq_len(d0, d1), a, b)
+        att0 = 2.0 * row_sum(torch.where(active, _clip4(gc * d0), 0.0), width)
+        att1 = 2.0 * row_sum(torch.where(active, _clip4(gc * d1), 0.0), width)
+        y0m = _fma(alpha, att0, y0)
+        y1m = _fma(alpha, att1, y1)
         r0, r1 = _repel(y0m[:, None] - y0m[None, :],
-                        y1m[:, None] - y1m[None, :], a, b)
+                        y1m[:, None] - y1m[None, :], a, b,
+                        true_division=True)
         notself = ~torch.eye(n, dtype=torch.bool, device=self._y.device)
         scale = (active.sum(1).to(torch.float32)
                  * self.params.negative_sample_rate / float(max(n, 1)))
-        rep0 = scale * torch.where(notself, r0, 0.0).sum(1)
-        rep1 = scale * torch.where(notself, r1, 0.0).sum(1)
-        self._y = torch.stack([y0m + alpha * rep0, y1m + alpha * rep1], 1)
+        rep0 = scale * row_sum(torch.where(notself, r0, 0.0), width)
+        rep1 = scale * row_sum(torch.where(notself, r1, 0.0), width)
+        self._y = torch.stack([_fma(alpha, rep0, y0m),
+                               _fma(alpha, rep1, y1m)], 1)
         self._next_sample = torch.where(active, self._next_sample + self._eps,
                                         self._next_sample)
 

@@ -3,8 +3,9 @@
 The port builds its own copy of the JAX package's C++ source,
 ``sph_tpu_torch/native/graphops.cpp`` (held byte-equal to
 ``sph_tpu/native/graphops.cpp`` by a test), with g++ into
-``sph_tpu_torch/_build/`` at first use, and ``libm_pow.c``, the C
-library's float32 pow over an array, with gcc.  The library is
+``sph_tpu_torch/_build/`` at first use, ``libm_pow.c``, the C
+library's float32 pow over an array, with gcc, and ``xla_sort.cpp``,
+XLA-CPU's unstable-sort order of int32 rows, with g++.  The library is
 named by the source's content hash, so an edited source is rebuilt.  A
 failed build raises: these ops have no Python fallback in the port.
 """
@@ -22,6 +23,7 @@ import numpy as np
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(_PKG, "native", "graphops.cpp")
 LIBM_POW_SRC = os.path.join(_PKG, "native", "libm_pow.c")
+XLA_SORT_SRC = os.path.join(_PKG, "native", "xla_sort.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 _lib: Optional[ctypes.CDLL] = None
@@ -66,6 +68,42 @@ def powf(x: np.ndarray, e: float) -> np.ndarray:
     out = np.empty_like(x)
     _libm_pow.powf_array(x, x.size, e, out)
     return out
+
+
+_xla_sort: Optional[ctypes.CDLL] = None
+
+
+def xla_sort_order(keys: np.ndarray, threads: int = 0
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """The order in which XLA-CPU's unstable sort (``jax.lax.sort(...,
+    num_keys=1, is_stable=False)``) leaves each row of int32 keys [R, S]:
+    libstdc++'s std::sort over (key, position) pairs with a key-only `<`
+    (``xla_sort.cpp``).  Returns the order [R, S] int64 and the sorted
+    keys [R, S] int32.  Rows are spread over `threads` threads (0: the
+    machine's cores); the result does not depend on it."""
+    global _xla_sort
+    if _xla_sort is None:
+        lib = ctypes.CDLL(_build(XLA_SORT_SRC, "xla_sort",
+                                 ("g++", "-O2", "-std=c++17", "-pthread")))
+        lib.xla_sort_order.restype = None
+        lib.xla_sort_order.argtypes = [
+            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")]
+        _xla_sort = lib
+    keys = np.ascontiguousarray(keys, dtype=np.int32)
+    if keys.ndim != 2:
+        raise ValueError(f"native.xla_sort_order: keys must be [R, S], got "
+                         f"{keys.shape}")
+    rows, cols = keys.shape
+    order = np.empty((rows, cols), dtype=np.int64)
+    out = np.empty((rows, cols), dtype=np.int32)
+    threads = int(threads) or (os.cpu_count() or 1)
+    # a thread is worth starting for about 2^16 keys
+    threads = max(1, min(threads, rows * cols >> 16))
+    _xla_sort.xla_sort_order(keys, rows, cols, threads, order, out)
+    return order, out
 
 
 def get_lib() -> ctypes.CDLL:

@@ -5,7 +5,8 @@ content-hashed shared library in ``_build/`` at first use (all missing ones
 at once, one nvcc each), with a plain C entry point ``<name>_launch`` that
 is loaded with ctypes and returns the launch's CUDA error.  The wrappers
 live beside their twins: the t-SNE kernels in ``ops/tsne_kernels.py``, the
-Bellman-Ford relax in ``ops/shortest_path.py``.
+Bellman-Ford relax in ``ops/shortest_path.py``, the walk rows' sort in
+``ops/walk_sort.py``.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ _SIGNATURES = {
                         _P],
     "bellman_ford_relax": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _I, _P],
+    "walk_row_sort": [_P, ctypes.c_longlong, _I, _P, _P, _P],
 }
 # every kernel of the port
 ALL_KERNELS = tuple(_SIGNATURES)

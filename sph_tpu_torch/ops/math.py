@@ -71,7 +71,10 @@ def spectral_embedding(indices: np.ndarray, distances: np.ndarray,
     indices/distances: [N, K] padded rows (pad index < 0); column 0 may be the
     self edge and is skipped.  Uses the smallest nontrivial eigenvectors of the
     symmetrically-normalized Laplacian of the symmetrized weight graph
-    (scipy's eigsh on the host); a random layout when that fails.
+    (scipy's eigsh on the host); a random layout when that fails.  ARPACK
+    starts from a vector drawn from `seed`: without one it takes its own
+    process-wide random start (the JAX package's case), and a layout would
+    then depend on the eigensolves run before it in the process.
     """
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
@@ -92,8 +95,10 @@ def spectral_embedding(indices: np.ndarray, distances: np.ndarray,
 
     try:
         ncv = min(n - 1, max(2 * (num_components + 1) + 1, 20))
+        v0 = np.random.default_rng(seed).uniform(-1.0, 1.0, n)
         vals_, vecs = spla.eigsh(lap, k=num_components + 1, sigma=0.0,
-                                 which="LM", ncv=ncv, tol=1e-4, maxiter=2000)
+                                 which="LM", ncv=ncv, tol=1e-4, maxiter=2000,
+                                 v0=v0)
         order = np.argsort(vals_)
         emb = vecs[:, order[1:num_components + 1]]
         # scale like umappp: normalize to max-abs 10

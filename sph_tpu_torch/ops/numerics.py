@@ -200,6 +200,23 @@ def exp(x: torch.Tensor) -> torch.Tensor:
     return flush_subnormals(y * scale)
 
 
+def exp_unfused(x: torch.Tensor) -> torch.Tensor:
+    """``exp``'s arithmetic with every multiply and add rounded on its own:
+    what LLVM leaves when it evaluates XLA-CPU's exp of a constant at
+    compile time (the fused multiply-adds of ``exp`` are formed only in
+    code that runs)."""
+    x = torch.clamp(x, _f32(-87.8), _f32(88.8))
+    fx = torch.clamp(torch.floor(x * _LOG2E + 0.5), -127.0, 127.0)
+    r = x - fx * _LN2_HI
+    r = r - fx * _LN2_LO
+    y = torch.full_like(r, _EXP_P[0])
+    for c in _EXP_P[1:]:
+        y = y * r + c
+    y = (y * (r * r) + r) + 1.0
+    scale = ((fx.to(torch.int32) + 127) << 23).view(torch.float32)
+    return flush_subnormals(y * scale)
+
+
 _LOG_P = tuple(_f32(c) for c in (
     7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
     1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,

@@ -15,6 +15,8 @@ so on equal inputs the CPU walks visit the same nodes as the JAX package's.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -22,7 +24,8 @@ from ..settings import ImportanceWeighting, RandomWalkSettings
 from ..utils.logging import Log
 from . import rng
 from .distributions import bucket_width
-from .numerics import _f32, _fma, cumsum, exp, row_sum
+from .numerics import _f32, _fma, cumsum, exp, exp_unfused, row_sum
+from .walk_sort import xla_sort_order
 from .sparse import PAD, SparseRows, compact, shrink_width
 
 
@@ -94,21 +97,88 @@ def simulate(indices: torch.Tensor, values: torch.Tensor, seed: int,
 
 def _step_weights(weighting: str, walk_length: int, steps: int,
                   device) -> torch.Tensor:
-    """Per-step visit weights.  XLA compiles the JAX package's division by
-    the (constant) walk length as a multiply by its float32 reciprocal, and
-    so does this."""
+    """Per-step visit weights of the schemes whose weights are small
+    integers (CONSTANT, ONLYLAST, FIRST_VISIT): exact in any arithmetic.
+    LINEAR and NORMAL take ``xla_step_weights``."""
     s = torch.arange(steps, dtype=torch.float32, device=device)
-    inv_len = _f32(1.0 / walk_length)
     if weighting == "constant":
         return torch.ones(steps, dtype=torch.float32, device=device)
-    if weighting == "linear":
-        return 1.0 - s * inv_len
-    if weighting == "normal":
-        x = s * 3.0 * inv_len
-        return exp(-0.5 * x * x)
     if weighting == "onlylast":
         return torch.where(s == steps - 1, 1.0, 0.0)
-    return s + 1.0   # first_visit
+    if weighting == "first_visit":
+        return s + 1.0
+    raise ValueError(f"_step_weights: {weighting!r} takes xla_step_weights")
+
+
+def _vector_part(n: int, unrolled_max: int) -> int:
+    """How many of a fused loop's `n` elements XLA-CPU computes at run time
+    in its 32-wide vector body (four 8-lane vectors): none when the loop has
+    at most `unrolled_max` such iterations (LLVM unrolls it and folds every
+    element at compile time), else the whole iterations; the remainder is
+    folded."""
+    blocks = n // 32
+    return 0 if blocks <= unrolled_max else 32 * blocks
+
+
+def xla_step_weights(weighting: str, walk_length: int, steps: int,
+                     num_walks: int) -> torch.Tensor:
+    """The LINEAR or NORMAL visit weight of each slot of a start point's
+    visit list [num_walks * steps] (slot w * steps + t is walk w's step t),
+    as the JAX package's ``_accumulate`` computes them on XLA-CPU (CPU
+    tensor, float32).
+
+    ``step_w`` depends on constants only, so XLA's CPU backend compiles it
+    into loops that LLVM partly evaluates at compile time, and a weight's
+    last bits depend on which part of the loop computes it.  Code that runs
+    contracts a multiply and an add into one fused multiply-add; a constant
+    that LLVM folds rounds each operation on its own.
+
+    LINEAR: ``1 - s / L`` is fused into the loop that broadcasts the
+    weights over the [C, num_walks * steps] visit lists, with the division
+    by the constant L made a multiply by f32(1/L).  Along a list of
+    n = num_walks * steps slots, the 32-wide vector iterations run
+    (``fma(-s, 1/L, 1)``), unless there are at most 10 of them, and the
+    remainder is folded (``1 - s * (1/L)``, two roundings).  With exactly 7
+    vector iterations, an 8-wide vector epilogue runs too.
+
+    NORMAL: ``exp(-0.5 * (s * 3 / L)^2)`` is its own [steps] loop,
+    simplified by XLA to ``exp((s * c1) * (s * c2))`` with c2 =
+    f32(3 * f32(1/L)) and c1 = -c2 / 2.  Up to 38 steps LLVM unrolls the
+    loop and folds ``exp`` itself in double precision (the C library's
+    exp, rounded to float32).  Longer loops are vectorised first: from
+    288 steps (9 vector iterations) the 32-wide iterations run (XLA's exp
+    polynomial with fused multiply-adds, ``numerics.exp``); the 32-wide
+    iterations that do not run and the 4-wide epilogue up to 4 * (steps //
+    4) are folded through the same polynomial, each operation rounded
+    (``numerics.exp_unfused``); the last steps are folded as scalars in
+    double precision.
+
+    Held against ``_accumulate`` itself, every step of L = 1 to 100 and
+    lengths up to 350, by tests/test_torch_walk_sort.py."""
+    s = torch.arange(steps, dtype=torch.float32)
+    inv_len = _f32(1.0 / walk_length)
+    if weighting == "linear":
+        n = num_walks * steps
+        s_row = s.repeat(num_walks)
+        runs = _vector_part(n, 10)
+        if n // 32 == 7:
+            runs = 8 * (n // 8)
+        out = 1.0 - s_row * inv_len
+        out[:runs] = _fma(-s_row[:runs], inv_len, 1.0)
+        return out
+    if weighting != "normal":
+        raise ValueError(f"xla_step_weights: no folded form for "
+                         f"{weighting!r}")
+    c2 = _f32(_f32(3.0) * inv_len)
+    arg = (s * _f32(-0.5 * c2)) * (s * c2)
+    out = torch.tensor([math.exp(a) for a in arg.tolist()],
+                       dtype=torch.float64).float()
+    if steps > 38:
+        runs = _vector_part(steps, 8)
+        folded = 4 * (steps // 4)
+        out[runs:folded] = exp_unfused(arg[runs:folded])
+        out[:runs] = exp(arg[:runs])
+    return out.repeat(num_walks)
 
 
 def _run_totals(x: torch.Tensor, new_run: torch.Tensor) -> torch.Tensor:
@@ -131,40 +201,51 @@ def accumulate(visited: torch.Tensor, num_walks: int, walk_length: int,
     w = num_walks
     c = cw // w
     dev = visited.device
-    step_w = _step_weights(weighting, walk_length, steps, dev)
-
-    if weighting == "first_visit":
-        start = torch.arange(c, device=dev).repeat_interleave(w)
-        sorted_v, order = torch.sort(visited, dim=0, stable=True)
-        new_run = torch.ones_like(sorted_v, dtype=torch.bool)
-        new_run[1:] = sorted_v[1:] != sorted_v[:-1]
-        first_sorted = new_run & (sorted_v != start[None, :])
-        first_mask = torch.zeros_like(first_sorted).scatter_(
-            0, order, first_sorted)
-        weights = torch.where(first_mask, step_w[:, None], 0.0)
-        counts = first_mask.to(torch.float32)
-    else:
-        weights = step_w[:, None].expand(steps, cw)
-        counts = torch.ones((steps, cw), dtype=torch.float32, device=dev)
 
     # per-start-point sample lists [C, W*L]
     def per_start(x):
         return x.reshape(steps, c, w).permute(1, 2, 0).reshape(c, w * steps)
 
     ids = per_start(visited)
-    ids_s, order = torch.sort(ids, dim=1, stable=True)
-    wts_s = per_start(weights).gather(1, order)
-    cts_s = per_start(counts).gather(1, order)
+    cts_s = None
+    if weighting in ("linear", "normal"):
+        # the JAX package's unstable sort, in XLA-CPU's order; every slot
+        # carries the weight XLA computed for it
+        row_w = xla_step_weights(weighting, walk_length, steps, w).to(dev)
+        order, ids_s = xla_sort_order(ids)
+        ids_s = ids_s.to(ids.dtype)
+        wts_s = row_w[order]
+    else:
+        # weights and counts are small integers: every run sum is exact,
+        # so any order of equal ids gives the JAX package's sums
+        step_w = _step_weights(weighting, walk_length, steps, dev)
+        if weighting == "first_visit":
+            start = torch.arange(c, device=dev).repeat_interleave(w)
+            sorted_v, order = torch.sort(visited, dim=0, stable=True)
+            new_run = torch.ones_like(sorted_v, dtype=torch.bool)
+            new_run[1:] = sorted_v[1:] != sorted_v[:-1]
+            first_sorted = new_run & (sorted_v != start[None, :])
+            first_mask = torch.zeros_like(first_sorted).scatter_(
+                0, order, first_sorted)
+            weights = torch.where(first_mask, step_w[:, None], 0.0)
+            counts = first_mask.to(torch.float32)
+        else:
+            weights = step_w[:, None].expand(steps, cw)
+            counts = None
+        ids_s, order = torch.sort(ids, dim=1, stable=True)
+        wts_s = per_start(weights).gather(1, order)
+        if counts is not None:
+            cts_s = per_start(counts).gather(1, order)
 
     new_run = torch.ones_like(ids_s, dtype=torch.bool)
     new_run[:, 1:] = ids_s[:, 1:] != ids_s[:, :-1]
     run_end = torch.ones_like(new_run)
     run_end[:, :-1] = new_run[:, 1:]
     sum_w = _run_totals(wts_s, new_run)
-    sum_c = _run_totals(cts_s, new_run)
     valid_run = run_end
 
     if weighting == "first_visit":
+        sum_c = _run_totals(cts_s, new_run)
         avg = torch.where(sum_c > 0, sum_w / torch.clamp(sum_c, min=1.0), 0.0)
         # XLA fuses m * avg + b into one multiply-add; so does this
         m = _f32(-1.0 / (walk_length - 1.0))

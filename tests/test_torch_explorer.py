@@ -3,11 +3,9 @@ against the JAX package's on the CPU: the exported page byte for byte, and
 every live endpoint's answer on the 10x10 checker of
 tests/test_vis_server.py, with the error paths.
 
-/api/walks re-runs the walks with NORMAL step weights.  The JAX package
-sorts each row's visits with an unstable sort before summing their
-weights, so its sums run in an order the port (a stable sort) does not
-copy: the walk ids are equal and the values within 2e-6 (1e-7 apart
-before rounding to 6 places).  Every other answer is equal."""
+/api/walks re-runs the walks with NORMAL step weights; the port sums each
+row's visits in XLA-CPU's unstable-sort order with the step weights XLA
+folds, so its walks are equal too.  Every answer is equal."""
 
 import json
 import urllib.error
@@ -124,7 +122,7 @@ def test_walks_endpoint_equal(query, served):
     assert len(got["walks"]) == len(want["walks"])
     for (gc, gv), (wc, wv) in zip(got["walks"], want["walks"]):
         assert gc == wc
-        assert np.abs(np.array(gv) - np.array(wv)).max(initial=0) <= 2e-6
+        assert gv == wv
 
 
 @pytest.mark.parametrize("path,code", [

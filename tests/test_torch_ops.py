@@ -202,7 +202,8 @@ def _probdist():
     return idx, p
 
 
-@pytest.mark.parametrize("weighting", ["normal", "constant", "first_visit"])
+@pytest.mark.parametrize("weighting", ["normal", "linear", "constant",
+                                       "first_visit"])
 def test_random_walks_match(weighting):
     idx, p = _probdist()
     n = idx.shape[0]
@@ -219,9 +220,9 @@ def test_random_walks_match(weighting):
     kw["importance_weighting"] = T.ImportanceWeighting(weighting)
     wt = twalks.do_random_walks(T.SparseRows(idx, p, n, device=CPU),
                                 T.RandomWalkSettings(**kw))
-    # visit sums differ from XLA's only in the order of equal-id visits
-    # (XLA sorts them with an unstable sort), a few float32 ulps
-    _assert_same_rows(wj, wt, atol=1e-6)
+    # the port sums equal-id visits in XLA-CPU's unstable-sort order, with
+    # the step weights XLA folds (ops/walk_sort.py, walks.xla_step_weights)
+    assert np.array_equal(_dense(wj), _dense(wt))
 
 
 # ---------------------------------------------------------------------------

@@ -431,8 +431,8 @@ def test_cuda_delta_kernel_against_both_twins(f):
 
 def test_kernel_source_and_build_registry():
     """The source names what it replaces and what bounds it; the build
-    registry holds it beside the t-SNE kernels (one nvcc each, all four
-    when none is named), its library named by its content."""
+    registry holds it beside the t-SNE kernels (one nvcc each, all of
+    them when none is named), its library named by its content."""
     import os
     from sph_tpu_torch.ops import cuda_build, tsne_kernels
     with open(cuda_build.source("bellman_ford_relax")) as f:
@@ -443,7 +443,7 @@ def test_kernel_source_and_build_registry():
     assert "delta sweep" in src and "ticket" in src
     assert "use_fast_math" not in " ".join(cuda_build.NVCC_FLAGS)
     assert cuda_build.ALL_KERNELS == (*tsne_kernels.KERNELS,
-                                      "bellman_ford_relax")
+                                      "bellman_ford_relax", "walk_row_sort")
     assert tsne_kernels.build is cuda_build.build
     assert os.path.basename(cuda_build.library_path(
         "bellman_ford_relax")).startswith("libbellman_ford_relax_")
