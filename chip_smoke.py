@@ -21,11 +21,15 @@ Phases, each printing one JSON line, and each raising on failure:
    (65536, 65536) in full and at (1000000, 1000448) on 4096 sampled rows,
    two calls bit-equal, its launch plan and its SFU floor; walk_row_sort
    against its twin (std::sort, native/xla_sort.cpp), every row's order
-   and sorted keys equal, on synthetic rows of both of its paths (500 and
-   4096 keys: all equal, sorted, reverse-sorted, McIlroy's median-of-3
-   adversary, which reaches the heap path) and on 64 explorer-wide rows of
-   50000 keys, with the twin's ms, the 16-byte-an-entry bound and
-   torch.sort(stable=True)'s ms (another order).  tsne_attraction is held
+   and sorted keys equal, on synthetic rows of each of its paths (500,
+   2048 and 2049, 4096, 16384 and 16385 keys: a warp a row up to 2048, a
+   block a row staged whole up to 16384, partitioned in the order buffer
+   above; all equal, sorted, reverse-sorted, McIlroy's median-of-3
+   adversary, which reaches the heap path), on 64 explorer-wide rows of
+   50000 keys and on the explorer's widest answer at the Pines level 1
+   (5358 rows of 50000 keys, 256 sampled rows held), with the twin's ms,
+   the 16-byte-an-entry bound and torch.sort(stable=True)'s ms (another
+   order).  tsne_attraction is held
    at the P its paths give it (phases 12 and 15), bellman_ford_relax at
    rgb_geo's graphs (phase 9), and walk_row_sort at eval_pines_walks'
    level-0 visit record (phase 20).
@@ -375,8 +379,13 @@ SMOKE_SECONDS_MAX = 1000   # the whole script, builds included
 DEV = "cuda"               # the helpers' device; "cpu" rehearses them small
 WALK_SORT_COLS = 500       # the walk grids' and Pines' 50 walks of 10 steps
 WALK_SORT_WIDE = (64, 50000)   # /api/walks' widest rows: 500 walks x 100 steps
-WALK_SORT_GLOBAL_COLS = 4096   # a width past the kernel's shared-memory rows
+WALK_SORT_BLOCK_COLS = 4096    # a width on the block path, staged whole
 WALK_SORT_SYNTH_ROWS = 16      # rows of each synthetic kind
+# /api/walks' widest answer at the Pines level 1 that `explorer` serves:
+# its 5358 components' rows of 500 walks x 100 steps, held against the twin
+# on WALK_SORT_SAMPLED rows (the twin on all takes seconds of host time)
+WALK_SORT_EXPLORER = (5358, 50000)
+WALK_SORT_SAMPLED = 256
 # eval_pines_walks runs whose maps may differ from the JAX-CPU record, each
 # with the traced op outside the walk rows that makes them differ (ROADMAP
 # queue 3); every other run's maps must be byte-equal
@@ -3161,15 +3170,25 @@ def walk_sort_bound(rows: int, cols: int) -> dict:
     return bound(16 * rows * cols, 0)
 
 
+def walk_sort_path(walk_sort, cols: int) -> str:
+    """Which of walk_row_sort's paths takes rows of `cols` keys."""
+    if cols <= walk_sort.WARP_COLS:
+        return "a warp a row"
+    if cols <= walk_sort.STAGE_COLS:
+        return "a block a row, staged whole"
+    return "a block a row, partitioned in the order buffer, then staged"
+
+
 def check_walk_sort(walk_sort, native, keys, label: str,
-                    repeats: int = 5) -> dict:
+                    repeats: int = 5, sample: int = 0) -> dict:
     """walk_row_sort on the card against its twin (native/xla_sort.cpp,
     std::sort on the host) on `keys` [R, S]: every row's order and sorted
-    keys equal; the wrapper's mean ms over `repeats` calls (CUDA events;
-    run outside the paths' launch counts), the twin's ms (host clock, its
-    threads), the 16-byte-an-entry bound, and torch.sort(stable=True)'s ms
-    on the same keys (another order of equal keys: not the same
-    function)."""
+    keys equal (with `sample`, that many rows drawn from a seed); the
+    wrapper's mean ms over `repeats` calls (CUDA events; run outside the
+    paths' launch counts), the twin's ms on the rows it was given (host
+    clock, its threads), the 16-byte-an-entry bound, and
+    torch.sort(stable=True)'s ms on the same keys (another order of equal
+    keys: not the same function)."""
     import numpy as np
     import torch
     keys = keys.to(torch.int32).contiguous()
@@ -3177,21 +3196,27 @@ def check_walk_sort(walk_sort, native, keys, label: str,
     order, got_keys = walk_sort.xla_sort_order(keys)
     ms = cuda_ms(lambda: walk_sort.xla_sort_order(keys), calls=repeats,
                  warmup=0)
-    host = keys.cpu().numpy()
+    pick = (np.sort(np.random.default_rng(rows + cols).choice(
+        rows, sample, replace=False)) if sample else np.arange(rows))
+    pick_t = torch.from_numpy(pick).to(keys.device)
+    host = keys[pick_t].cpu().numpy()
     t = time.perf_counter()
     want, want_keys = native.xla_sort_order(host)
     plain_ms = (time.perf_counter() - t) * 1e3
-    got = order.cpu().numpy()
+    got = order[pick_t].cpu().numpy()
     rows_differ = int((got != want).any(axis=1).sum())
-    keys_differ = int((got_keys.cpu().numpy() != want_keys).any(axis=1).sum())
+    keys_differ = int((got_keys[pick_t].cpu().numpy() != want_keys).any(
+        axis=1).sum())
+    del order, got_keys
     torch_ms = cuda_ms(lambda: torch.sort(keys, dim=1, stable=True),
                        calls=max(1, repeats), warmup=1)
     out = {"path_shape": label, "rows": rows, "cols": cols,
-           "kernel_path": ("shared memory" if cols <= walk_sort.SHARED_COLS
-                           else "in place"),
+           "kernel_path": walk_sort_path(walk_sort, cols),
+           "rows_held": len(pick),
            "rows_differ": rows_differ, "sorted_key_rows_differ": keys_differ,
            "max_abs_err": float(np.abs(got - want).max()) if got.size
            else 0.0, "ms": ms, "plain_ms": plain_ms,
+           "plain_rows": len(pick),
            **walk_sort_bound(rows, cols),
            "torch_sort_stable_ms": torch_ms,
            "torch_sort_stable_is": "another order of equal keys"}
@@ -4585,19 +4610,27 @@ def main() -> int:
                   "plain_ms": "not measured: a full twin call at this size "
                               "takes tens of seconds"})})
 
-    # walk_row_sort: both of its paths on synthetic rows (the heap path
-    # included) and at the explorer's widest rows; the paths' own visit
-    # records follow in eval_pines_walks
+    # walk_row_sort: each of its paths on synthetic rows (the heap path
+    # included), at each path's limit and one key past it, and at the
+    # explorer's widest rows; the paths' own visit records follow in
+    # eval_pines_walks
     t0 = time.perf_counter()
-    sort_checks = [
-        check_walk_sort(walk_sort, native,
-                        walk_sort_synthetic(walk_sort, WALK_SORT_COLS),
-                        "synthetic_500: equal, sorted, reversed, adversary"),
-        check_walk_sort(walk_sort, native,
-                        walk_sort_synthetic(walk_sort, WALK_SORT_GLOBAL_COLS),
-                        "synthetic_4096: equal, sorted, reversed, adversary"),
-        check_walk_sort(walk_sort, native, walk_like_rows(*WALK_SORT_WIDE),
-                        "explorer_wide_500_walks_x_100_steps", repeats=2)]
+    sort_checks = []
+    for cols in (WALK_SORT_COLS, walk_sort.WARP_COLS,
+                 walk_sort.WARP_COLS + 1, WALK_SORT_BLOCK_COLS,
+                 walk_sort.STAGE_COLS, walk_sort.STAGE_COLS + 1):
+        sort_checks.append(check_walk_sort(
+            walk_sort, native, walk_sort_synthetic(walk_sort, cols),
+            f"synthetic_{cols}: equal, sorted, reversed, adversary",
+            repeats=5 if cols <= WALK_SORT_BLOCK_COLS else 2))
+    sort_checks.append(check_walk_sort(
+        walk_sort, native, walk_like_rows(*WALK_SORT_WIDE),
+        "explorer_wide_500_walks_x_100_steps", repeats=5))
+    sort_checks.append(check_walk_sort(
+        walk_sort, native, walk_like_rows(*WALK_SORT_EXPLORER),
+        "explorer_widest_answer_pines_level_1", repeats=3,
+        sample=WALK_SORT_SAMPLED))
+    torch.cuda.empty_cache()
     for c in sort_checks:
         emit({"phase": "kernel_vs_twin", "kernel": "walk_row_sort", **c,
               "seconds_all": time.perf_counter() - t0})
@@ -5408,7 +5441,8 @@ def main() -> int:
         "at_shapes": [{
             "path_shape": c["path_shape"], "shape": [c["rows"], c["cols"]],
             "kernel_path": c["kernel_path"], "ms": c["ms"],
-            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "rows_held": c["rows_held"], "plain_ms": c["plain_ms"],
+            "plain_rows": c["plain_rows"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"],
             "torch_sort_stable_ms": c["torch_sort_stable_ms"],
             "max_abs_err": c["max_abs_err"]} for c in sort_checks]}]})

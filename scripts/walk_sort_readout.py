@@ -9,10 +9,12 @@ xla_sort.cpp), then holds the kernel's order and sorted keys against the
 twin (chip_smoke.check_walk_sort: every row equal; the kernel's mean ms over
 --repeats calls by CUDA events, the twin's ms on the host, the
 16-byte-an-entry bound, torch.sort(stable=True)'s ms on the same keys) on:
-the synthetic rows of both kernel paths (all equal, sorted, reverse-
-sorted, McIlroy's median-of-3 adversary; 500 and 4096 keys), walk-like
-rows of --rows x --cols keys (each row's ids near its own, heavy repeats)
-and 64 explorer-wide rows of 50000 keys.  Then ops.walks.accumulate on
+the synthetic rows of each kernel path at its limits and one key past
+(all equal, sorted, reverse-sorted, McIlroy's median-of-3 adversary; 500,
+2048, 2049, 4096, 16384 and 16385 keys), walk-like rows of --rows x --cols
+keys (each row's ids near its own, heavy repeats), 64 explorer-wide rows
+of 50000 keys and the explorer's widest answer at the Pines level 1 (5358
+rows of 50000 keys, 256 sampled rows held against the twin).  Then ops.walks.accumulate on
 the card against the CPU (ids and values bit-equal) for LINEAR and NORMAL
 on a walk-like visit record of 2000 start points, 50 walks of 10 steps,
 full and top-k rows.  Prints one JSON line per row and the card's
@@ -60,16 +62,21 @@ def main() -> int:
     cuda_build.build("walk_row_sort")
     native.xla_sort_order(np.zeros((1, 1), np.int32))
     emit({"row": "build", "seconds": time.perf_counter() - t})
-    cases = [
-        (cs.walk_sort_synthetic(walk_sort, 500), "synthetic_500"),
-        (cs.walk_sort_synthetic(walk_sort, 4096), "synthetic_4096"),
+    cases = [(cs.walk_sort_synthetic(walk_sort, c), f"synthetic_{c}", 0)
+             for c in (500, walk_sort.WARP_COLS, walk_sort.WARP_COLS + 1,
+                       4096, walk_sort.STAGE_COLS, walk_sort.STAGE_COLS + 1)]
+    cases += [
         (cs.walk_like_rows(args.rows, args.cols),
-         f"walk_like_{args.rows}x{args.cols}"),
-        (cs.walk_like_rows(*cs.WALK_SORT_WIDE), "explorer_wide")]
-    for keys, label in cases:
+         f"walk_like_{args.rows}x{args.cols}", 0),
+        (cs.walk_like_rows(*cs.WALK_SORT_WIDE), "explorer_wide", 0),
+        (cs.walk_like_rows(*cs.WALK_SORT_EXPLORER), "explorer_widest",
+         cs.WALK_SORT_SAMPLED)]
+    for keys, label, sample in cases:
         reps = 2 if keys.shape[1] > 10000 else args.repeats
         emit({"row": "kernel_vs_twin",
-              **cs.check_walk_sort(walk_sort, native, keys, label, reps)})
+              **cs.check_walk_sort(walk_sort, native, keys, label, reps,
+                                   sample)})
+        del keys
 
     rng = np.random.default_rng(7)
     c, w, length = 2000, 50, 10

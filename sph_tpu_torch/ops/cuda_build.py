@@ -36,7 +36,7 @@ _SIGNATURES = {
                         _P],
     "bellman_ford_relax": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _I, _P],
-    "walk_row_sort": [_P, ctypes.c_longlong, _I, _P, _P, _P],
+    "walk_row_sort": [_P, ctypes.c_longlong, _I, _P, _P, _P, _P],
 }
 # every kernel of the port
 ALL_KERNELS = tuple(_SIGNATURES)

@@ -8,28 +8,38 @@ that follow are ``cumsum(x) - cummax(base)`` over the whole sorted row, so
 every prefix, and with it every weighted run total, depends on where equal
 ids land.  ``xla_sort_order`` gives that order:
 
-- on a CUDA tensor the kernel ``csrc/walk_row_sort.cu`` (std::sort
-  transcribed function by function, one thread a row; counted in
-  ``xla_sort_order.launches``);
+- on a CUDA tensor the kernel ``csrc/walk_row_sort.cu`` (std::sort's
+  introsort with each partition taken by ballots: a warp a row up to
+  ``WARP_COLS`` keys, a block a row above, staged in shared memory
+  ``STAGE_COLS`` keys at a time; counted in ``xla_sort_order.launches``);
 - on a CPU tensor the C++ twin ``native/xla_sort.cpp``, which calls
   std::sort itself.
 
 No torch op gives this order (``torch.sort(stable=False)`` and CUB's
 segmented sorts leave equal keys in orders of their own), so the twin is
-the plain version.  ``introsort_order_reference`` is the same algorithm in
-Python, step for step as the kernel runs it; the tests hold it against the
-twin where there is no nvcc.
+the plain version.  ``introsort_order_reference`` is std::sort in Python,
+step for step; ``ballot_introsort_order_reference`` sorts a row as the
+kernel does (``ballot_partition_reference`` for each partition, each leaf
+sorted stably as it is made); the tests hold both against the twin where
+there is no nvcc.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .cuda_build import _launch
 
 THRESHOLD = 16       # std::sort's _S_threshold
-SHARED_COLS = 3072   # the kernel stages rows of up to this many keys in
-                     # shared memory (kSharedCols), sorts wider ones in place
+LANE_RANGE = 32      # the kernel's lanes finish ranges of up to this many
+                     # keys alone (kLaneRange)
+WARP_COLS = 2048     # rows of up to this many keys: a warp a row (kWarpCols)
+STAGE_COLS = 16384   # wider rows, a block a row: ranges of up to this many
+                     # keys (half as many when such rows number two or more
+                     # an SM) are sorted in shared memory (kStageCols),
+                     # wider ones partitioned in the order buffer with a
+                     # table in the int32 scratch [R, S]
 
 
 def _check_keys(keys: torch.Tensor):
@@ -56,9 +66,13 @@ def xla_sort_order(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     rows, cols = k32.shape
     order = torch.empty((rows, cols), dtype=torch.int64, device=keys.device)
     out = torch.empty((rows, cols), dtype=torch.int32, device=keys.device)
+    # the partition tables of ranges wider than a block stages
+    scratch = (torch.empty((rows, cols), dtype=torch.int32,
+                           device=keys.device) if cols > STAGE_COLS else None)
     if rows and cols:
         _launch("walk_row_sort", keys.device, k32.data_ptr(), rows, cols,
-                out.data_ptr(), order.data_ptr())
+                out.data_ptr(), order.data_ptr(),
+                None if scratch is None else scratch.data_ptr())
         xla_sort_order.launches += 1
     return order, out
 
@@ -177,13 +191,16 @@ def _insertion_sort(v, less, first, last):
             _unguarded_linear_insert(v, less, i)
 
 
-def introsort(v: list, less, stats: dict | None = None) -> list:
-    """Sort `v` in place as libstdc++'s std::sort does, with the explicit
-    stack of ``csrc/walk_row_sort.cu``; returns `v`."""
+def introsort(v: list, less, stats: dict | None = None,
+              depth: int | None = None) -> list:
+    """Sort `v` in place as libstdc++'s std::sort does, with an explicit
+    stack for the recursion on [cut, last), from depth limit `depth`
+    (std::sort's 2 * lg(n) by default; a subrange's own within a larger
+    sort); returns `v`."""
     n = len(v)
     if n == 0:
         return v
-    stack = [(0, n, 2 * (n.bit_length() - 1))]
+    stack = [(0, n, 2 * (n.bit_length() - 1) if depth is None else depth)]
     while stack:
         first, last, depth = stack.pop()
         while last - first > THRESHOLD:
@@ -215,11 +232,105 @@ def introsort_order_reference(keys, stats: dict | None = None) -> list:
     return [i for _, i in items]
 
 
+def ballot_partition_reference(keys, first: int, last: int):
+    """``_unguarded_partition(first + 1, last, first)`` of `keys` by the
+    kernel's rule, all stops at once.  With p = keys[first], a left stop is
+    a key >= p and a right stop a key <= p in [first + 1, last);
+    rankL(i) counts the left stops in [first + 1, i) and sufR(i) the right
+    stops in (i, last).  A left stop swaps iff sufR(i) > rankL(i), with
+    R[rankL(i)] (R[k]: the right stop with k right stops to its right); R[k]
+    is needed iff rankL(R[k]) > k.  The kernel's table holds R[k] at
+    first + k and L[k] at last - 1 - k for k < K, which never meet
+    (2K < last - first).  The cut is L[0] for K = 0, else min(L[K],
+    R[K - 1]), L[K] the first left stop that does not swap.
+
+    Returns (cut, pairs [K, 2] of (L[k], R[k]), K, the keys after the
+    swaps)."""
+    keys = np.asarray(keys)
+    p = keys[first]
+    pos = np.arange(first + 1, last)
+    seg = keys[first + 1:last]
+    left, right = seg >= p, seg <= p
+    rank_l = np.cumsum(left) - left
+    suf_r = np.cumsum(right[::-1])[::-1] - right
+    swap = left & (suf_r > rank_l)
+    need_r = right & (rank_l > suf_r)
+    k = int(swap.sum())
+    table = np.full(last - first, -1, np.int64)
+    table[last - 1 - first - rank_l[swap]] = pos[swap]
+    table[suf_r[need_r]] = pos[need_r]
+    assert int(need_r.sum()) == k and 2 * k < last - first
+    pairs = np.stack([table[last - 1 - first - np.arange(k)],
+                      table[np.arange(k)]], axis=1)
+    stay = pos[left & ~swap]
+    lk = int(stay[0]) if stay.size else last
+    cut = lk if k == 0 else min(lk, int(pairs[k - 1, 1]))
+    out = keys.copy()
+    out[pairs[:, 0]], out[pairs[:, 1]] = keys[pairs[:, 1]], keys[pairs[:, 0]]
+    return cut, pairs, k, out
+
+
+def ballot_introsort_order_reference(keys, stats: dict | None = None,
+                                     lane_range: int = THRESHOLD) -> list:
+    """The order std::sort leaves one row of keys in, computed as the kernel
+    computes it: introsort's loop with each partition by
+    ``ballot_partition_reference``, each leaf (a range of <= THRESHOLD keys
+    that the loop leaves) sorted stably as soon as it is made, the heap path
+    at depth 0 as std::sort takes it.  std::sort's final insertion sort
+    moves no key across a leaf's edge (every key left of a leaf is <= every
+    key in it), so it is the stable sort of each leaf.  A range of <=
+    `lane_range` keys is finished as the kernel's lanes finish theirs
+    (LANE_RANGE): std::sort's loop with libstdc++'s own partition, then a
+    stable sort of the range."""
+    k = np.array(keys, dtype=np.int64)
+    pos = np.arange(len(k))
+    n = len(k)
+    if n == 0:
+        return []
+    less = lambda a, b: a[0] < b[0]  # noqa: E731
+    stack = [(0, n, 2 * (n.bit_length() - 1))]
+    while stack:
+        first, last, depth = stack.pop()
+        if THRESHOLD < last - first <= lane_range:
+            # std::sort's final insertion sort over the range alone is the
+            # stable sort of its leaves
+            items = introsort(list(zip(k[first:last].tolist(),
+                                       pos[first:last].tolist())),
+                              less, stats, depth)
+            k[first:last] = [a for a, _ in items]
+            pos[first:last] = [b for _, b in items]
+            continue
+        while last - first > THRESHOLD:
+            if depth == 0:
+                if stats is not None:
+                    stats["heap"] = stats.get("heap", 0) + 1
+                items = list(zip(k[first:last].tolist(),
+                                 pos[first:last].tolist()))
+                _heap_sort(items, less, 0, len(items))
+                k[first:last] = [a for a, _ in items]
+                pos[first:last] = [b for _, b in items]
+                break
+            depth -= 1
+            four = [first, first + 1, first + (last - first) // 2, last - 1]
+            sub = [(int(k[i]), int(pos[i])) for i in four]
+            _median_to_first(sub, less, 0, 1, 2, 3)
+            k[four] = [a for a, _ in sub]
+            pos[four] = [b for _, b in sub]
+            cut, pairs, _, k = ballot_partition_reference(k, first, last)
+            pos[pairs[:, 0]], pos[pairs[:, 1]] = (pos[pairs[:, 1]],
+                                                  pos[pairs[:, 0]])
+            stack.append((cut, last, depth))
+            last = cut
+        else:
+            leaf = np.argsort(k[first:last], kind="stable") + first
+            k[first:last], pos[first:last] = k[leaf], pos[leaf]
+    return pos.tolist()
+
+
 def median_of_3_adversary(n: int):
     """Keys [n] int32 that drive std::sort to its depth limit (the heap
     path): McIlroy's adversary ("A killer adversary for quicksort", 1999)
     played against ``introsort``, which compares as std::sort does."""
-    import numpy as np
     gas = n
     val = [gas] * n
     state = {"solid": 0, "candidate": 0}

@@ -13,7 +13,12 @@ on the card) and give each visit the weight XLA-CPU computes for its slot
   of 1 to 50000 keys: heavy repeats, all equal, sorted, reverse-sorted and
   a median-of-3 adversary (McIlroy's) that drives std::sort to its heap
   path;
-- the Python transcription of the kernel's steps against the twin;
+- the Python transcription of std::sort's steps against the twin;
+- the kernel's partition by ballots (``ballot_partition_reference``)
+  against ``_unguarded_partition`` (cut, swaps, array) on seeded ranges,
+  and its whole-row order (``ballot_introsort_order_reference``: leaves
+  sorted stably when made, the heap path at depth 0) against the twin,
+  at the kernel's path limits and one key past each;
 - the slot weights against those ``_accumulate`` folds (read out through
   rows whose smallest id sits in a chosen slot);
 - ``accumulate`` against ``_accumulate`` for LINEAR and NORMAL, full rows
@@ -110,6 +115,87 @@ def test_transcription_equals_twin(kind):
         for r in range(keys.shape[0]):
             assert walk_sort.introsort_order_reference(keys[r]) == \
                 want[r].tolist(), (kind, n)
+
+
+PARTITION_KINDS = ["few", "many", "sorted", "reversed", "equal"]
+
+
+def partition_range(kind: str, n: int, rng) -> np.ndarray:
+    """Keys [n] of one kind, the pivot moved to the front as std::sort's
+    __move_median_to_first leaves it."""
+    if kind == "few":
+        keys = rng.integers(0, 1 + int(rng.integers(1, 5)), n)
+    elif kind == "many":
+        keys = rng.integers(0, int(rng.integers(n // 2 + 1, 1002)), n)
+    elif kind == "sorted":
+        keys = np.sort(rng.integers(0, int(rng.integers(2, 300)), n))
+    elif kind == "reversed":
+        keys = np.sort(rng.integers(0, int(rng.integers(2, 300)), n))[::-1]
+    else:
+        keys = np.full(n, 3)
+    items = [(int(k), i) for i, k in enumerate(keys)]
+    walk_sort._median_to_first(items, lambda a, b: a[0] < b[0], 0, 1,
+                               n // 2, n - 1)
+    return np.array([k for k, _ in items], dtype=np.int64)
+
+
+@pytest.mark.parametrize("kind", PARTITION_KINDS)
+def test_ballot_partition_equals_unguarded_partition(kind):
+    """The rule, all stops at once, against Hoare's scan as libstdc++
+    writes it on 1500 seeded ranges of 17 to 300 keys: the same cut, the
+    same pairs swapped (the scan's, in its order) and the same array."""
+    rng = np.random.default_rng(PARTITION_KINDS.index(kind))
+    for _ in range(1500):
+        n = int(rng.integers(17, 301))
+        keys = partition_range(kind, n, rng)
+        want = keys.tolist()
+        swaps = []
+
+        def less(a, b):
+            return a < b
+        first = 1
+        last = n
+        while True:
+            while less(want[first], want[0]):
+                first += 1
+            last -= 1
+            while less(want[0], want[last]):
+                last -= 1
+            if not first < last:
+                break
+            swaps.append((first, last))
+            want[first], want[last] = want[last], want[first]
+            first += 1
+        cut_scan = walk_sort._unguarded_partition(keys.tolist(), less, 1, n,
+                                                  0)
+        cut, pairs, k, out = walk_sort.ballot_partition_reference(keys, 0, n)
+        assert cut == first == cut_scan, (kind, n)
+        assert k == len(swaps) and pairs.tolist() == [list(p) for p in swaps]
+        assert out.tolist() == want
+
+
+BALLOT_LENGTHS = LENGTHS + [walk_sort.WARP_COLS, walk_sort.WARP_COLS + 1,
+                            walk_sort.STAGE_COLS, walk_sort.STAGE_COLS + 1]
+
+
+@pytest.mark.parametrize("lane_range", [walk_sort.THRESHOLD,
+                                        walk_sort.LANE_RANGE])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n", BALLOT_LENGTHS)
+def test_ballot_order_equals_twin(n, kind, lane_range):
+    """The kernel's algorithm, row by row, against std::sort, with every
+    range above THRESHOLD partitioned by the rule, or those of up to
+    LANE_RANGE keys finished as the kernel's lanes finish them; the
+    adversary's rows reach the heap path."""
+    keys = make_keys(kind, n)[:2]
+    want, _ = native.xla_sort_order(keys)
+    for r in range(keys.shape[0]):
+        stats = {}
+        got = walk_sort.ballot_introsort_order_reference(keys[r], stats,
+                                                         lane_range)
+        assert got == want[r].tolist(), (kind, n, r)
+        if kind == "adversary" and n >= 64:
+            assert stats.get("heap", 0) > 0
 
 
 def test_twin_rows_do_not_depend_on_threads():
@@ -262,15 +348,20 @@ def test_integer_weights_equal_in_either_order(w, length, weighting):
 # ----------------------------------------------------------------- on card
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 17, 500, 1350, 3072, 3073, 20000])
+@pytest.mark.parametrize("n", [1, 17, 500, 1350, walk_sort.WARP_COLS,
+                               walk_sort.WARP_COLS + 1, 3072,
+                               walk_sort.STAGE_COLS,
+                               walk_sort.STAGE_COLS + 1, 20000, 50000])
 def test_cuda_kernel_equals_twin(n):
-    """The kernel's order and sorted keys against the twin on both paths
-    (shared memory up to 3072 keys a row, in place above), every kind of
-    row, one launch each."""
+    """The kernel's order and sorted keys against the twin on its three
+    paths (a warp a row up to WARP_COLS keys, a block a row staged up to
+    STAGE_COLS, partitioned in the order buffer above), every kind of
+    row, one launch each; the adversary up to one key past STAGE_COLS
+    (its heap path runs in one lane)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
     for kind in KINDS:
-        if kind == "adversary" and n > 1350:
+        if kind == "adversary" and n > walk_sort.STAGE_COLS + 1:
             continue
         keys = make_keys(kind, n)
         want, _ = native.xla_sort_order(keys)
@@ -353,8 +444,8 @@ def test_smoke_first_visit_record_captures_level_rows():
 
 def test_kernel_source_and_registry():
     """The source names what it replaces, what bounds it and the steps of
-    std::sort it transcribes; the build registry holds it with its C entry
-    point, and the shared-memory width matches the wrapper's."""
+    std::sort it takes; the build registry holds it with its C entry
+    point, and the path limits match the wrapper's."""
     from sph_tpu_torch.ops import cuda_build
     with open(cuda_build.source("walk_row_sort")) as f:
         src = f.read()
@@ -365,7 +456,10 @@ def test_kernel_source_and_registry():
                  "__unguarded_insertion_sort"):
         assert step in src, step
     assert 'extern "C" int walk_row_sort_launch' in src
-    assert f"kSharedCols = {walk_sort.SHARED_COLS};" in src
+    assert "__ballot_sync" in src and "kSharedCols" not in src
+    assert f"kWarpCols = {walk_sort.WARP_COLS};" in src
+    assert f"kStageCols = {walk_sort.STAGE_COLS};" in src
     assert f"kThreshold = {walk_sort.THRESHOLD};" in src
+    assert f"kLaneRange = {walk_sort.LANE_RANGE};" in src
     assert "walk_row_sort" in cuda_build.ALL_KERNELS
-    assert len(cuda_build._SIGNATURES["walk_row_sort"]) == 6
+    assert len(cuda_build._SIGNATURES["walk_row_sort"]) == 7
