@@ -31,13 +31,28 @@ Phases, each printing one JSON line, and each raising on failure:
    the 16-byte-an-entry bound and torch.sort(stable=True)'s ms (another
    order).  tsne_attraction is held
    at the P its paths give it (phases 12 and 15), bellman_ford_relax at
-   rgb_geo's graphs (phase 9), and walk_row_sort at eval_pines_walks'
-   level-0 visit record (phase 20).
+   rgb_geo's graphs (phase 9), walk_row_sort at eval_pines_walks'
+   level-0 visit record (phase 20), and merge_runs (the merges' run sums,
+   ops/device_merge.py) at the merges the paths give it: Pines' level-0 ->
+   1 walk-row merge, again with a cap that bites and is not a power of two
+   (phase 4), salinas_walks' widest merge (phase 8) and eval_pines_walks'
+   first MERGE_DATA_NEW_WALKS min merge (phase 20); at each the kernel
+   against its twin over every parent range (bit-equal), both timed
+   beside the bytes bound and index_add_'s ms, and the whole device merge
+   (and its normalization) against the host path (download, C++ merge,
+   numpy, upload), bit-equal, both timed, with the device merge's peak
+   memory (whole, and in one parent range).  symmetrize_graph's device path
+   is held against native.symmetrize on the Pines and Salinas kNN graphs,
+   both timed.
 4. main    — the Pines configuration of bench.py:89-136 at 145x145x200
    through ComputeHierarchy(device="cuda") and 2000 level-1 t-SNE
    iterations through ComputeEmbedding(device="cuda"), counting kernel
-   launches (walk_row_sort's on its NORMAL walks); then tsne_forces_dense
-   against its twin once more at the level-1 size the path produced.
+   launches (walk_row_sort's on its NORMAL walks, merge_runs' on its walk
+   merges, at least one each); then tsne_forces_dense against its twin
+   once more at the level-1 size the path produced.  merge_runs is also
+   counted, at least once, on salinas_walks, eval_pines_walks and
+   multi_scene, whose lines list their merges (how many, the most live
+   entries, the largest summed weight of a parent against 2^24).
 5. checks  — monotone levels, a symmetric level-1 P whose conditional rows
    each sum to 1, a finite embedding,
    the kernel on the main path, the KL gate of bench.py:344-360 against
@@ -390,6 +405,12 @@ WALK_SORT_SAMPLED = 256
 # with the traced op outside the walk rows that makes them differ (ROADMAP
 # queue 3); every other run's maps must be byte-equal
 WALK_MAPS_EXCEPTIONS: dict = {}
+MERGE_CALLS = 20           # merge_runs calls timed at each merge shape
+MERGE_TWIN_CALLS = 2       # its twin's
+MERGE_PATH_CALLS = 2       # whole device-path merges timed (host clock)
+MERGE_CAP_SHARE = 0.75     # the cap-biting merge: Pines' level-0 merge cut
+                           # to this share of its width, made odd
+SYM_CALLS = 2              # symmetrizations timed on each path
 
 
 # the card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W)
@@ -3279,6 +3300,316 @@ def first_visit_record(twalks, rows: int, keep: dict):
         twalks.accumulate = inner
 
 
+def merge_runs_bound(entries: int, runs: int, children: int = 0,
+                     parents: int = 0) -> dict:
+    """merge_runs: each entry's float32 value read once (4 bytes); each
+    run's int64 start and int64 first key read and its row and column
+    (int64) and value (float32) written once (36 bytes), and the last run's
+    end (8); where the merge weights by size, each child's float32 weight
+    and each parent's int64 start read and its float32 weight written once
+    (4 and 12 bytes, and the last parent's end); one float add an entry."""
+    return bound(4 * entries + 36 * runs + 8 + 4 * children + 12 * parents
+                 + (8 if parents else 0), entries)
+
+
+def device_ms(fn, calls: int, warmup: int = 1) -> float:
+    """Mean ms a call: CUDA events on the card (``cuda_ms``), the host
+    clock where DEV is the CPU (the rehearsals)."""
+    if DEV == "cuda":
+        return cuda_ms(fn, calls, warmup)
+    for _ in range(warmup):
+        fn()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    return (time.perf_counter() - t) * 1e3 / calls
+
+
+def wall_ms(fn, calls: int) -> list:
+    """Each call's ms on the host clock, the card synchronised before and
+    after it: paths that wait on the host between their launches."""
+    out = []
+    for _ in range(calls):
+        sync()
+        t = time.perf_counter()
+        fn()
+        sync()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+@contextlib.contextmanager
+def merge_record(keep: dict):
+    """While open, every merge the paths send to the device path
+    (ops/sparse's ``merge_by_parents_device``) is listed in keep["calls"]
+    as its arguments and its output width: references and a copy of the
+    parents on the host, no work on the card, so the timed stages carry
+    no cost of it (``merge_summary`` reads them after the stage).  The
+    first kNN graph stage 1 symmetrizes lands in keep["knn"] (indices,
+    distances)."""
+    import numpy as np
+    from sph_tpu_torch.models import nearest_neighbors as tnn
+    from sph_tpu_torch.ops import sparse as tsp
+    inner, inner_sym = tsp.merge_by_parents_device, tnn.symmetrize_graph
+    keep.setdefault("calls", [])
+
+    def merged(sr, parents, num_merged, weight_by_size, combine,
+               max_width=None, **kw):
+        out = inner(sr, parents, num_merged, weight_by_size, combine,
+                    max_width, **kw)
+        keep["calls"].append(((sr, np.array(parents, np.int64),
+                               int(num_merged), bool(weight_by_size),
+                               combine, max_width), out.width))
+        return out
+
+    def symmetrized(graph, device=None):
+        if "knn" not in keep:
+            keep["knn"] = (np.array(graph.indices), np.array(graph.distances))
+        return inner_sym(graph, device=device)
+
+    tsp.merge_by_parents_device = merged
+    tnn.symmetrize_graph = symmetrized
+    try:
+        yield keep
+    finally:
+        tsp.merge_by_parents_device = inner
+        tnn.symmetrize_graph = inner_sym
+
+
+def merge_summary(keep: dict, pick: str = "") -> dict:
+    """The merges ``merge_record`` listed, read after the stage: each
+    call's shape, combine, cap, live entries, the largest summed child
+    weight of a parent (a float32 sum that is exact in any order below
+    2^24) and its output width replace its arguments in keep["calls"].
+    One merge's arguments land in keep["inputs"] and its live entries in
+    keep["entries"]: the first (pick "first"), the first min merge
+    ("first_min") or the one of the most live entries ("widest").
+    Returns the merges in short: how many, the most live entries, and the
+    largest summed weight of a parent, which tells whether any reached
+    2^24 (where the order of a float32 sum of counts starts to matter)."""
+    import torch
+    calls = []
+    for args, out_width in keep.get("calls", []):
+        sr, parents, num_merged, weight_by_size, combine, max_width = args
+        live = (sr.idx >= 0) & (sr.val != 0)
+        par = torch.as_tensor(parents, device=sr.device)
+        weight = torch.zeros(num_merged, dtype=torch.int64,
+                             device=sr.device).index_add_(0, par, live.sum(1))
+        call = {"rows": sr.num_rows, "width": sr.width,
+                "num_merged": num_merged, "combine": combine,
+                "weight_by_size": weight_by_size, "max_width": max_width,
+                "entries": int(live.sum()),
+                "widest_parent_weight": int(weight.max()),
+                "out_width": out_width}
+        calls.append(call)
+        take = {"": False, "first": "inputs" not in keep,
+                "first_min": "inputs" not in keep and combine == "min",
+                "widest": call["entries"] > keep.get("entries", -1)}[pick]
+        if take:
+            keep["inputs"], keep["entries"] = args, call["entries"]
+    keep["calls"] = calls
+    top = max((c["widest_parent_weight"] for c in calls), default=0)
+    return {"merges": len(calls),
+            "sum_merges": sum(c["combine"] == "sum" for c in calls),
+            "min_merges": sum(c["combine"] == "min" for c in calls),
+            "most_entries": max((c["entries"] for c in calls), default=0),
+            "widest_parent_weight": top,
+            "weight_above_2_24": top > 2 ** 24}
+
+
+def merge_peak_bytes(inputs: tuple) -> dict:
+    """The device merge's peak memory on the card above what was allocated
+    before it, at one merge (``merge_record``'s inputs): the whole merge
+    (merge_by_parents_device at the module's budget, the packed output
+    included), and its kernel inputs and merge_runs with every parent in
+    one range (the budget lifted), beside that range's live entries and
+    padded slots.  "one_range_peak_bytes_per_entry" is that range's peak
+    less device_merge._BYTES_PER_SLOT a slot, over its entries: what
+    device_merge._BYTES_PER_ENTRY should hold.  Nones off the card."""
+    import torch
+    from sph_tpu_torch.ops import device_merge as tdm
+    if DEV != "cuda":
+        return {"peak_bytes": None, "one_range_peak_bytes": None,
+                "one_range_peak_bytes_per_entry": None}
+    sr, parents, num_merged, wbs, combine, cap = inputs
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = tdm.merge_by_parents_device(sr, parents, num_merged, wbs, combine,
+                                      cap)
+    torch.cuda.synchronize()
+    whole = torch.cuda.max_memory_allocated() - base
+    del out
+    torch.cuda.reset_peak_memory_stats()
+    got = [tdm.merge_runs(*a, **e) for a, e in tdm.merge_kernel_inputs(
+        sr, parents, num_merged, wbs, combine, memory_budget=1 << 62)]
+    torch.cuda.synchronize()
+    one = torch.cuda.max_memory_allocated() - base
+    del got
+    entries = int(((sr.idx >= 0) & (sr.val != 0)).sum())
+    slots = sr.num_rows * sr.width
+    return {"peak_bytes": whole, "one_range_peak_bytes": one,
+            "one_range_entries": entries, "one_range_slots": slots,
+            "one_range_peak_bytes_per_entry":
+                (one - tdm._BYTES_PER_SLOT * slots) / max(entries, 1),
+            "bytes_per_entry_set": tdm._BYTES_PER_ENTRY,
+            "bytes_per_slot_set": tdm._BYTES_PER_SLOT}
+
+
+def check_merge(inputs: tuple, label: str, calls: int = MERGE_CALLS,
+                twin_calls: int = MERGE_TWIN_CALLS,
+                path_calls: int = MERGE_PATH_CALLS) -> dict:
+    """One merge of the paths (``merge_record``'s inputs: rows, parents,
+    parent count, weight_by_size, combine, cap), four ways on the same
+    inputs:
+
+    - merge_runs, the kernel, against its twin merge_runs_reference on DEV
+      over every parent range the merge takes: rows, columns, values and
+      merged weights bit-equal; both timed, beside ``merge_runs_bound`` and
+      index_add_'s (scatter_reduce's for a min) ms on the same runs, which
+      adds in another order (not the same function);
+    - the device path (merge_by_parents_device, then
+      normalize_merged_device for a sum, as the hierarchy normalizes it)
+      against the host path (the rows downloaded to the CPU, where the
+      merges take the C++ merge, the packing and numpy's normalization,
+      and the results uploaded): indices, values and width bit-equal,
+      merged and normalized; both timed on the host clock, the host path
+      on the call compared (seconds at the largest merges), the device
+      path on `path_calls` more;
+    - the device merge's peak memory (``merge_peak_bytes``)."""
+    import numpy as np
+    import torch
+    from sph_tpu_torch.ops import device_merge as tdm
+    from sph_tpu_torch.ops import sparse as tsp
+    sr, parents, num_merged, wbs, combine, cap = inputs
+    ranges = list(tdm.merge_kernel_inputs(sr, parents, num_merged, wbs,
+                                          combine))
+    differ, err, rows_out = 0, 0.0, []
+    for args, extra in ranges:
+        got = tdm.merge_runs(*args, **extra)
+        want = tdm.merge_runs_reference(*args, **extra)
+        for a, b in zip(got, want):
+            if a is None or b is None:
+                differ += (a is None) != (b is None)
+                continue
+            differ += not (same_bits(a, b) if a.dtype == torch.float32
+                           else bool(torch.equal(a, b)))
+            if a.numel():
+                err = max(err, float((a.double() - b.double()).abs().max()))
+        rows_out.append(got[0])
+    n_ranges = len(ranges)
+    entries = sum(a[0].numel() for a, _ in ranges)
+    runs = sum(a[2].numel() - 1 for a, _ in ranges)
+    children = sum(e["child_w"].numel() for _, e in ranges if e)
+    parents_n = sum(e["parent_start"].numel() - 1 for _, e in ranges if e)
+    full_width = int(torch.bincount(torch.cat(rows_out),
+                                    minlength=num_merged).max())
+    del rows_out
+    ms = device_ms(lambda: [tdm.merge_runs(*a, **e) for a, e in ranges],
+                   calls)
+    plain_ms = device_ms(lambda: [tdm.merge_runs_reference(*a, **e)
+                                  for a, e in ranges], twin_calls, warmup=0)
+    segs = [torch.repeat_interleave(
+        torch.arange(a[2].numel() - 1, device=a[2].device), a[2].diff())
+        for a, _ in ranges]
+
+    def scatter():
+        for (a, _), seg in zip(ranges, segs):
+            out = torch.zeros(a[2].numel() - 1, device=seg.device)
+            if combine == "sum":
+                out.index_add_(0, seg, a[1])
+            else:
+                out.scatter_reduce_(0, seg, a[1], "amin", include_self=False)
+
+    scatter_ms = device_ms(scatter, calls)
+    del ranges, segs
+
+    def device_path():
+        out = tdm.merge_by_parents_device(sr, parents, num_merged, wbs,
+                                          combine, cap)
+        return out, (tsp.normalize_merged_device(out) if combine == "sum"
+                     else None)
+
+    keep = []
+
+    def host_path():
+        rows = tsp.SparseRows(sr.idx.cpu(), sr.val.cpu(), sr.num_cols)
+        if combine == "sum":
+            out = tsp.merge_rows_by_parents(rows, parents, num_merged,
+                                            weight_by_size=wbs,
+                                            max_width=cap)
+            outs = out, tsp.normalize_merged(out)
+        else:
+            outs = tsp.merge_rows_min_by_parents(rows, parents, num_merged,
+                                                 max_width=cap), None
+        return tuple(None if o is None else tsp.SparseRows(
+            o.idx, o.val, o.num_cols, device=sr.device) for o in outs)
+
+    got = device_path()
+    host_path_ms = wall_ms(lambda: keep.append(host_path()), 1)
+    want = keep.pop()
+    paths_equal = all(
+        a is None and b is None or (
+            a.width == b.width and bool(torch.equal(a.idx.cpu(), b.idx.cpu()))
+            and same_bits(a.val.cpu(), b.val.cpu()))
+        for a, b in zip(got, want))
+    width = got[0].width
+    del got, want
+    device_path_ms = wall_ms(device_path, path_calls)
+    peak = merge_peak_bytes(inputs)
+    b = merge_runs_bound(entries, runs, children, parents_n)
+    out = {"path_shape": label, "rows": sr.num_rows, "width": sr.width,
+           "num_merged": num_merged, "combine": combine,
+           "weight_by_size": wbs, "max_width": cap,
+           "untruncated_width": full_width, "width_out": width,
+           "cap_bites": cap is not None and full_width > cap,
+           "entries": entries, "runs": runs, "parent_ranges": n_ranges,
+           "children": children, "parents": parents_n,
+           "kernel_outputs_differ": differ, "max_abs_err": err,
+           "paths_bit_equal": paths_equal, "ms": ms, "plain_ms": plain_ms,
+           **b, "share_of_bound": b["bound_ms"] / ms if ms else None,
+           "scatter_ms": scatter_ms,
+           "scatter_is": "index_add_ / scatter_reduce_: atomics, another "
+                         "order of additions",
+           "device_path_ms": device_path_ms, "host_path_ms": host_path_ms,
+           "host_path_is": "download, C++ merge, packing, numpy "
+                           "normalization, upload", **peak}
+    if differ or err or not paths_equal:
+        raise AssertionError(f"merge_runs {label}: {differ} kernel outputs "
+                             f"differ from the twin's (max {err}); device "
+                             f"and host paths bit-equal: {paths_equal}")
+    return out
+
+
+def check_symmetrize(knn: tuple, label: str, calls: int = SYM_CALLS) -> dict:
+    """symmetrize_graph on a path's kNN graph both ways: the device path
+    (device DEV named: the graph uploaded, symmetrize_graph_device, the
+    result downloaded) against the host path (no device: native.
+    symmetrize): indices, distances and counts bit-equal; each timed on
+    the host clock."""
+    import numpy as np
+    from sph_tpu_torch.ops import graph as tgraph
+    idx, dist = knn
+    g = tgraph.KnnGraph(idx, dist)
+
+    def run(on_device):
+        return tgraph.symmetrize_graph(g, device=DEV if on_device else None)
+
+    dev, host = run(True), run(False)
+    equal = (np.array_equal(dev.indices, host.indices)
+             and np.array_equal(dev.distances.view(np.int32),
+                                host.distances.view(np.int32))
+             and np.array_equal(dev.counts, host.counts))
+    if not equal:
+        raise AssertionError(f"symmetrize_graph {label}: the device path "
+                             "differs from native.symmetrize")
+    return {"path_shape": label, "n": int(idx.shape[0]),
+            "k": int(idx.shape[1]), "width": int(dev.indices.shape[1]),
+            "bit_equal": True, "device_path_ms": wall_ms(lambda: run(True),
+                                                         calls),
+            "host_path_ms": wall_ms(lambda: run(False), calls)}
+
+
 def eval_pines_walks(tsne_kernels, ref: dict) -> dict:
     """The evaluation driver on both walk-variant grids (EVAL_WALK_GRIDS)
     at 145x145x200: each run's maps against the JAX-CPU record's (else
@@ -4503,14 +4834,14 @@ def check_repulsion_window(y, n: int, shards: int, calls: int,
                 clock_hz) / shards, **b}
 
 
-def pines_hierarchy(device: str):
-    """The bench.py:89-136 configuration at 145x145x200 as an initialised
-    (not yet computed) ComputeHierarchy; returns it with its level settings
-    and the data matrix."""
+def pines_hierarchy(device: str, shape=(145, 145, 200)):
+    """The bench.py:89-136 configuration at 145x145x200 (or `shape`) as an
+    initialised (not yet computed) ComputeHierarchy; returns it with its
+    level settings and the data matrix."""
     import sph_tpu_torch as T
     from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
-    rows = cols = 145
-    img = create_hyperspectral_scene(rows, cols, 200, seed=7)
+    rows, cols, bands = shape
+    img = create_hyperspectral_scene(rows, cols, bands, seed=7)
     data = T.scale(T.ImageStack.from_array(img, name="pines_synth").data,
                    T.Scaler.NONE)
     k = 91
@@ -4556,7 +4887,7 @@ def main() -> int:
     import sph_tpu_torch as T
     from sph_tpu_torch import native
     from sph_tpu_torch.ops import shortest_path as sp
-    from sph_tpu_torch.ops import tsne_kernels, walk_sort
+    from sph_tpu_torch.ops import device_merge, tsne_kernels, walk_sort
     from sph_tpu_torch.ops import walks as twalks
     from sph_tpu_torch.utils.logging import set_level
     set_level("WARNING")
@@ -4640,18 +4971,25 @@ def main() -> int:
     tsne_kernels.tsne_forces_dense.launches = 0
     tsne_kernels.tsne_repulsion.launches = 0
     walk_sort.xla_sort_order.launches = 0
+    device_merge.merge_runs.launches = 0
     seconds = {}
-    for name, stage in (("stage1_knn", ch.compute_knn_graph),
-                        ("stage2_hierarchy", ch.compute_image_hierarchy),
-                        ("stage3_level_similarities",
-                         ch.compute_level_similarities)):
-        t = time.perf_counter()
-        stage()
-        torch.cuda.synchronize()
-        seconds[name] = time.perf_counter() - t
+    pines_merges = {}
+    with merge_record(pines_merges):
+        for name, stage in (("stage1_knn", ch.compute_knn_graph),
+                            ("stage2_hierarchy", ch.compute_image_hierarchy),
+                            ("stage3_level_similarities",
+                             ch.compute_level_similarities)):
+            t = time.perf_counter()
+            stage()
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t
     main_sort_launches = walk_sort.xla_sort_order.launches
+    merge_launches = {"pines": device_merge.merge_runs.launches}
     if not main_sort_launches:
         raise AssertionError("walk_row_sort: the Pines path's NORMAL walks "
+                             "launched it no time")
+    if not merge_launches["pines"]:
+        raise AssertionError("merge_runs: the Pines path's walk-row merges "
                              "launched it no time")
     levels = list(ch.image_hierarchy.hierarchy.num_components)
     p1 = ch.level_similarities.get_prob_dist(1)
@@ -4672,7 +5010,9 @@ def main() -> int:
           "tsne_tier": ce.last_computation.tier,
           "tsne_forces_dense_launches": launches,
           "tsne_repulsion_launches": main_rep_launches,
-          "walk_row_sort_launches": main_sort_launches})
+          "walk_row_sort_launches": main_sort_launches,
+          "merge_runs_launches": merge_launches["pines"],
+          "merges": merge_summary(pines_merges, "first")})
 
     # the kernel once more at the level-1 size the main path just gave it
     from sph_tpu_torch.models.tsne import dense_npad
@@ -4681,6 +5021,23 @@ def main() -> int:
     main_shape = checks[-1]
     emit({"phase": "kernel_vs_twin", "kernel": "tsne_forces_dense",
           "main_path_shape": True, **checks[-1]})
+    # merge_runs and the whole device merge at the Pines path's level-0 ->
+    # 1 walk-row merge, and again with a cap that bites and is not a power
+    # of two; the symmetrization of its kNN graph both ways
+    merge_checks = [check_merge(pines_merges["inputs"],
+                                "pines_level_0_to_1")]
+    cap_inputs = pines_merges.pop("inputs")
+    cut = int(merge_checks[0]["untruncated_width"] * MERGE_CAP_SHARE) | 1
+    merge_checks.append(check_merge((*cap_inputs[:5], cut),
+                                    f"pines_level_0_to_1_cap_{cut}"))
+    del cap_inputs
+    if not merge_checks[-1]["cap_bites"]:
+        raise AssertionError(f"merge_runs: the cap {cut} does not bite")
+    sym_checks = [check_symmetrize(pines_merges.pop("knn"), "pines_knn_91")]
+    for c in merge_checks:
+        emit({"phase": "kernel_vs_twin", "kernel": "merge_runs", **c})
+    emit({"phase": "kernel_vs_twin", "kernel": "symmetrize_graph_device",
+          **sym_checks[-1]})
 
     # ---- checks ----------------------------------------------------------
     if not all(a > b for a, b in zip(levels, levels[1:])):
@@ -4872,11 +5229,28 @@ def main() -> int:
         salw_ref = json.load(f)
     t = time.perf_counter()
     walk_sort.xla_sort_order.launches = 0
-    salw = salinas_walks(tsne_kernels)
+    device_merge.merge_runs.launches = 0
+    salw_merges = {}
+    with merge_record(salw_merges):
+        salw = salinas_walks(tsne_kernels)
     sort_launches["salinas_walks"] = walk_sort.xla_sort_order.launches
+    merge_launches["salinas_walks"] = device_merge.merge_runs.launches
     salw["seconds_total"] = time.perf_counter() - t
     emit({"phase": "salinas_walks", **salw,
+          "merge_runs_launches": merge_launches["salinas_walks"],
+          "merges": merge_summary(salw_merges, "widest"),
           "jax_cpu": salw_ref["runs"]})
+    if not merge_launches["salinas_walks"]:
+        raise AssertionError("merge_runs: salinas_walks launched it no time")
+    merge_checks.append(check_merge(salw_merges.pop("inputs"),
+                                    "salinas_walks_widest"))
+    emit({"phase": "kernel_vs_twin", "kernel": "merge_runs",
+          **merge_checks[-1]})
+    sym_checks.append(check_symmetrize(salw_merges.pop("knn"),
+                                       "salinas_knn_31"))
+    emit({"phase": "kernel_vs_twin", "kernel": "symmetrize_graph_device",
+          **sym_checks[-1]})
+    torch.cuda.empty_cache()
     salw_n = salw["rw_only"]["levels"][1]
     checks.append(check_forces_kernel(salw_n, dense_npad(salw_n), seed=17,
                                       calls=50))
@@ -5112,13 +5486,21 @@ def main() -> int:
         ms_ref = json.load(f)
     t = time.perf_counter()
     walk_sort.xla_sort_order.launches = 0
-    ms = multi_scene(tsne_kernels, ms_ref["full"])
+    device_merge.merge_runs.launches = 0
+    ms_merges = {}
+    with merge_record(ms_merges):
+        ms = multi_scene(tsne_kernels, ms_ref["full"])
     sort_launches["multi_scene"] = walk_sort.xla_sort_order.launches
+    merge_launches["multi_scene"] = device_merge.merge_runs.launches
     del ms["pines"]
     emit({"phase": "multi_scene", **ms,
+          "merge_runs_launches": merge_launches["multi_scene"],
+          "merges": merge_summary(ms_merges),
           "jax_cpu_levels": ms_ref["full"]["levels"],
           "jax_cpu_seconds": ms_ref["seconds"],
           "seconds_total": time.perf_counter() - t})
+    if not merge_launches["multi_scene"]:
+        raise AssertionError("merge_runs: multi_scene launched it no time")
     multi_scene_gates(ms, ms_ref["full"])
     ms_n = MULTI_SCENE_SHAPE[0] * MULTI_SCENE_SHAPE[1]
     from sph_tpu_torch.models.tsne import _ceil_to
@@ -5192,14 +5574,28 @@ def main() -> int:
         walks_ref = json.load(f)
     t = time.perf_counter()
     walk_sort.xla_sort_order.launches = 0
+    device_merge.merge_runs.launches = 0
     level0 = {}
+    walks_merges = {}
     with first_visit_record(twalks, EVAL_PINES_SHAPE[0] * EVAL_PINES_SHAPE[1],
-                            level0):
+                            level0), merge_record(walks_merges):
         ev_walks = eval_pines_walks(tsne_kernels, walks_ref)
     sort_launches["eval_pines_walks"] = walk_sort.xla_sort_order.launches
+    merge_launches["eval_pines_walks"] = device_merge.merge_runs.launches
     emit({"phase": "eval_pines_walks", **ev_walks,
           "walk_row_sort_launches": sort_launches["eval_pines_walks"],
+          "merge_runs_launches": merge_launches["eval_pines_walks"],
+          "merges": merge_summary(walks_merges, "first_min"),
           "seconds": time.perf_counter() - t})
+    if not merge_launches["eval_pines_walks"] or "inputs" not in walks_merges:
+        raise AssertionError("merge_runs: the walk grids launched it "
+                             f"{merge_launches['eval_pines_walks']} times, a "
+                             "MERGE_DATA_NEW_WALKS min merge seen: "
+                             f"{'inputs' in walks_merges}")
+    merge_checks.append(check_merge(walks_merges.pop("inputs"),
+                                    "eval_pines_walks_merge_data_min"))
+    emit({"phase": "kernel_vs_twin", "kernel": "merge_runs",
+          **merge_checks[-1]})
     if not sort_launches["eval_pines_walks"] or "ids" not in level0:
         raise AssertionError("walk_row_sort: the walk grids launched it "
                              f"{sort_launches['eval_pines_walks']} times, "
@@ -5445,7 +5841,38 @@ def main() -> int:
             "plain_rows": c["plain_rows"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"],
             "torch_sort_stable_ms": c["torch_sort_stable_ms"],
-            "max_abs_err": c["max_abs_err"]} for c in sort_checks]}]})
+            "max_abs_err": c["max_abs_err"]} for c in sort_checks]}, {
+        # the JAX package's segment-combine of its device merge (an XLA
+        # program: no pallas_call); its main path is the Pines path's
+        # MERGE_RW_ONLY walk-row merges, one launch a parent range of a
+        # merge; ms and bound at the level-0 -> 1 merge
+        "name": "merge_runs", "route": "cuda",
+        "source": "sph_tpu_torch/csrc/merge_runs.cu",
+        "replaces": "sph_tpu/ops/device_merge.py:56 _merge_flatten's "
+                    "scatter-add / scatter-min segment-combine (an XLA "
+                    "program: no pallas_call)",
+        "launches": merge_launches["pines"],
+        "max_abs_err": max(c["max_abs_err"] for c in merge_checks),
+        "ms": merge_checks[0]["ms"], "plain_ms": merge_checks[0]["plain_ms"],
+        "bound_ms": merge_checks[0]["bound_ms"],
+        "bound_by": merge_checks[0]["bound_by"], "library_ms": None,
+        "library_note": "no PyTorch call sums runs in the host's order; "
+                        "index_add_ (atomics) is scatter_ms",
+        "shape": [merge_checks[0]["entries"], merge_checks[0]["runs"]],
+        "launches_by_path": [
+            {"path": path, "launches": n_launch}
+            for path, n_launch in merge_launches.items()],
+        "at_shapes": [{
+            "path_shape": c["path_shape"], "combine": c["combine"],
+            "entries": c["entries"], "runs": c["runs"],
+            "cap_bites": c["cap_bites"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "share_of_bound": c["share_of_bound"],
+            "scatter_ms": c["scatter_ms"],
+            "device_path_ms": c["device_path_ms"],
+            "host_path_ms": c["host_path_ms"],
+            "max_abs_err": c["max_abs_err"]} for c in merge_checks],
+        "symmetrize_graph_device": sym_checks}]})
     elapsed = time.perf_counter() - started
     if not elapsed <= SMOKE_SECONDS_MAX:
         raise AssertionError(f"chip_smoke took {elapsed} s, over "

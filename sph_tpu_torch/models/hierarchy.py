@@ -26,9 +26,9 @@ from ..settings import (ComponentSim, NeighConnection, NormType,
 from ..utils.logging import Log
 from ..utils.timer import phase
 from ..ops.distributions import gaussian_row_distributions
-from ..ops.sparse import (SparseRows, host_normalize, merge_rows_by_parents,
+from ..ops.sparse import (SparseRows, merge_rows_by_parents,
                           merge_rows_min_by_parents, normalize_matrix,
-                          normalize_rows, remove_diagonal)
+                          normalize_merged, normalize_rows, remove_diagonal)
 from ..ops.walks import do_random_walks
 
 # pixel-grid offsets (reference: sph/utils/ImageHelper.hpp:11-52)
@@ -194,38 +194,42 @@ class Hierarchy:
         on those.  Merged rows are capped in width: one giant merge
         component would otherwise force the whole padded matrix to its
         union nnz (sum merges keep the largest values, min merges the
-        smallest)."""
+        smallest).  The merges and the normalization after them stay on
+        the rows' device (``ops/device_merge.py``) where the rows lie on
+        the card; the phases ``h.merge_walks.merge`` and
+        ``h.merge_walks.norm`` time them apart."""
         handling = self.settings.rw_handling
         cap = max(1024, MERGE_WIDTH_BUDGET // max(num_next, 1))
         onedim = self.settings.rw_norm_sim == NormType.ONEDIM
         if handling == RandomWalkHandling.MERGE_DATA_NEW_WALKS:
-            graph = merge_rows_min_by_parents(
-                self.merged_data_graphs[-1], labels, num_next, max_width=cap)
+            rows = self.merged_data_graphs[-1]
+            with phase("h.merge_walks.merge", sync=rows.device):
+                graph = merge_rows_min_by_parents(rows, labels, num_next,
+                                                  max_width=cap)
             self.merged_data_graphs.append(graph)
             merged = distance_rows_to_probs(graph)
-        elif handling == RandomWalkHandling.MERGE_RW_ONLY:
-            # the normalization folds into the merge: the same numpy sums
-            merged = merge_rows_by_parents(
-                self.random_walks[-1], labels, num_next, norm=onedim,
-                weight_by_size=self.settings.rw_weight_merge_by_size,
-                max_width=cap)
-            if (self.settings.rw_remove_self_sim_after_merging
-                    and merged.num_rows > 1):
-                Log.warn_once("Hierarchy::updateRandomWalks: MERGE_RW_ONLY "
-                              "ignores rw_remove_self_sim_after_merging")
-            if not onedim:
-                merged = normalize_matrix(merged)
         else:
-            merged = merge_rows_by_parents(
-                self.random_walks[-1], labels, num_next, norm=False,
-                weight_by_size=self.settings.rw_weight_merge_by_size,
-                max_width=cap)
+            dev = self.random_walks[-1].device
+            with phase("h.merge_walks.merge", sync=dev):
+                merged = merge_rows_by_parents(
+                    self.random_walks[-1], labels, num_next, norm=False,
+                    weight_by_size=self.settings.rw_weight_merge_by_size,
+                    max_width=cap)
             if (self.settings.rw_remove_self_sim_after_merging
                     and merged.num_rows > 1):
-                merged = remove_diagonal(merged, keep_single_entry=True)
-            # the JAX package normalizes its host-side merge in numpy
-            merged = SparseRows(merged.idx, host_normalize(
-                merged.indices, merged.values, onedim), merged.num_cols)
+                if handling == RandomWalkHandling.MERGE_RW_ONLY:
+                    Log.warn_once("Hierarchy::updateRandomWalks: "
+                                  "MERGE_RW_ONLY ignores "
+                                  "rw_remove_self_sim_after_merging")
+                else:
+                    merged = remove_diagonal(merged, keep_single_entry=True)
+            # the JAX package normalizes its host-side merges in numpy; the
+            # MERGE_RW_ONLY matrix normalization is the port's own sum
+            with phase("h.merge_walks.norm", sync=dev):
+                if handling == RandomWalkHandling.MERGE_RW_ONLY and not onedim:
+                    merged = normalize_matrix(merged)
+                else:
+                    merged = normalize_merged(merged, onedim)
 
         if handling == RandomWalkHandling.MERGE_RW_ONLY:
             out = merged

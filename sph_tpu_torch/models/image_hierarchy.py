@@ -14,7 +14,8 @@ package.  Every component metric is ported (NEIGH_WALKS,
 NEIGH_WALKS_SINGLE_OVERLAP, NEIGH_OVERLAP, EUCLID_CENTROID, GEO_CENTROID,
 GEO_WALKS), with every walk handling.  The data-level probdist takes any of
 the normalization schemes (ops/distributions.distance_rows_to_probabilities).
-The multi-scene preset preparations (set_preparations) are not ported.
+The multi-scene preset preparations are ported too (set_preparations,
+which parallel/sharded.multi_scene_hierarchy calls for every scene).
 """
 
 from __future__ import annotations

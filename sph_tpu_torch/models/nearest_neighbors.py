@@ -113,7 +113,8 @@ class NearestNeighbors:
 
     def compute_symmetrized_graph(self) -> PaddedGraph:
         """Reference: computeSymmetrizedNnGraph (:411-492)."""
-        self.sym_graph = symmetrize_graph(self.knn_graph)
+        self.sym_graph = symmetrize_graph(self.knn_graph,
+                                         device=self.device)
         return self.sym_graph
 
     def compute_connected_components(self):

@@ -6,7 +6,7 @@ at once, one nvcc each), with a plain C entry point ``<name>_launch`` that
 is loaded with ctypes and returns the launch's CUDA error.  The wrappers
 live beside their twins: the t-SNE kernels in ``ops/tsne_kernels.py``, the
 Bellman-Ford relax in ``ops/shortest_path.py``, the walk rows' sort in
-``ops/walk_sort.py``.
+``ops/walk_sort.py``, the merges' run sums in ``ops/device_merge.py``.
 """
 
 from __future__ import annotations
@@ -37,6 +37,9 @@ _SIGNATURES = {
     "bellman_ford_relax": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _I, _P],
     "walk_row_sort": [_P, ctypes.c_longlong, _I, _P, _P, _P, _P],
+    "merge_runs": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _P,
+                   _P, ctypes.c_longlong, ctypes.c_longlong, _P, _P, _P, _P,
+                   _P],
 }
 # every kernel of the port
 ALL_KERNELS = tuple(_SIGNATURES)

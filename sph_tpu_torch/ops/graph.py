@@ -9,18 +9,21 @@ arrays:
 * ``PaddedGraph`` — variable-k: [N, Kmax] with pad index -1, pad distance
   +inf, and a per-row count
 
-The irregular restructurings (symmetrize, connected components, edge
-insertion) run on the host through the shared C++ library, which is what
-the JAX package runs off the TPU.  Consumers that compute on a device copy
-the arrays there themselves.
+The irregular restructurings (connected components, edge insertion) run
+on the host through the shared C++ library, which is what the JAX package
+runs off the TPU; the symmetrization runs on the caller's card where it
+names one (``ops/device_merge.py``).  Consumers that compute on a device
+copy the arrays there themselves.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .. import native
 from ..utils.logging import Log
+from . import device_merge
 
 PAD_INDEX = -1
 PAD_DIST = np.inf
@@ -163,17 +166,33 @@ def ensure_self_first(indices: np.ndarray, distances: np.ndarray,
     return indices, distances, num_adjusted
 
 
-def symmetrize_graph(graph: KnnGraph | PaddedGraph) -> PaddedGraph:
+def symmetrize_graph(graph: KnnGraph | PaddedGraph,
+                     device=None) -> PaddedGraph:
     """Undirected union of edges with min-distance dedup (reference:
     GraphUtils.cpp symmetrizeGraph — union of i->j and j->i, duplicate edges
     keep the smaller distance, rows sorted by distance, self first).  Rows
     are capped at SYM_WIDTH_CAP entries: hub rows keep their closest edges.
+
+    device: where the caller computes.  On the card the union runs there
+    (``device_merge.symmetrize_graph_device``); on the CPU, and without a
+    device, on the host (``native.symmetrize``).  Both give the same bits,
+    and the result is host numpy either way: its consumers (the
+    components, the bridging) are host code.
     """
     if isinstance(graph, KnnGraph):
         graph = graph.to_padded()
     idx_in = np.where(graph.mask, graph.indices, -1).astype(np.int32)
     dist_in = np.where(graph.mask, graph.distances, 0.0).astype(np.float32)
-    oi, od, oc = native.symmetrize(idx_in, dist_in, max_width=SYM_WIDTH_CAP)
+    if device is not None and device_merge.on_card(device):
+        dev = torch.device(device)
+        oi, od, oc = (t.cpu().numpy()
+                      for t in device_merge.symmetrize_graph_device(
+                          torch.from_numpy(idx_in).to(dev),
+                          torch.from_numpy(dist_in).to(dev),
+                          max_width=SYM_WIDTH_CAP))
+    else:
+        oi, od, oc = native.symmetrize(idx_in, dist_in,
+                                       max_width=SYM_WIDTH_CAP)
     if oi.shape[1] >= SYM_WIDTH_CAP:
         Log.info("symmetrize_graph: row width capped at %d (hub nodes keep "
                  "their closest edges)", SYM_WIDTH_CAP)

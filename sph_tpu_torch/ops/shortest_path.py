@@ -729,8 +729,8 @@ def get_geo_sketch(graph, device=None):
         # meet-in-the-middle is exact only on an undirected graph:
         # symmetrize (idempotent on an already-symmetric graph)
         t = time.perf_counter()
-        si, sd = build_geo_sketch(symmetrize_graph(graph), width=width,
-                                  hops=hops, device=dev)
+        si, sd = build_geo_sketch(symmetrize_graph(graph, device=dev),
+                                  width=width, hops=hops, device=dev)
         sd[-1, -1].item()                      # the build has finished
         LOG.append({"what": "sketch_build", "shape": list(si.shape),
                     "seconds": time.perf_counter() - t})

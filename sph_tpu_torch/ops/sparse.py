@@ -7,9 +7,12 @@ pads last) and ``values [N, R]`` (0 at pads), here as int64 / float32 tensors
 on one device.  Widths are the exact widest row, not the JAX package's
 power-of-two buckets, which existed only to bound XLA recompiles.
 
-Each op runs as torch ops on the rows' device, except the two merges
-(``merge_rows_by_parents``, ``merge_rows_min_by_parents``), which take the
-host C++ merge (native/graphops.cpp) as the JAX package does off the TPU.
+Each op runs as torch ops on the rows' device.  The two merges
+(``merge_rows_by_parents``, ``merge_rows_min_by_parents``) run there too
+where the rows lie on the card (``device_merge.on_card``), with the run
+sums as the kernel ``csrc/merge_runs.cu``; rows on the CPU take the host
+C++ merge (native/graphops.cpp), as the JAX package runs them off its
+accelerator.  Both paths give the same bits.
 """
 
 from __future__ import annotations
@@ -23,7 +26,9 @@ import torch
 from .. import native
 from ..device import resolve_device
 from ..utils.logging import Log
-from .numerics import _fma, log, row_sum, sqrt
+from . import device_merge
+from .device_merge import merge_by_parents_device
+from .numerics import _fma, log, np_row_sum, row_sum, sqrt
 
 PAD = -1
 _BIG = torch.iinfo(torch.int64).max
@@ -120,23 +125,30 @@ def compact(idx: torch.Tensor, val: torch.Tensor, num_cols: int
 
 def pack_coo(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
              num_rows: int, num_cols: int,
-             max_width: Optional[int] = None) -> SparseRows:
+             max_width: Optional[int] = None,
+             largest: bool = True, log_as: str = "") -> SparseRows:
     """Pack (row, col, val) triples, sorted by (row, col), into padded rows
     of the exact widest row.  max_width keeps each row's largest values
-    (ties to the lower column), as ``topk_rows`` would on the packed rows,
-    without ever holding rows wider than that."""
+    (smallest where not `largest`; ties to the lower column), as
+    ``topk_rows`` would on the packed rows, without ever holding rows wider
+    than that.  log_as: a caller's name to log a truncation under."""
     dev = vals.device
     counts = torch.bincount(rows, minlength=num_rows)
-    if (max_width is not None and rows.numel()
-            and int(counts.max()) > max_width):
-        by_val = torch.sort(-vals, stable=True).indices
+    width = int(counts.max()) if rows.numel() else 0
+    if max_width is not None and width > max_width:
+        if log_as:
+            Log.info("%s: truncating rows from width %d to %d (keeping %s "
+                     "values)", log_as, width, max_width,
+                     "largest" if largest else "smallest")
+        by_val = torch.sort(-vals if largest else vals, stable=True).indices
         order = by_val[torch.sort(rows[by_val], stable=True).indices]
         starts = torch.cumsum(counts, 0) - counts
         rank = torch.arange(rows.numel(), device=dev) - starts[rows[order]]
         keep = torch.sort(order[rank < max_width]).values
         rows, cols, vals = rows[keep], cols[keep], vals[keep]
-        counts = torch.bincount(rows, minlength=num_rows)
-    width = max(int(counts.max()) if rows.numel() else 1, 1)
+        counts = torch.clamp_max(counts, max_width)
+        width = max_width
+    width = max(width, 1)
     starts = torch.cumsum(counts, 0) - counts
     slot = torch.arange(rows.numel(), device=dev) - starts[rows]
     idx = torch.full((num_rows, width), PAD, dtype=torch.int64, device=dev)
@@ -243,15 +255,22 @@ def merge_rows_by_parents(sr: SparseRows, parents: np.ndarray,
     weight_by_size: each child row is weighted by its nnz before summing and
     the merged row divided by the summed weights (reference:
     mergeNodesRandomWalks rowWeights logic, :321-346).  Rows wider than
-    max_width keep their largest values.  norm: row-normalize afterwards.
+    max_width keep their largest values.  norm: row-normalize afterwards
+    (``normalize_merged``: numpy's float32 sums, as the JAX package
+    normalizes its host-side merges).
 
-    The whole merge runs on the host, as the JAX package runs it off the
-    TPU: the C++ accumulation, the packing and the normalization (a numpy
-    float32 sum, so the rows match the JAX package's bit for bit).  The
-    result is uploaded to the input's device once.
+    Rows on the card merge there (``device_merge.merge_by_parents_device``:
+    the labels are uploaded once, the rows never leave it).  Rows on the
+    CPU merge on the host, as the JAX package merges off its accelerator:
+    the C++ accumulation, the packing and the normalization.  The two
+    paths give the same bits.
     """
     parents = np.asarray(parents, dtype=np.int64)
     assert parents.shape[0] == sr.num_rows
+    if device_merge.on_card(sr.device):
+        out = merge_by_parents_device(sr, parents, num_merged, weight_by_size,
+                                      "sum", max_width)
+        return normalize_merged(out) if norm else out
     out_rows, out_cols, sums = native.merge_sum(
         sr.indices, sr.values, parents, num_merged, weight_by_size)
 
@@ -284,6 +303,31 @@ def merge_rows_by_parents(sr: SparseRows, parents: np.ndarray,
     return SparseRows(indices, values, num_merged, device=sr.device)
 
 
+def normalize_merged(sr: SparseRows, onedim: bool = True) -> SparseRows:
+    """``host_normalize`` of merged rows (each row to one, or the whole
+    matrix where not `onedim`): on the card ``normalize_merged_device``,
+    on the CPU ``host_normalize`` itself; the same bits."""
+    if device_merge.on_card(sr.device):
+        return normalize_merged_device(sr, onedim)
+    return SparseRows(sr.idx, host_normalize(sr.indices, sr.values, onedim),
+                      sr.num_cols)
+
+
+def normalize_merged_device(sr: SparseRows, onedim: bool = True
+                            ) -> SparseRows:
+    """``host_normalize`` on the rows' device: numpy's pairwise float32
+    sums (``numerics.np_row_sum``) over the rows' exact width, then a true
+    division, the same bits as numpy's."""
+    s = np_row_sum(torch.where(sr.idx >= 0, sr.val, 0.0))
+    if onedim:
+        s = torch.where(s == 0, 1.0, s)
+        return SparseRows(sr.idx, sr.val / s[:, None], sr.num_cols)
+    total = np_row_sum(s[None])
+    if float(total) == 0:
+        return sr
+    return SparseRows(sr.idx, sr.val / total[:, None], sr.num_cols)
+
+
 def host_normalize(indices: np.ndarray, values: np.ndarray,
                    onedim: bool = True) -> np.ndarray:
     """The JAX package's host normalization of merged rows, in numpy's
@@ -307,11 +351,15 @@ def merge_rows_min_by_parents(sr: SparseRows, parents: np.ndarray,
     the smallest value; zero entries drop out.  Rows wider than max_width
     keep their smallest values (ties to the lower column).
 
-    The accumulation is the host C++ merge (``native.merge_min``), as the
-    JAX package runs it off the TPU; the packed rows are uploaded to the
-    input's device once."""
+    Rows on the card merge there (``device_merge.
+    merge_by_parents_device``); rows on the CPU take the host C++ merge
+    (``native.merge_min``), as the JAX package merges off its accelerator.
+    The two paths give the same bits."""
     parents = np.asarray(parents, dtype=np.int64)
     assert parents.shape[0] == sr.num_rows
+    if device_merge.on_card(sr.device):
+        return merge_by_parents_device(sr, parents, num_merged, False, "min",
+                                       max_width)
     out_rows, out_cols, mins = native.merge_min(sr.indices, sr.values,
                                                 parents, num_merged)
     counts = np.bincount(out_rows, minlength=num_merged)

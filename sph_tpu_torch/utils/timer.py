@@ -28,14 +28,22 @@ def phases_enabled() -> bool:
 
 
 @contextmanager
-def phase(name: str):
+def phase(name: str, sync=None):
+    """Charge the block's wall seconds to `name`.  sync: a device whose
+    queued work the block's seconds include (a CUDA device is synchronised
+    at both ends, so the phase reads its own device time)."""
     if not phases_enabled():
         yield
         return
+    cuda = sync is not None and torch.device(sync).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(sync)
     t0 = time.perf_counter()
     try:
         yield
     finally:
+        if cuda:
+            torch.cuda.synchronize(sync)
         dt = time.perf_counter() - t0
         ent = _PHASES.setdefault(name, [0.0, 0])
         ent[0] += dt

@@ -443,7 +443,8 @@ def test_kernel_source_and_build_registry():
     assert "delta sweep" in src and "ticket" in src
     assert "use_fast_math" not in " ".join(cuda_build.NVCC_FLAGS)
     assert cuda_build.ALL_KERNELS == (*tsne_kernels.KERNELS,
-                                      "bellman_ford_relax", "walk_row_sort")
+                                      "bellman_ford_relax", "walk_row_sort",
+                                      "merge_runs")
     assert tsne_kernels.build is cuda_build.build
     assert os.path.basename(cuda_build.library_path(
         "bellman_ford_relax")).startswith("libbellman_ford_relax_")
