@@ -43,7 +43,8 @@ Phases, each printing one JSON line, and each raising on failure:
    numpy, upload), bit-equal, both timed, with the device merge's peak
    memory (whole, and in one parent range).  symmetrize_graph's device path
    is held against native.symmetrize on the Pines and Salinas kNN graphs,
-   both timed.
+   both timed.  grid_deposit and grid_interpolate are held at the 1M run's
+   layouts (phase 12) and grid_vs_exact's (phase 15).
 4. main    — the Pines configuration of bench.py:89-136 at 145x145x200
    through ComputeHierarchy(device="cuda") and 2000 level-1 t-SNE
    iterations through ComputeEmbedding(device="cuda"), counting kernel
@@ -155,13 +156,21 @@ Phases, each printing one JSON line, and each raising on failure:
    the grid, for the reference's 4000 iterations: seconds, iterations/s,
    the grid sizes, the KL at iterations 0, 250, 1000 and 4000, the grid's
    Z against tsne_repulsion's (at most 1e-3 apart) and the final KL with
-   the exact Z, milliseconds an iteration by part, two calls of the
-   grid's repulsion bit-equal (the deposit sums in a fixed order), peak
-   memory; tsne_attraction launched once an iteration, on the u16-packed
-   table (the default), and no other kernel.  Then tsne_attraction against
+   the exact Z, milliseconds an iteration by part (the box, grid_deposit
+   with its keys and sort, the FFT, grid_interpolate, the attraction, the
+   update), the points in the fullest base cell on each grid size, two
+   calls of the grid's repulsion bit-equal (the deposit sums in a fixed
+   order), peak memory; the iterations launch tsne_attraction (on the
+   u16-packed table, the default), grid_deposit and grid_interpolate once
+   each an iteration and no other kernel, each KL grid_deposit and
+   grid_interpolate once (counted apart).  Then tsne_attraction against
    its twin at this P (1,000,448 x 64) and layout, unpacked and packed:
    within 1e-5 x max|twin|, two calls bit-equal, two row windows equal to
-   the full call's rows; ms against the bound.
+   the full call's rows; ms against the bound; and grid_deposit and
+   grid_interpolate against their twins at the final layout on its grid
+   and at iteration 1000's layout on the 128 grid (crowded cells): each
+   bit-equal to its twin and from call to call, ms, the twin's ms, the
+   bound and the share of it.
 13. large  — the same graph on the exact sparse-P tier (SPH_TSNE_GRID=0),
    cut to 10 iterations; the KL before and after, the launches
    (tsne_attraction, float32, and tsne_repulsion on every iteration).
@@ -173,8 +182,10 @@ Phases, each printing one JSON line, and each raising on failure:
    iterations on the grid and the exact tier from the same P and initial
    layout, both scored under that P with the exact Z: KL_grid <= 1.001 x
    KL_exact (the grid tier on its defaults, so its attraction reads the
-   packed table); tsne_attraction once an iteration of each; then
-   tsne_attraction against its twin at this P, as in phase 12.
+   packed table); tsne_attraction once an iteration of each, grid_deposit
+   and grid_interpolate once an iteration of the grid tier (and for its
+   final KL); then tsne_attraction against its twin at this P, as in phase
+   12, and both grid kernels at the grid tier's final layout.
 16. ivf_recall — benchmarks/bench_recall.py's clustered data at 10^6 x
    100 (seed 0), a full self-kNN on HNSW, HNSWSQ and HNSW_IVFPQ, recall@16
    on 1024 sampled rows against float64 distances, each at least the JAX
@@ -256,7 +267,8 @@ Phases, each printing one JSON line, and each raising on failure:
    sharded_tsne and sharded_grid_tsne for 100 iterations on
    grid_vs_exact's 65536-point P (KL of 2 shards within 0.5 % of 1
    shard's, each with the exact Z; tsne_attraction once a shard and an
-   iteration, on the shard's rows), sharded_umap for 200 epochs on Pines
+   iteration, on the shard's rows; on the grid tier grid_deposit and
+   grid_interpolate too), sharded_umap for 200 epochs on Pines
    level 1's memberships beside the one-card edge-list tier (two runs
    bit-equal) (the Pines path's level 1, phase 4, whose memberships are
    connected): trustworthiness at k = 10 at least 0.99 x the edge tier's;
@@ -298,6 +310,9 @@ GRID_ITERS = 4000          # 1M grid tier: the reference's schedule above 200k
 GRID_KL_AT = (0, 250, 1000)
 MID_ITERS = 1000           # 65536 points: the reference's schedule below 100k
 GRID_STEP_MS_INDEX_ADD = (7.37, 7.43)   # 1M grid step, index_add_ deposit
+GRID_LAYOUT_AT = 1000      # the 1M run's layout kept here (on the 128 grid)
+GRID_KERNEL_CALLS = 20     # grid_deposit / grid_interpolate calls timed
+GRID_TWIN_CALLS = 3        # their twins'
 Z_GAP_MAX = 1e-3           # grid Z against the exact Z at 1M, relative
 KL_RATIO_MAX = 1.001       # 65536 points: KL_grid / KL_exact
 # tsne_repulsion against its twin: (n, Npad, calls timed, twin calls timed,
@@ -488,6 +503,33 @@ def grid_repulsion_bound(n: int, npad: int, grid: int) -> dict:
              + 300 * n)
     return {**bound(nbytes, flops), "bytes": nbytes, "flops": flops,
             "grid": grid}
+
+
+# float32 operations a point of the grid tier's kernels (a multiply-add
+# counts two): the grid coordinates (3 each), the eight cardinal weights
+# (the distance and the cardinal's 3 differences and 3 products, 7 each),
+# then for the deposit the charges times the x weights (8) and the 48 tap
+# products and sums (96); for the interpolation the y contraction (16
+# products and 12 sums for each of 4 fields), the x contraction (4 and 3 for
+# each field) and rep (2 products and 2 differences)
+GRID_DEPOSIT_FLOPS_PER_POINT = 6 + 56 + 8 + 96
+GRID_INTERPOLATE_FLOPS_PER_POINT = 6 + 56 + 4 * 28 + 4 * 7 + 4
+
+
+def grid_deposit_bound(n: int, grid: int) -> dict:
+    """grid_deposit: y's n rows (8 bytes each) and the box (16 bytes) read
+    once, the [3, G, G] charges written once; 166 flops a point."""
+    nbytes = 8 * n + 16 + 12 * grid * grid
+    flops = GRID_DEPOSIT_FLOPS_PER_POINT * n
+    return {**bound(nbytes, flops), "bytes": nbytes, "flops": flops}
+
+
+def grid_interpolate_bound(n: int, npad: int, grid: int) -> dict:
+    """grid_interpolate: the [4, G, G] fields, y's n rows and the box read
+    once, rep [npad, 2] and Z written once; 206 flops a point."""
+    nbytes = 16 * grid * grid + 8 * n + 16 + 8 * npad + 4
+    flops = GRID_INTERPOLATE_FLOPS_PER_POINT * n
+    return {**bound(nbytes, flops), "bytes": nbytes, "flops": flops}
 
 
 def sfu_floor_ms(n: int, sms: int, clock_hz: float) -> float:
@@ -1047,13 +1089,30 @@ def large_path(tsne_kernels, iters: int, k: int = 16, rows: int = 1000,
             "launches": launches, "kl": float(ce.last_kl)}
 
 
+def fullest_cell(y, n: int, grid: int) -> int:
+    """The most points in one base cell of the grid tier's deposit at the
+    layout y [Npad, 2] on a grid x grid grid."""
+    import torch
+    from sph_tpu_torch.ops import tsne_grid as G
+    lo, h = G.grid_box(y, n, grid)
+    return int(torch.bincount(G.base_cells(G.grid_coords(y[:n], lo, h),
+                                           grid)).max())
+
+
+def launch_diff(after: dict, before: dict) -> dict:
+    return {name: after[name] - before[name] for name in after}
+
+
 def grid_path(tsne_kernels, graph: dict, iters: int,
-              kl_at=(0, 250, 1000)) -> dict:
+              kl_at=(0, 250, 1000), keep_at: int = GRID_LAYOUT_AT) -> dict:
     """t-SNE from `graph` on the default tier (the grid above 32768 points)
     through ComputeEmbedding, with the KL at the iterations `kl_at` (chunk
     ends) and at the end.  Kernel counts are set to 0 just before and read
     just after; the seconds of the KLs taken on the way are kept apart
-    from the iterations'."""
+    from the iterations', and so are their launches: those of each KL on
+    the way, and the final KL's, counted as one of those.  Also the points
+    in the fullest base cell after the first chunk on each grid size and
+    at the end, and the layout after iteration `keep_at` with its grid."""
     import torch
     import sph_tpu_torch as T
     k = graph["idx"].shape[1]
@@ -1061,12 +1120,21 @@ def grid_path(tsne_kernels, graph: dict, iters: int,
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
     ce = T.ComputeEmbedding(tsne_settings(iters, k), device=DEV)
-    kls, kl_seconds = {}, [0.0]
+    kls, kl_seconds, kl_launches, fullest, kept = {}, [0.0], [], [], {}
 
     def progress(comp):
-        if comp.current_iteration in kl_at:
+        it = comp.current_iteration
+        if it > 0 and (not fullest or fullest[-1][1] != comp._grid):
+            fullest.append([it, comp._grid,
+                            fullest_cell(comp._y, comp._n, comp._grid)])
+        if it == keep_at:
+            kept.update(y=comp._y.clone(), grid=comp._grid, iteration=it)
+        if it in kl_at:
             t = time.perf_counter()
-            kls[comp.current_iteration] = comp.kl_divergence()
+            before = read_launches(tsne_kernels)
+            kls[it] = comp.kl_divergence()
+            kl_launches.append(launch_diff(read_launches(tsne_kernels),
+                                           before))
             kl_seconds[0] += time.perf_counter() - t
 
     with env(**{name: None for name in TSNE_SWITCHES}):
@@ -1076,11 +1144,48 @@ def grid_path(tsne_kernels, graph: dict, iters: int,
     peak = (torch.cuda.max_memory_allocated() if DEV == "cuda"
             else "not measured")
     kls[iters] = float(ce.last_kl)
+    comp = ce.last_computation
+    fullest.append([iters, comp._grid, fullest_cell(comp._y, comp._n,
+                                                    comp._grid)])
     seconds = {"p_and_set_up": ce.seconds["set_up"],
                "tsne": ce.seconds["iterations"] - kl_seconds[0],
                "kl_on_the_way": kl_seconds[0], "kl": ce.seconds["kl"]}
     return {"emb": emb, "ce": ce, "kls": kls, "seconds": seconds,
-            "launches": launches, "peak_memory_bytes": peak}
+            "launches": launches, "kl_launches": kl_launches,
+            "iteration_launches": grid_iteration_launches(launches,
+                                                          kl_launches),
+            "fullest_cell_by_grid": fullest, "kept_layout": kept,
+            "peak_memory_bytes": peak}
+
+
+def grid_iteration_launches(launches: dict, kl_launches: list) -> dict:
+    """The launches of a grid-tier run's iterations: the run's less its
+    KLs' (those on the way, and the final one, which launches what each of
+    them launched).  Raises if the KLs on the way launched differently."""
+    if any(d != kl_launches[0] for d in kl_launches):
+        raise AssertionError(f"the grid tier's KLs launched differently: "
+                             f"{kl_launches}")
+    per_kl = kl_launches[0] if kl_launches else {n: 0 for n in launches}
+    return {name: launches[name] - (len(kl_launches) + 1) * per_kl[name]
+            for name in launches}
+
+
+def grid_launch_gate(iteration_launches: dict, kl_launches: list,
+                     iters: int, name: str = "large_grid") -> None:
+    """The grid tier's iterations launch tsne_attraction, grid_deposit and
+    grid_interpolate once each an iteration and no other kernel; each KL
+    launches grid_deposit and grid_interpolate once (its Z) and nothing
+    else."""
+    want = {"tsne_attraction": iters, "grid_deposit": iters,
+            "grid_interpolate": iters}
+    got = {k: v for k, v in iteration_launches.items() if v}
+    if got != want:
+        raise AssertionError(f"{name}: the iterations launched {got}, not "
+                             f"{want}")
+    for d in kl_launches:
+        if {k: v for k, v in d.items() if v} != {"grid_deposit": 1,
+                                                 "grid_interpolate": 1}:
+            raise AssertionError(f"{name}: a KL launched {d}")
 
 
 def grid_sizes(history) -> list:
@@ -1112,10 +1217,10 @@ def grid_split(comp, calls: int = 10) -> dict:
     """Milliseconds of one grid-tier iteration by part at the computation's
     layout, CUDA events: the attraction as _forces calls it (the packed
     table and the tsne_attraction kernel), the same unpacked, the packing
-    alone, the box and taps, the deposit (sorted segment sums), the FFT
-    convolution, the interpolation (gather), the update, and the whole
-    step; and the points in the fullest base cell.  The state is put back
-    afterwards."""
+    alone, the box, the deposit (grid_deposit: its keys and sort, timed
+    alone too, and its kernel), the FFT convolution, the interpolation
+    (grid_interpolate), the update, and the whole step; and the points in
+    the fullest base cell.  The state is put back afterwards."""
     import torch
     from sph_tpu_torch.models.tsne import attractive_forces
     from sph_tpu_torch.ops import tsne_grid as G
@@ -1123,8 +1228,7 @@ def grid_split(comp, calls: int = 10) -> dict:
     y, n, g = comp._y, comp._n, comp._grid
     lo, h = G.grid_box(y, n, g)
     yv = y[:n]
-    cells, wx, wy = G.grid_taps(yv, lo, h, g)
-    charges = G.deposit_charges(yv, cells, wx, wy, g)
+    charges = G.grid_deposit(yv, lo, h, g)
     fields = G.field_grids(charges, h, g)
     state = (comp._y, comp._vel, comp._gain, comp._iteration)
     forces = comp._forces()
@@ -1140,19 +1244,111 @@ def grid_split(comp, calls: int = 10) -> dict:
         "attraction_unpacked": cuda_ms(lambda: attractive_forces(
             y, comp._p_idx32, comp._p_val), calls, 2),
         "pack": cuda_ms(lambda: pack_positions(y[:, 0], y[:, 1]), calls, 2),
-        "box_and_taps": cuda_ms(lambda: G.grid_taps(
-            yv, *G.grid_box(y, n, g), g), calls, 2),
-        "deposit": cuda_ms(lambda: G.deposit_charges(yv, cells, wx, wy, g),
-                           calls, 2),
+        "box": cuda_ms(lambda: G.grid_box(y, n, g), calls, 2),
+        "deposit": cuda_ms(lambda: G.grid_deposit(yv, lo, h, g), calls, 2),
+        "deposit_keys_and_sort": cuda_ms(lambda: torch.sort(G.base_cells(
+            G.grid_coords(yv, lo, h), g), stable=True), calls, 2),
         "fft": cuda_ms(lambda: G.field_grids(charges, h, g), calls, 2),
-        "interpolation": cuda_ms(lambda: G.interpolate_fields(
-            fields, cells, wx, wy), calls, 2),
+        "interpolation": cuda_ms(lambda: G.grid_interpolate(
+            fields, y, n, lo, h), calls, 2),
         "update": cuda_ms(update, calls, 2)}
+    ms["deposit_kernel"] = ms["deposit"] - ms["deposit_keys_and_sort"]
+    ms["box_deposit_interpolation"] = (ms["box"] + ms["deposit"]
+                                       + ms["interpolation"])
     ms["step"] = cuda_ms(comp._step, calls, 2)
     comp._y, comp._vel, comp._gain, comp._iteration = state
-    # the deposit sums each base cell's points in sequence
-    ms["points_in_fullest_cell"] = int(torch.bincount(cells[:, 0]).max())
+    ms["points_in_fullest_cell"] = fullest_cell(y, n, g)
     return ms
+
+
+def check_grid_kernels(y, n: int, grid: int, label: str,
+                       calls: int = GRID_KERNEL_CALLS,
+                       twin_calls: int = GRID_TWIN_CALLS) -> tuple:
+    """grid_deposit and grid_interpolate against their twins at the layout
+    y [Npad, 2] on a grid x grid grid: each kernel's result bit-equal to
+    its twin's on the same inputs and two calls bit-equal (raises
+    otherwise); with calls > 0, ms a call of each kernel's wrapper and of
+    its twin (CUDA events), each against its bound.  Returns the two
+    kernel_vs_twin lines (deposit, interpolation)."""
+    import torch
+    from sph_tpu_torch.ops import tsne_grid as G
+    npad = y.shape[0]
+    lo, h = G.grid_box(y, n, grid)
+    yv = y[:n]
+    dep = G.grid_deposit(yv, lo, h, grid)
+    dep2 = G.grid_deposit(yv, lo, h, grid)
+    dep_ref = G.grid_deposit_reference(yv, lo, h, grid)
+    fields = G.field_grids(dep_ref, h, grid)
+    got = G.grid_interpolate(fields, y, n, lo, h)
+    again = G.grid_interpolate(fields, y, n, lo, h)
+    ref = G.grid_interpolate_reference(fields, y, n, lo, h)
+    sync()
+    name = f"{label} (n={n}, G={grid})"
+    if not torch.equal(dep, dep_ref):
+        raise AssertionError(f"grid_deposit {name}: differs from its twin by"
+                             f" {float((dep - dep_ref).abs().max())}")
+    if not torch.equal(dep, dep2):
+        raise AssertionError(f"grid_deposit {name}: two calls differ")
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError(f"grid_interpolate {name}: differs from its "
+                             f"twin by {float((got[0] - ref[0]).abs().max())}"
+                             f" (rep), {float(got[1])} vs {float(ref[1])} "
+                             "(Z)")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"grid_interpolate {name}: two calls differ")
+    if bool((got[0][n:] != 0).any()):
+        raise AssertionError(f"grid_interpolate {name}: pad rows are not 0")
+    common = {"path_shape": label, "n": n, "npad": npad, "grid": grid,
+              "bits_equal_twin": True, "bits_equal_two_calls": True,
+              "max_abs_err": 0.0}
+    deposit = {**common, "points_in_fullest_cell": fullest_cell(y, n, grid),
+               "dense_points": G.DEPOSIT_DENSE_POINTS,
+               **grid_deposit_bound(n, grid)}
+    interp = {**common, **grid_interpolate_bound(n, npad, grid)}
+    if calls:
+        for line, fn, twin in (
+                (deposit, lambda: G.grid_deposit(yv, lo, h, grid),
+                 lambda: G.grid_deposit_reference(yv, lo, h, grid)),
+                (interp, lambda: G.grid_interpolate(fields, y, n, lo, h),
+                 lambda: G.grid_interpolate_reference(fields, y, n, lo,
+                                                      h))):
+            line["ms"] = cuda_ms(fn, calls, 3)
+            line["plain_ms"] = cuda_ms(twin, twin_calls, 1)
+            line["calls_timed"] = calls
+            line["plain_calls_timed"] = twin_calls
+            line["share_of_bound"] = line["bound_ms"] / line["ms"]
+        deposit["keys_and_sort_ms"] = cuda_ms(lambda: torch.sort(
+            G.base_cells(G.grid_coords(yv, lo, h), grid), stable=True),
+            calls, 3)
+    return deposit, interp
+
+
+def grid_kernel_line(name: str, checks: list, launches_by_path: list) -> dict:
+    """The kernels line's entry of grid_deposit or grid_interpolate from
+    ``check_grid_kernels``' lines (the first, the 1M run's final layout,
+    gives ms, twin ms and bound) and the launches of each path (the first,
+    the 1M run's iterations, gives launches)."""
+    i = ("grid_deposit", "grid_interpolate").index(name)
+    main = checks[0][i]
+    jax_fn = ("sph_tpu/ops/tsne_grid.py:104 deposit_charges",
+              "sph_tpu/ops/tsne_grid.py:149 interpolate_fields")[i]
+    return {
+        "name": name, "route": "cuda",
+        "source": f"sph_tpu_torch/csrc/{name}.cu",
+        "replaces": f"{jax_fn} (an XLA program: no pallas_call)",
+        "launches": launches_by_path[0]["launches"],
+        "max_abs_err": max(c[i]["max_abs_err"] for c in checks),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call takes the points and the "
+                        "box to the charges or the fields to the forces",
+        "shape": [main["n"], main["grid"]],
+        "launches_by_path": launches_by_path,
+        "at_shapes": [{k: c[i][k] for k in (
+            "path_shape", "n", "grid", "ms", "plain_ms", "bound_ms",
+            "bound_by", "share_of_bound", "max_abs_err")
+            if k in c[i]} for c in checks]}
 
 
 def scatter_repeatability(comp) -> dict:
@@ -1203,6 +1399,7 @@ def grid_vs_exact(tsne_kernels, rows: int = 256, cols: int = 256,
     out["kl_ratio"] = out["grid"]["kl_scored"] / out["exact"]["kl_scored"]
     out["grid"]["grid_sizes"] = grid_sizes(runs["grid"].grid_history)
     out["exact_computation"] = exact      # the sharded phase's P (not printed)
+    out["grid_computation"] = runs["grid"]   # its layout (not printed)
     return out
 
 
@@ -4731,6 +4928,13 @@ def sharded_gates(run: dict) -> None:
                 raise AssertionError(f"sharded {key} on {name} shards "
                                      f"launched tsne_attraction {got} times,"
                                      f" not {want}")
+        # each shard deposits its points and interpolates at them
+        for kernel in ("grid_deposit", "grid_interpolate"):
+            got = run["grid_tsne"][name]["launches"][kernel]
+            if got != want:
+                raise AssertionError(f"sharded_grid_tsne on {name} shards "
+                                     f"launched {kernel} {got} times, not "
+                                     f"{want}")
     u = run["umap"]
     edge = u["edge_tier"]["trustworthiness_k10"]
     for name in ("1", "2"):
@@ -5348,6 +5552,20 @@ def main() -> int:
         gcomp._y, gcomp._p_idx32, gcomp._p_val)}]
     emit({"phase": "kernel_vs_twin", "kernel": "tsne_attraction",
           **att_checks[-1]})
+    # grid_deposit and grid_interpolate at the final layout on its grid and
+    # at the layout of iteration GRID_LAYOUT_AT on its (the 128) grid,
+    # where the clusters crowd the cells
+    kept = grid["kept_layout"]
+    grid_checks = [check_grid_kernels(gcomp._y, n_large, gcomp._grid,
+                                      "large_grid_final"),
+                   check_grid_kernels(kept["y"], n_large, kept["grid"],
+                                      f"large_grid_iteration_"
+                                      f"{kept['iteration']}")]
+    del kept["y"]
+    for dep, interp in grid_checks:
+        emit({"phase": "kernel_vs_twin", "kernel": "grid_deposit", **dep})
+        emit({"phase": "kernel_vs_twin", "kernel": "grid_interpolate",
+              **interp})
     kls = grid["kls"]
     emit({"phase": "large_grid", "n": n_large, "tsne_tier": gcomp.tier,
           "tsne_iterations": GRID_ITERS, "seconds": grid["seconds"],
@@ -5355,6 +5573,7 @@ def main() -> int:
           "p_width": gcomp._p_val.shape[1],
           "grid_sizes": grid_sizes(gcomp.grid_history),
           "grid_picks": len(gcomp.grid_history),
+          "points_in_fullest_cell_by_grid": grid["fullest_cell_by_grid"],
           "repulsion_bound_at_last_grid": grid_repulsion_bound(
               n_large, gcomp._npad, gcomp.grid_history[-1][1]),
           "kl_at": {str(i): v for i, v in sorted(kls.items())},
@@ -5364,19 +5583,20 @@ def main() -> int:
           "scatter_repeatability": repeat,
           "peak_memory_bytes": grid["peak_memory_bytes"],
           "embedding_max_abs": float(np.abs(grid["emb"]).max()),
-          "launches": grid["launches"]})
+          "launches": grid["launches"],
+          "iteration_launches": grid["iteration_launches"],
+          "kl_launches_each": grid["kl_launches"][0],
+          "kls_taken": len(grid["kl_launches"]) + 1})
     grid_att_launches = grid["launches"]["tsne_attraction"]
+    grid_launches = grid["iteration_launches"]
+    grid_kl_each = grid["kl_launches"][0]
+    grid_kls = len(grid["kl_launches"]) + 1
     if not repeat["bits_equal"]:
         raise AssertionError(f"the grid tier's repulsion differs from call "
                              f"to call: {repeat}")
     if gcomp.tier != "grid":
         raise AssertionError(f"the 1M default took the {gcomp.tier} tier")
-    if not (grid["launches"]["tsne_attraction"] == GRID_ITERS
-            and grid["launches"]["tsne_forces_dense"] == 0
-            and grid["launches"]["tsne_repulsion"] == 0):
-        raise AssertionError(f"the grid tier's launches: {grid['launches']}"
-                             f" (tsne_attraction once an iteration, no "
-                             "other kernel)")
+    grid_launch_gate(grid_launches, grid["kl_launches"], GRID_ITERS)
     if not gcomp.attr_packed:
         raise AssertionError("the 1M grid tier did not pack its gathers")
     if not kls[GRID_ITERS] < kls[0]:
@@ -5454,7 +5674,8 @@ def main() -> int:
     # ---- the grid against the exact tier at 65536 points -----------------
     mid = grid_vs_exact(tsne_kernels, iters=MID_ITERS)
     emit({"phase": "grid_vs_exact",
-          **{k: v for k, v in mid.items() if k != "exact_computation"}})
+          **{k: v for k, v in mid.items()
+             if k not in ("exact_computation", "grid_computation")}})
     if mid["grid"]["tier"] != "grid" or mid["exact"]["tier"] != "exact":
         raise AssertionError(f"65536 points took the {mid['grid']['tier']} "
                              f"and {mid['exact']['tier']} tiers")
@@ -5479,6 +5700,22 @@ def main() -> int:
     if not mid["kl_ratio"] <= KL_RATIO_MAX:
         raise AssertionError(f"KL_grid / KL_exact = {mid['kl_ratio']} > "
                              f"{KL_RATIO_MAX} at 65536 points")
+    for tier in ("grid", "exact"):
+        want = MID_ITERS + 1 if tier == "grid" else 0   # the final KL's Z
+        for name in ("grid_deposit", "grid_interpolate"):
+            if mid[tier]["launches"][name] != want:
+                raise AssertionError(f"grid_vs_exact {tier}: {name} launched"
+                                     f" {mid[tier]['launches'][name]} times,"
+                                     f" not {want}")
+    # both grid kernels at the grid tier's final layout there
+    gx = mid.pop("grid_computation")
+    grid_checks.append(check_grid_kernels(gx._y, gx._n, gx._grid,
+                                          "grid_vs_exact_final"))
+    del gx
+    emit({"phase": "kernel_vs_twin", "kernel": "grid_deposit",
+          **grid_checks[-1][0]})
+    emit({"phase": "kernel_vs_twin", "kernel": "grid_interpolate",
+          **grid_checks[-1][1]})
 
     # ---- BASELINE config 5: 16 scenes batched on the card ---------------
     with open(os.path.join(REPO, "docs",
@@ -5642,6 +5879,19 @@ def main() -> int:
     relax_main_launches = sum(geo["relax_launches"][name] for name in (
         "stage2_hierarchy", "stage3_level_similarities"))
     rep_timed = [c for c in rep_checks if "ms" in c]
+    grid_paths = {name: [
+        {"path": "large_grid", "n": n_large,
+         "launches": grid_launches[name]},
+        {"path": "large_grid_kls", "n": n_large, "kls": grid_kls,
+         "launches": grid_kls * grid_kl_each[name]},
+        {"path": "large_grid_z_gap", "n": n_large,
+         "launches": gap["launches"][name]},
+        {"path": "grid_vs_exact_grid", "n": mid["n"],
+         "launches": mid["grid"]["launches"][name]},
+        *({"path": "sharded_grid_tsne", "n": sh_n, "shards": int(shards),
+           "launches": sh["grid_tsne"][shards]["launches"][name]}
+          for shards in ("1", "2"))]
+        for name in ("grid_deposit", "grid_interpolate")}
     emit({"kernels": [{
         "name": "tsne_forces_dense", "route": "cuda",
         "source": "sph_tpu_torch/csrc/tsne_forces_dense.cu",
@@ -5770,7 +6020,9 @@ def main() -> int:
             "packed": m == "packed", "ms": c[m]["ms"],
             "plain_ms": c[m]["plain_ms"], "bound_ms": c[m]["bound_ms"],
             "bound_by": c[m]["bound_by"], "max_abs_err": c[m]["max_abs_err"]}
-            for c in att_checks for m in ("unpacked", "packed")]}, {
+            for c in att_checks for m in ("unpacked", "packed")]},
+        *(grid_kernel_line(name, grid_checks, grid_paths[name])
+          for name in ("grid_deposit", "grid_interpolate")), {
         # the JAX package's XLA Bellman-Ford (no pallas_call); its main
         # path is rgb_geo's stages 2-3, one launch a sweep
         "name": "bellman_ford_relax", "route": "cuda",

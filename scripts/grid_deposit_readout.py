@@ -6,17 +6,22 @@
 At 10^6 points on four synthetic layouts (a 16-cluster mixture spanning
 +-35, as the 1M t-SNE ends; a wide and a narrow Gaussian; a crowded one,
 most points within 0.05 of 16 centres) and grid sizes 128-1024, times
-three designs with CUDA events and checks that five calls
-give the same bits:
+four designs with CUDA events and checks that five calls give the same
+bits:
 
-- ``port``: sph_tpu_torch.ops.tsne_grid.deposit_charges (a sort by base
-  cell, the inputs gathered once in that order, segment sums in pieces,
-  then fold), with its steps timed;
+- ``kernel``: sph_tpu_torch.ops.tsne_grid.grid_deposit, the CUDA kernel
+  (csrc/grid_deposit.cu) after the keys and the stable sort, timed also
+  with DEPOSIT_DENSE_POINTS set to each of DENSE (the cells above it are
+  summed in pieces), with its keys and sort alone;
+- ``twin``: its plain twin's deposit from the taps (deposit_charges: a
+  sort by base cell, the inputs gathered once in that order, segment
+  sums in pieces, then 16 shifted adds), which the kernel equals bit for
+  bit;
 - ``index_add``: one index_add_ of the 16 c weighted charges (the deposit
-  before it, which adds with atomics);
+  before the twin, which adds with atomics);
 - ``segment_shifted_adds``: one segment sum a cell over charges gathered
-  after they are built, added onto the grid as 16 shifted planes read
-  through a strided view (the first fixed-order design, slower).
+  after they are built, added onto the grid as 16 shifted planes (the
+  first fixed-order design, slower).
 
 Prints one JSON line per (layout, grid) and the card's nvidia-smi line;
 writes them to --out (default out/grid_deposit_readout.jsonl).
@@ -81,21 +86,36 @@ def segment_shifted_adds(y, cells, wx, wy, grid):
     return out[:, :grid, :grid]
 
 
-def port_steps(y, cells, wx, wy, grid, ms) -> dict:
-    """Milliseconds of the port's deposit by step: the sort alone, the
-    per-cell sums (sort included), the fold."""
+DENSE = (0, 4, 16, 64)
+
+
+def kernel_steps(y, lo, h, grid, ms) -> dict:
+    """Milliseconds of grid_deposit's keys and stable sort alone, of the
+    whole call at each DENSE threshold (each bit-equal to the default's),
+    and the cells' load."""
     import torch
     from sph_tpu_torch.ops import tsne_grid as G
-    base = cells[:, 0].to(torch.int32)
-    sums = G.cell_sums(y, cells, wx, wy, grid)
+    base = G.base_cells(G.grid_coords(y, lo, h), grid)
     counts = torch.bincount(base, minlength=grid * grid)
-    return {
-        "sort": ms(lambda: torch.sort(base, stable=True)),
-        "cell_sums": ms(lambda: G.cell_sums(y, cells, wx, wy, grid)),
-        "fold": ms(lambda: torch.nn.functional.fold(
-            sums.T[None], (grid + 3, grid + 3), kernel_size=4)),
-        "points_in_fullest_cell": int(counts.max()),
-        "occupied_cells": int((counts > 0).sum())}
+    want = G.grid_deposit(y, lo, h, grid)
+    out = {"keys_and_sort": ms(lambda: torch.sort(G.base_cells(
+        G.grid_coords(y, lo, h), grid), stable=True))}
+    default = G.DEPOSIT_DENSE_POINTS
+    try:
+        for dense in DENSE:
+            G.DEPOSIT_DENSE_POINTS = dense
+            out[f"dense_{dense}"] = ms(lambda: G.grid_deposit(y, lo, h,
+                                                              grid))
+            if not torch.equal(G.grid_deposit(y, lo, h, grid), want):
+                raise AssertionError(f"grid_deposit: dense {dense} gives "
+                                     "other bits")
+    finally:
+        G.DEPOSIT_DENSE_POINTS = default
+    out["points_in_fullest_cell"] = int(counts.max())
+    out["occupied_cells"] = int((counts > 0).sum())
+    out["cells_above_default_dense"] = int(
+        (counts > G.DEPOSIT_DENSE_POINTS).sum())
+    return out
 
 
 def layouts(seed: int = 0) -> dict:
@@ -142,10 +162,12 @@ def main() -> int:
         cells, wx, wy = G.grid_taps(y, lo, h, grid)
         ref = index_add(y, cells, wx, wy, grid)
         row = {"layout": name, "grid": grid,
-               "port_steps_ms": port_steps(y, cells, wx, wy, grid, ms)}
-        for design, fn in (("port", G.deposit_charges),
-                           ("index_add", index_add),
-                           ("segment_shifted_adds", segment_shifted_adds)):
+               "kernel_steps_ms": kernel_steps(y, lo, h, grid, ms)}
+        for design, fn in (
+                ("kernel", lambda *_: G.grid_deposit(y, lo, h, grid)),
+                ("twin", G.deposit_charges),
+                ("index_add", index_add),
+                ("segment_shifted_adds", segment_shifted_adds)):
             outs = [fn(y, cells, wx, wy, grid) for _ in range(5)]
             row[design] = {
                 "ms": ms(lambda: fn(y, cells, wx, wy, grid)),
@@ -153,6 +175,12 @@ def main() -> int:
                                           for o in outs[1:]),
                 "max_rel_vs_index_add": float(
                     (outs[0] - ref).abs().max() / ref.abs().max())}
+        row["kernel"]["bits_equal_twin"] = bool(torch.equal(
+            G.grid_deposit(y, lo, h, grid),
+            G.deposit_charges(y, cells, wx, wy, grid)))
+        if not row["kernel"]["bits_equal_twin"]:
+            raise AssertionError(f"grid_deposit differs from its twin at "
+                                 f"{name}, G = {grid}")
         emit(row)
         del y, cells, wx, wy, ref
     with open(args.out, "w") as f:

@@ -5,6 +5,7 @@ content-hashed shared library in ``_build/`` at first use (all missing ones
 at once, one nvcc each), with a plain C entry point ``<name>_launch`` that
 is loaded with ctypes and returns the launch's CUDA error.  The wrappers
 live beside their twins: the t-SNE kernels in ``ops/tsne_kernels.py``, the
+grid tier's deposit and interpolation in ``ops/tsne_grid.py``, the
 Bellman-Ford relax in ``ops/shortest_path.py``, the walk rows' sort in
 ``ops/walk_sort.py``, the merges' run sums in ``ops/device_merge.py``.
 """
@@ -34,6 +35,10 @@ _SIGNATURES = {
     "tsne_repulsion": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "tsne_attraction": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _P,
                         _P],
+    "grid_deposit": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                     _P],
+    "grid_interpolate": [_P, ctypes.c_longlong, ctypes.c_longlong, _P, _P,
+                         _P, _I, _P, _P, _P],
     "bellman_ford_relax": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _I, _P],
     "walk_row_sort": [_P, ctypes.c_longlong, _I, _P, _P, _P, _P],

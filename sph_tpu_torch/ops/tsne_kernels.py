@@ -13,7 +13,16 @@ and the JAX package's XLA attraction over P's support
 
 - ``tsne_attraction`` (``csrc/tsne_attraction.cu``): the sparse
   attraction, float32 or from the u16-packed table, every iteration of the
-  grid and exact tiers and of the sharded steps.
+  grid and exact tiers and of the sharded steps;
+
+and the point work of the JAX package's grid repulsion
+(sph_tpu/ops/tsne_grid.py ``deposit_charges`` and ``interpolate_fields``,
+no Pallas source), whose wrappers live in ops/tsne_grid.py and are
+re-exported here:
+
+- ``grid_deposit`` (``csrc/grid_deposit.cu``) and ``grid_interpolate``
+  (``csrc/grid_interpolate.cu``): the charges onto the grid and the fields
+  back at the points, every iteration of the grid tier.
 
 Each ``.cu`` under ``csrc/`` is compiled with nvcc for sm_90a into its own
 content-hashed shared library in ``_build/`` (``ops/cuda_build.py``: all
@@ -37,8 +46,9 @@ import torch
 from .cuda_build import (NVCC_FLAGS, _P, _launch, _library,  # noqa: F401
                          _nvcc, build, library_path, sm_count, source)
 
-# the t-SNE kernels, each with its wrapper below
-KERNELS = ("tsne_forces_dense", "tsne_repulsion", "tsne_attraction")
+# the t-SNE kernels, each with its wrapper below or in ops/tsne_grid.py
+KERNELS = ("tsne_forces_dense", "tsne_repulsion", "tsne_attraction",
+           "grid_deposit", "grid_interpolate")
 
 
 def _check_y(name: str, y: torch.Tensor, n_valid: int):
@@ -618,3 +628,6 @@ def tsne_attraction_reference(y: torch.Tensor, p_idx: torch.Tensor,
         out[r0:r1, 1] = (coef * d1).sum(1)
     return out
 
+
+# the grid tier's kernels, whose wrappers and twins live beside the FFT
+from .tsne_grid import grid_deposit, grid_interpolate  # noqa: E402,F401

@@ -42,8 +42,8 @@ from ..models.tsne import TsneParameters, attractive_forces, \
 from ..ops.knn import KNN_MEMORY_BUDGET, _bottom_k
 from ..ops.numerics import (_fma, flush_subnormals, pow, row_dot,
                             row_sum, sqrt)
-from ..ops.tsne_grid import (_BIG, _MARGIN, deposit_charges, field_grids,
-                             grid_taps, interpolate_fields, pick_grid_size)
+from ..ops.tsne_grid import (_BIG, _MARGIN, field_grids, grid_deposit,
+                             grid_interpolate, pick_grid_size)
 from ..ops.tsne_kernels import tsne_repulsion_rows
 from .mesh import MeshLike, as_mesh
 
@@ -263,9 +263,10 @@ def make_sharded_grid_tsne_step(mesh: MeshLike = None, grid: int = 128):
     make_sharded_grid_tsne_step), with ``step``'s arguments and results.
 
     The box is the min and max of the valid rows over shards; each shard
-    deposits its valid points' charges (ops/tsne_grid.py's fixed-order
-    deposit), the grids are summed in shard order, the fields are convolved
-    once and each shard interpolates its own points."""
+    deposits its valid points' charges (``grid_deposit``, the fixed-order
+    deposit: the kernel on a card), the grids are summed in shard order,
+    the fields are convolved once and each shard interpolates its own
+    points (``grid_interpolate``), its phi_z sums added in shard order."""
     m = as_mesh(mesh)
     usable = float(grid - 2 * _MARGIN - 1)
 
@@ -284,25 +285,21 @@ def make_sharded_grid_tsne_step(mesh: MeshLike = None, grid: int = 128):
         lo = torch.stack([v.to(dev0) for v in los]).amin(0)
         hi = torch.stack([v.to(dev0) for v in his]).amax(0)
         h = torch.clamp((hi - lo) / usable, min=1e-6)
-        taps, charges = [], []
+        charges = []
         for s, dev in enumerate(m.devices):
-            yv = y[s][:live[s]]
-            cells, wx, wy = grid_taps(yv, lo.to(dev), h.to(dev), grid)
-            taps.append((cells, wx, wy))
             if live[s]:
-                charges.append(deposit_charges(yv, cells, wx, wy, grid))
+                charges.append(grid_deposit(y[s][:live[s]], lo.to(dev),
+                                            h.to(dev), grid))
         total = _sum_in_order(charges, dev0)
         fields_on: dict = {}
         reps, zs = [], []
         for s, dev in enumerate(m.devices):
             if dev not in fields_on:
                 fields_on[dev] = field_grids(total.to(dev), h.to(dev), grid)
-            f = interpolate_fields(fields_on[dev], *taps[s])
-            rep = torch.zeros_like(y[s])
-            yv = y[s][:live[s]]
-            rep[:live[s]] = yv * f[:, 0:1] - f[:, 1:3]
+            rep, z_s = grid_interpolate(fields_on[dev], y[s], live[s],
+                                        lo.to(dev), h.to(dev))
             reps.append(rep)
-            zs.append(f[:, 3].sum())
+            zs.append(z_s)
         z = torch.clamp(_sum_in_order(zs, dev0) - float(n_valid), min=1e-12)
         out_y, out_v, out_g, oks = [], [], [], []
         for s, dev in enumerate(m.devices):

@@ -297,12 +297,16 @@ def test_forces_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_kernel_source_notes_the_tpu_kernel_it_replaces():
-    """Each source names what it replaces: the two Pallas kernels, and for
-    tsne_attraction the JAX package's XLA attraction."""
+    """Each source names what it replaces: the two Pallas kernels, for
+    tsne_attraction the JAX package's XLA attraction, and for the grid
+    kernels its grid deposit and interpolation."""
     replaces = {"tsne_forces_dense": "sph_tpu/ops/pallas/tsne_kernels.py",
                 "tsne_repulsion": "sph_tpu/ops/pallas/tsne_kernels.py",
                 "tsne_attraction":
-                    "sph_tpu/models/tsne.py::_attractive_forces"}
+                    "sph_tpu/models/tsne.py::_attractive_forces",
+                "grid_deposit": "sph_tpu/ops/tsne_grid.py::deposit_charges",
+                "grid_interpolate":
+                    "sph_tpu/ops/tsne_grid.py::interpolate_fields"}
     assert tsne_kernels.KERNELS == tuple(replaces)
     for name in tsne_kernels.KERNELS:
         with open(tsne_kernels.source(name)) as f:

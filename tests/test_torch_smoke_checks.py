@@ -47,7 +47,9 @@ def test_large_path_runs_the_exact_tier_and_cuts_p(small_path):
                                           "tsne", "kl"}
     assert small_path["launches"] == {"tsne_forces_dense": 0,
                                       "tsne_repulsion": 0,
-                                      "tsne_attraction": 0}  # CPU: twins
+                                      "tsne_attraction": 0,
+                                      "grid_deposit": 0,
+                                      "grid_interpolate": 0}  # CPU: twins
     assert small_path["emb"].shape == (1200, 2)
     assert np.all(np.isfinite(small_path["emb"]))
 
@@ -121,13 +123,24 @@ def test_grid_path_takes_the_default_grid_tier_and_its_kls(
         small_grid_default):
     small_grid_default.setenv("SPH_TSNE_GRID", "0")     # unset by the path
     graph = chip_smoke.scene_graph(20, 30)
-    out = chip_smoke.grid_path(tsne_kernels, graph, 60, kl_at=(0, 50))
+    out = chip_smoke.grid_path(tsne_kernels, graph, 60, kl_at=(0, 50),
+                               keep_at=50)
     comp = out["ce"].last_computation
     assert comp.tier == "grid" and sorted(out["kls"]) == [0, 50, 60]
+    # the KLs' launches counted apart (the twins launch nothing here)
+    assert len(out["kl_launches"]) == 2
+    assert out["iteration_launches"] == out["launches"]
+    fullest = out["fullest_cell_by_grid"]
+    assert [f[:2] for f in fullest] == [[50, 128], [60, 128]]
+    assert all(1 <= f[2] <= 600 for f in fullest)
+    assert out["kept_layout"]["grid"] == 128
+    assert out["kept_layout"]["iteration"] == 50
+    assert tuple(out["kept_layout"]["y"].shape) == tuple(comp._y.shape)
     assert comp.attr_packed                   # the default: the u16 table
     assert out["kls"][60] < out["kls"][0]
     assert out["launches"] == {"tsne_forces_dense": 0, "tsne_repulsion": 0,
-                               "tsne_attraction": 0}
+                               "tsne_attraction": 0, "grid_deposit": 0,
+                               "grid_interpolate": 0}
     assert chip_smoke.grid_sizes(comp.grid_history) == [[0, 128]]
     gap = chip_smoke.z_gap(comp)
     assert gap["z_rel_gap"] <= chip_smoke.Z_GAP_MAX
@@ -138,6 +151,84 @@ def test_grid_path_takes_the_default_grid_tier_and_its_kls(
     assert abs(kl_exact_z - direct) <= 1e-5 * direct
     repeat = chip_smoke.scatter_repeatability(comp)
     assert repeat["bits_equal"] and repeat["z_rel_diff"] == 0
+
+
+def test_grid_kernel_checks_pass_and_catch_a_wrong_result(monkeypatch):
+    """check_grid_kernels on the CPU, where the wrappers take their twins:
+    the lines pass; a deposit or an interpolation that moves one value, or
+    writes a pad row, is caught."""
+    from sph_tpu_torch.ops import tsne_grid as G
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    n, npad = 3000, 3072
+    y = torch.from_numpy(chip_smoke.repulsion_layout(n, npad, seed=4))
+    dep, interp = chip_smoke.check_grid_kernels(y, n, 128, "small", calls=0)
+    assert dep["bits_equal_twin"] and interp["bits_equal_two_calls"]
+    assert dep["max_abs_err"] == interp["max_abs_err"] == 0.0
+    assert dep["points_in_fullest_cell"] == chip_smoke.fullest_cell(y, n,
+                                                                    128)
+    assert dep["bytes"] == chip_smoke.grid_deposit_bound(n, 128)["bytes"]
+    assert interp["bytes"] == chip_smoke.grid_interpolate_bound(
+        n, npad, 128)["bytes"]
+    for line in (dep, interp):
+        line.update(ms=2.0, plain_ms=4.0, share_of_bound=0.5)
+    entry = chip_smoke.grid_kernel_line(
+        "grid_interpolate", [(dep, interp)],
+        [{"path": "large_grid", "launches": 7}])
+    assert entry["launches"] == 7 and entry["ms"] == 2.0
+    assert entry["source"] == "sph_tpu_torch/csrc/grid_interpolate.cu"
+    assert entry["replaces"].startswith("sph_tpu/ops/tsne_grid.py:149")
+    assert entry["library_ms"] is None and entry["shape"] == [n, 128]
+    real_dep, real_interp = G.grid_deposit, G.grid_interpolate
+
+    def moved_deposit(*a, **kw):
+        out = real_dep(*a, **kw).clone()
+        out[1, 64, 64] += 1e-3
+        return out
+
+    def pad_interpolate(*a, **kw):
+        rep, z = real_interp(*a, **kw)
+        rep = rep.clone()
+        rep[-1] = 1.0
+        return rep, z
+
+    for name, fake, match in (("grid_deposit", moved_deposit, "twin"),
+                              ("grid_interpolate", pad_interpolate,
+                               "twin")):
+        with monkeypatch.context() as m:
+            m.setattr(G, name, fake)
+            with pytest.raises(AssertionError, match=match):
+                chip_smoke.check_grid_kernels(y, n, 128, "small", calls=0)
+
+
+def test_grid_launch_gate_counts_the_kls_apart():
+    kl = {"tsne_forces_dense": 0, "tsne_repulsion": 0, "tsne_attraction": 0,
+          "grid_deposit": 1, "grid_interpolate": 1}
+    total = {**kl, "tsne_attraction": 100, "grid_deposit": 104,
+             "grid_interpolate": 104}
+    it = chip_smoke.grid_iteration_launches(total, [kl] * 3)
+    assert it == {**kl, "tsne_attraction": 100, "grid_deposit": 100,
+                  "grid_interpolate": 100}
+    chip_smoke.grid_launch_gate(it, [kl] * 3, 100)
+    for bad in ({**it, "tsne_repulsion": 1}, {**it, "grid_deposit": 99},
+                {**it, "grid_interpolate": 0}):
+        with pytest.raises(AssertionError, match="iterations launched"):
+            chip_smoke.grid_launch_gate(bad, [kl] * 3, 100)
+    with pytest.raises(AssertionError, match="a KL launched"):
+        chip_smoke.grid_launch_gate(it, [{**kl, "tsne_repulsion": 1}], 100)
+    with pytest.raises(AssertionError, match="KLs launched differently"):
+        chip_smoke.grid_iteration_launches(total, [kl, {**kl,
+                                                        "grid_deposit": 2}])
+
+
+def test_grid_kernel_bounds_count_each_input_and_output_once():
+    dep = chip_smoke.grid_deposit_bound(10**6, 256)
+    assert dep["bytes"] == 8 * 10**6 + 16 + 12 * 256**2
+    assert dep["flops"] == 166 * 10**6 and dep["bound_by"] == "bytes"
+    assert abs(dep["bound_ms"] - dep["bytes"] / 3.35e12 * 1e3) < 1e-12
+    interp = chip_smoke.grid_interpolate_bound(10**6, 1_000_448, 256)
+    assert interp["bytes"] == (16 * 256**2 + 8 * 10**6 + 16
+                               + 8 * 1_000_448 + 4)
+    assert interp["flops"] == 206 * 10**6 and interp["bound_by"] == "bytes"
 
 
 def test_grid_vs_exact_scores_both_layouts_under_one_p(small_grid_default):
@@ -342,7 +433,8 @@ def test_scene_overlap_phase_small(monkeypatch):
         "0", "100", "50"]
     assert out["kl_at"]["100"] < out["kl_at"]["0"]
     assert out["launches"] == {"tsne_forces_dense": 0, "tsne_repulsion": 0,
-                               "tsne_attraction": 0}
+                               "tsne_attraction": 0, "grid_deposit": 0,
+                               "grid_interpolate": 0}
 
 
 def test_reference_kth_distances_equal_the_exact_kernel():
@@ -423,7 +515,8 @@ def test_salinas_euclid_phase_small(small_salinas):
         assert out["p"][level]["p_asymmetry"] == 0
         assert out["p"][level]["conditional_row_sum_err"] <= 1e-3
     assert out["launches"] == {"tsne_forces_dense": 0, "tsne_repulsion": 0,
-                               "tsne_attraction": 0}
+                               "tsne_attraction": 0, "grid_deposit": 0,
+                               "grid_interpolate": 0}
     assert out["umap"]["n"] == levels[1] and out["umap"]["embedding_finite"]
     assert set(out["seconds"]) >= {"stage1_knn", "stage2_hierarchy",
                                    "stage3_level_similarities"}

@@ -123,7 +123,8 @@ def test_eval_pines_umap_small(small):
     assert all(e["method"] == "umap" for e in out["embeddings"])
     assert 0.0 < out["level_1_trustworthiness_k10"] <= 1.0
     assert out["launches"] == {"tsne_forces_dense": 0, "tsne_repulsion": 0,
-                               "tsne_attraction": 0}
+                               "tsne_attraction": 0, "grid_deposit": 0,
+                               "grid_interpolate": 0}
 
 
 def test_eval_record_small(small):

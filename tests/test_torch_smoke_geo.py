@@ -90,7 +90,8 @@ def test_rgb_geo_phase_small(small_geo):
         assert sorted(run["kl_at"]) == ["0", str(ITERS)]
         assert out["p"][level]["conditional_row_sum_err"] <= 1e-3
     assert out["launches"] == {"tsne_forces_dense": 0, "tsne_repulsion": 0,
-                               "tsne_attraction": 0}
+                               "tsne_attraction": 0, "grid_deposit": 0,
+                               "grid_interpolate": 0}
     assert out["relax_launches"]["stage1_knn"] == 0
     for name in ("stage2_hierarchy", "stage3_level_similarities"):
         assert out["relax_launches"][name] == sum(

@@ -76,6 +76,14 @@ def small(tmp_path_factory):
             tsne_kernels.tsne_attraction.launches += 1
             return attraction_fn(*a, **kw)
 
+        def counted(fn, name):
+            def call(*a, **kw):
+                getattr(tsne_kernels, name).launches += 1
+                return fn(*a, **kw)
+            return call
+
+        for name in ("grid_deposit", "grid_interpolate"):
+            mp.setattr(sharded, name, counted(getattr(sharded, name), name))
         mp.setattr(sharded, "tsne_repulsion_rows", rows)
         mp.setattr(ttsne, "repulsive_forces", repulsion)
         mp.setattr(sharded, "attractive_forces", attraction)
@@ -188,6 +196,8 @@ def test_sharded_phase(small):
     sh = small["sh"]
     chip_smoke.sharded_gates(sh)
     assert sh["tsne"]["2"]["launches"]["tsne_repulsion"] == 200
+    assert sh["grid_tsne"]["2"]["launches"]["grid_deposit"] == 200
+    assert sh["grid_tsne"]["2"]["launches"]["grid_interpolate"] == 200
     assert sh["umap"]["edge_tier"]["bits_equal_across_runs"]
     bad = copy.deepcopy(sh)
     bad["tsne"]["kl_rel_gap_1_2"] = 0.05
