@@ -32,16 +32,18 @@ Phases, each printing one JSON line, and each raising on failure:
    order).  tsne_attraction is held
    at the P its paths give it (phases 12 and 15), bellman_ford_relax at
    rgb_geo's graphs (phase 9), walk_row_sort at eval_pines_walks'
-   level-0 visit record (phase 20), and merge_runs (the merges' run sums,
+   level-0 visit record (phase 20), and merge_runs (the sparse merges,
    ops/device_merge.py) at the merges the paths give it: Pines' level-0 ->
-   1 walk-row merge, again with a cap that bites and is not a power of two
-   (phase 4), salinas_walks' widest merge (phase 8) and eval_pines_walks'
-   first MERGE_DATA_NEW_WALKS min merge (phase 20); at each the kernel
-   against its twin over every parent range (bit-equal), both timed
-   beside the bytes bound and index_add_'s ms, and the whole device merge
-   (and its normalization) against the host path (download, C++ merge,
-   numpy, upload), bit-equal, both timed, with the device merge's peak
-   memory (whole, and in one parent range).  symmetrize_graph's device path
+   1 walk-row merge, again with a cap that bites and is not a power of
+   two, and the rows of Pines' level 2 into one parent, as a top merge
+   takes a whole level (phase 4), salinas_walks' widest merge (phase 8)
+   and eval_pines_walks' first MERGE_DATA_NEW_WALKS min merge (phase 20);
+   at each the kernel against its twin (bit-equal), both timed beside the
+   bytes bound and index_add_'s ms, the whole device merge (and its
+   normalization) against the host path (download, C++ merge, numpy,
+   upload), bit-equal, both timed, the device merge's peak memory, and
+   the merge by part (a merge_split line: CUDA events and the host
+   clock).  symmetrize_graph's device path
    is held against native.symmetrize on the Pines and Salinas kNN graphs,
    both timed.  grid_deposit and grid_interpolate are held at the 1M run's
    layouts (phase 12) and grid_vs_exact's (phase 15).
@@ -423,6 +425,8 @@ WALK_MAPS_EXCEPTIONS: dict = {}
 MERGE_CALLS = 20           # merge_runs calls timed at each merge shape
 MERGE_TWIN_CALLS = 2       # its twin's
 MERGE_PATH_CALLS = 2       # whole device-path merges timed (host clock)
+MERGE_SPLIT_CALLS = 5      # merges timed by part at each merge shape
+MERGE_WHOLE_LEVEL = 2      # the Pines merge whose level takes one parent
 MERGE_CAP_SHARE = 0.75     # the cap-biting merge: Pines' level-0 merge cut
                            # to this share of its width, made odd
 SYM_CALLS = 2              # symmetrizations timed on each path
@@ -3497,16 +3501,119 @@ def first_visit_record(twalks, rows: int, keep: dict):
         twalks.accumulate = inner
 
 
-def merge_runs_bound(entries: int, runs: int, children: int = 0,
-                     parents: int = 0) -> dict:
-    """merge_runs: each entry's float32 value read once (4 bytes); each
-    run's int64 start and int64 first key read and its row and column
-    (int64) and value (float32) written once (36 bytes), and the last run's
-    end (8); where the merge weights by size, each child's float32 weight
-    and each parent's int64 start read and its float32 weight written once
-    (4 and 12 bytes, and the last parent's end); one float add an entry."""
-    return bound(4 * entries + 36 * runs + 8 + 4 * children + 12 * parents
-                 + (8 if parents else 0), entries)
+def merge_runs_bound(rows: int, width: int, parents: int, out_width: int,
+                     weighted: bool) -> dict:
+    """merge_runs, the function the wrapper computes: each padded slot of
+    the children's rows read once (12 bytes: int64 index, float32 value),
+    each row's int32 parent and int64 place in the grouping (12), each
+    parent's int64 start and place in by_size (16, and the last start),
+    each output slot written once (12: the [M, out_width] int64 columns
+    and float32 values) and each parent's int32 run count and, where it
+    weights, its float32 merged weight; one float operation a slot."""
+    return bound(12 * rows * width + 12 * rows + 16 * parents + 8
+                 + 12 * parents * out_width + 4 * parents
+                 + (4 * parents if weighted else 0), rows * width)
+
+
+class MergeMarks:
+    """The ends of a merge's parts (``merge_split``): CUDA events on the
+    card's timeline, or, with `sync` (and always off the card), the host
+    clock after synchronising the card."""
+
+    def __init__(self, sync: bool):
+        self.sync, self.marks = sync or DEV != "cuda", []
+
+    def __call__(self, part):
+        import torch
+        if self.sync:
+            sync()
+            self.marks.append((part, time.perf_counter()))
+        else:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.marks.append((part, e))
+
+    def ms(self) -> dict:
+        sync()
+        out = {}
+        for (_, a), (part, b) in zip(self.marks, self.marks[1:]):
+            d = (b - a) * 1e3 if self.sync else a.elapsed_time(b)
+            out[part] = out.get(part, 0.0) + d
+        return out
+
+
+def merge_by_part(inputs: tuple, mark):
+    """merge_by_parents_device (and normalize_merged_device after a sum),
+    step by step, mark(part) at each part's end: "inputs" (the parents
+    uploaded and the rows grouped, merge_kernel_inputs), "fold" (the
+    kernel's launch), "sync" (the one wait: the widest row), "pack" (the
+    runs laid out as rows), "cap" (keep_best, where the cap bites) and
+    "normalize".  Off the card "fold" is the twin, the layout included."""
+    from sph_tpu_torch.ops import device_merge as tdm
+    from sph_tpu_torch.ops import sparse as tsp
+    sr, parents, num_merged, wbs, combine, cap = inputs
+    mark(None)
+    args = tdm.merge_kernel_inputs(sr, parents, num_merged, wbs, combine)
+    mark("inputs")
+    if sr.device.type == "cuda":
+        fold = tdm._merge_fold(**args, window=tdm.MERGE_WINDOW)
+        mark("fold")
+        width = tdm._merge_width(sr.num_rows, fold)
+        mark("sync")
+        idx, val = tdm._merge_pack(sr.width, args["child_start"], fold,
+                                   width)
+        del fold
+        mark("pack")
+    else:                  # the rehearsals: the twin, fold and layout
+        idx, val, _ = tdm.merge_runs(**args)
+        width = idx.shape[1]
+        mark("fold")
+    if cap is not None and width > cap:
+        idx, val = tdm.keep_best(idx, val, cap, combine == "sum")
+        mark("cap")
+    out = tsp.SparseRows(idx, val, num_merged)
+    if combine == "sum":
+        out = tsp.normalize_merged_device(out)
+        mark("normalize")
+    return out
+
+
+def merge_split(inputs: tuple, label: str, calls: int = MERGE_SPLIT_CALLS,
+                by_part=None) -> dict:
+    """One merge by part (`by_part`(inputs, mark), ``merge_by_part`` where
+    None) over `calls` merges after a warm-up: ``cuda_ms``, the device
+    timeline between each part's ends, no synchronisation added;
+    ``host_ms``, the host clock with the card synchronised at each end.
+    The parts' result is held against merge_by_parents_device's (and the
+    normalization's) bits."""
+    from sph_tpu_torch.ops import device_merge as tdm
+    from sph_tpu_torch.ops import sparse as tsp
+    sr, parents, num_merged, wbs, combine, cap = inputs
+    want = tdm.merge_by_parents_device(sr, parents, num_merged, wbs, combine,
+                                       cap)
+    if combine == "sum":
+        want = tsp.normalize_merged_device(want)
+    by_part = by_part or merge_by_part
+    got = by_part(inputs, lambda part: None)
+    out = {"path_shape": label,
+           "equal_to_the_merge": got.width == want.width
+           and same_bits(got.idx, want.idx) and same_bits(got.val, want.val)}
+    del got, want
+    clocks = (("cuda_ms", False), ("host_ms", True)) if DEV == "cuda" else (
+        ("host_ms", True),)
+    for clock, synced in clocks:
+        total = {}
+        for _ in range(calls):
+            m = MergeMarks(synced)
+            by_part(inputs, m)
+            for part, ms in m.ms().items():
+                total[part] = total.get(part, 0.0) + ms / calls
+        out[clock] = total
+        out[clock + "_total"] = sum(total.values())
+    if not out["equal_to_the_merge"]:
+        raise AssertionError(f"merge_split {label}: the parts do not give "
+                             "the merge's bits")
+    return out
 
 
 def device_ms(fn, calls: int, warmup: int = 1) -> float:
@@ -3573,14 +3680,16 @@ def merge_record(keep: dict):
         tnn.symmetrize_graph = inner_sym
 
 
-def merge_summary(keep: dict, pick: str = "") -> dict:
+def merge_summary(keep: dict, pick: str = "", also: int = -1) -> dict:
     """The merges ``merge_record`` listed, read after the stage: each
     call's shape, combine, cap, live entries, the largest summed child
     weight of a parent (a float32 sum that is exact in any order below
     2^24) and its output width replace its arguments in keep["calls"].
     One merge's arguments land in keep["inputs"] and its live entries in
     keep["entries"]: the first (pick "first"), the first min merge
-    ("first_min") or the one of the most live entries ("widest").
+    ("first_min") or the one of the most live entries ("widest"); the
+    arguments of merge number `also` (from 0), where asked, in
+    keep["also"].
     Returns the merges in short: how many, the most live entries, and the
     largest summed weight of a parent, which tells whether any reached
     2^24 (where the order of a float32 sum of counts starts to matter)."""
@@ -3604,6 +3713,8 @@ def merge_summary(keep: dict, pick: str = "") -> dict:
                 "widest": call["entries"] > keep.get("entries", -1)}[pick]
         if take:
             keep["inputs"], keep["entries"] = args, call["entries"]
+        if len(calls) - 1 == also:
+            keep["also"] = args
     keep["calls"] = calls
     top = max((c["widest_parent_weight"] for c in calls), default=0)
     return {"merges": len(calls),
@@ -3616,18 +3727,13 @@ def merge_summary(keep: dict, pick: str = "") -> dict:
 
 def merge_peak_bytes(inputs: tuple) -> dict:
     """The device merge's peak memory on the card above what was allocated
-    before it, at one merge (``merge_record``'s inputs): the whole merge
-    (merge_by_parents_device at the module's budget, the packed output
-    included), and its kernel inputs and merge_runs with every parent in
-    one range (the budget lifted), beside that range's live entries and
-    padded slots.  "one_range_peak_bytes_per_entry" is that range's peak
-    less device_merge._BYTES_PER_SLOT a slot, over its entries: what
-    device_merge._BYTES_PER_ENTRY should hold.  Nones off the card."""
+    before it, at one merge (``merge_record``'s inputs): merge_by_parents_
+    device whole, the packed output included, beside the rows' own bytes
+    and the output's (12 bytes a padded slot each).  Nones off the card."""
     import torch
     from sph_tpu_torch.ops import device_merge as tdm
     if DEV != "cuda":
-        return {"peak_bytes": None, "one_range_peak_bytes": None,
-                "one_range_peak_bytes_per_entry": None}
+        return {"peak_bytes": None}
     sr, parents, num_merged, wbs, combine, cap = inputs
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -3636,21 +3742,9 @@ def merge_peak_bytes(inputs: tuple) -> dict:
                                       cap)
     torch.cuda.synchronize()
     whole = torch.cuda.max_memory_allocated() - base
-    del out
-    torch.cuda.reset_peak_memory_stats()
-    got = [tdm.merge_runs(*a, **e) for a, e in tdm.merge_kernel_inputs(
-        sr, parents, num_merged, wbs, combine, memory_budget=1 << 62)]
-    torch.cuda.synchronize()
-    one = torch.cuda.max_memory_allocated() - base
-    del got
-    entries = int(((sr.idx >= 0) & (sr.val != 0)).sum())
-    slots = sr.num_rows * sr.width
-    return {"peak_bytes": whole, "one_range_peak_bytes": one,
-            "one_range_entries": entries, "one_range_slots": slots,
-            "one_range_peak_bytes_per_entry":
-                (one - tdm._BYTES_PER_SLOT * slots) / max(entries, 1),
-            "bytes_per_entry_set": tdm._BYTES_PER_ENTRY,
-            "bytes_per_slot_set": tdm._BYTES_PER_SLOT}
+    return {"peak_bytes": whole,
+            "rows_bytes": 12 * sr.num_rows * sr.width,
+            "output_bytes": 12 * out.num_rows * out.width}
 
 
 def check_merge(inputs: tuple, label: str, calls: int = MERGE_CALLS,
@@ -3660,10 +3754,12 @@ def check_merge(inputs: tuple, label: str, calls: int = MERGE_CALLS,
     parent count, weight_by_size, combine, cap), four ways on the same
     inputs:
 
-    - merge_runs, the kernel, against its twin merge_runs_reference on DEV
-      over every parent range the merge takes: rows, columns, values and
-      merged weights bit-equal; both timed, beside ``merge_runs_bound`` and
-      index_add_'s (scatter_reduce's for a min) ms on the same runs, which
+    - merge_runs, the kernel, against its twin merge_runs_reference on DEV:
+      the merged rows (columns, values, widest width) and the merged
+      weights bit-equal; both timed (the kernel's wrapper, its one wait
+      and its pack included; the kernel's fold launch alone as fold_ms),
+      beside ``merge_runs_bound`` and index_add_'s (scatter_reduce_'s for
+      a min) ms over the same runs of the twin's sorted entries, which
       adds in another order (not the same function);
     - the device path (merge_by_parents_device, then
       normalize_merged_device for a sum, as the hierarchy normalizes it)
@@ -3673,53 +3769,50 @@ def check_merge(inputs: tuple, label: str, calls: int = MERGE_CALLS,
       merged and normalized; both timed on the host clock, the host path
       on the call compared (seconds at the largest merges), the device
       path on `path_calls` more;
-    - the device merge's peak memory (``merge_peak_bytes``)."""
-    import numpy as np
+    - the device merge's peak memory (``merge_peak_bytes``);
+    - the device merge by part (``merge_split``), under "split"."""
     import torch
     from sph_tpu_torch.ops import device_merge as tdm
     from sph_tpu_torch.ops import sparse as tsp
     sr, parents, num_merged, wbs, combine, cap = inputs
-    ranges = list(tdm.merge_kernel_inputs(sr, parents, num_merged, wbs,
-                                          combine))
-    differ, err, rows_out = 0, 0.0, []
-    for args, extra in ranges:
-        got = tdm.merge_runs(*args, **extra)
-        want = tdm.merge_runs_reference(*args, **extra)
-        for a, b in zip(got, want):
-            if a is None or b is None:
-                differ += (a is None) != (b is None)
-                continue
-            differ += not (same_bits(a, b) if a.dtype == torch.float32
-                           else bool(torch.equal(a, b)))
-            if a.numel():
-                err = max(err, float((a.double() - b.double()).abs().max()))
-        rows_out.append(got[0])
-    n_ranges = len(ranges)
-    entries = sum(a[0].numel() for a, _ in ranges)
-    runs = sum(a[2].numel() - 1 for a, _ in ranges)
-    children = sum(e["child_w"].numel() for _, e in ranges if e)
-    parents_n = sum(e["parent_start"].numel() - 1 for _, e in ranges if e)
-    full_width = int(torch.bincount(torch.cat(rows_out),
-                                    minlength=num_merged).max())
-    del rows_out
-    ms = device_ms(lambda: [tdm.merge_runs(*a, **e) for a, e in ranges],
-                   calls)
-    plain_ms = device_ms(lambda: [tdm.merge_runs_reference(*a, **e)
-                                  for a, e in ranges], twin_calls, warmup=0)
-    segs = [torch.repeat_interleave(
-        torch.arange(a[2].numel() - 1, device=a[2].device), a[2].diff())
-        for a, _ in ranges]
+    args = tdm.merge_kernel_inputs(sr, parents, num_merged, wbs, combine)
+    got = tdm.merge_runs(**args)
+    windows = tdm.merge_runs.windows if DEV == "cuda" else None
+    want = tdm.merge_runs_reference(**args)
+    differ, err = 0, 0.0
+    for a, b in zip(got, want):
+        if a is None or b is None:
+            differ += (a is None) != (b is None)
+            continue
+        differ += not same_bits(a, b)
+        if a.shape == b.shape and a.numel():
+            err = max(err, float((a.double() - b.double()).abs().max()))
+    full_width = got[0].shape[1]
+    runs = int((got[0] >= 0).sum())
+    entries = int(((sr.idx >= 0) & (sr.val != 0)).sum())
+    busy = int((args["child_start"].diff() > 0).sum())
+    del got, want
+    ms = device_ms(lambda: tdm.merge_runs(**args), calls)
+    fold_ms = device_ms(lambda: tdm._merge_fold(
+        **args, window=tdm.MERGE_WINDOW), calls) if DEV == "cuda" else None
+    plain_ms = device_ms(lambda: tdm.merge_runs_reference(**args),
+                         twin_calls, warmup=0)
+    _, v, run_start, _ = tdm.sorted_entries(
+        args["idx"], args["val"], args["par"], args["order"], num_merged,
+        args["weighted"])
+    seg = torch.repeat_interleave(
+        torch.arange(run_start.numel() - 1, device=v.device),
+        run_start.diff())
 
     def scatter():
-        for (a, _), seg in zip(ranges, segs):
-            out = torch.zeros(a[2].numel() - 1, device=seg.device)
-            if combine == "sum":
-                out.index_add_(0, seg, a[1])
-            else:
-                out.scatter_reduce_(0, seg, a[1], "amin", include_self=False)
+        out = torch.zeros(run_start.numel() - 1, device=seg.device)
+        if combine == "sum":
+            out.index_add_(0, seg, v)
+        else:
+            out.scatter_reduce_(0, seg, v, "amin", include_self=False)
 
     scatter_ms = device_ms(scatter, calls)
-    del ranges, segs
+    del v, run_start, seg
 
     def device_path():
         out = tdm.merge_by_parents_device(sr, parents, num_merged, wbs,
@@ -3754,28 +3847,39 @@ def check_merge(inputs: tuple, label: str, calls: int = MERGE_CALLS,
     del got, want
     device_path_ms = wall_ms(device_path, path_calls)
     peak = merge_peak_bytes(inputs)
-    b = merge_runs_bound(entries, runs, children, parents_n)
+    split = merge_split(inputs, label)
+    b = merge_runs_bound(sr.num_rows, sr.width, num_merged, full_width,
+                         args["weighted"])
     out = {"path_shape": label, "rows": sr.num_rows, "width": sr.width,
            "num_merged": num_merged, "combine": combine,
            "weight_by_size": wbs, "max_width": cap,
            "untruncated_width": full_width, "width_out": width,
            "cap_bites": cap is not None and full_width > cap,
-           "entries": entries, "runs": runs, "parent_ranges": n_ranges,
-           "children": children, "parents": parents_n,
+           "entries": entries, "runs": runs, "parents_with_rows": busy,
+           "window": tdm.MERGE_WINDOW, "windows": windows,
            "kernel_outputs_differ": differ, "max_abs_err": err,
-           "paths_bit_equal": paths_equal, "ms": ms, "plain_ms": plain_ms,
-           **b, "share_of_bound": b["bound_ms"] / ms if ms else None,
+           "paths_bit_equal": paths_equal, "ms": ms, "fold_ms": fold_ms,
+           "plain_ms": plain_ms, **b,
+           "share_of_bound": b["bound_ms"] / ms if ms else None,
            "scatter_ms": scatter_ms,
-           "scatter_is": "index_add_ / scatter_reduce_: atomics, another "
-                         "order of additions",
+           "scatter_is": "index_add_ / scatter_reduce_ over the twin's "
+                         "sorted runs: atomics, another order of additions",
            "device_path_ms": device_path_ms, "host_path_ms": host_path_ms,
            "host_path_is": "download, C++ merge, packing, numpy "
-                           "normalization, upload", **peak}
+                           "normalization, upload", **peak, "split": split}
     if differ or err or not paths_equal:
         raise AssertionError(f"merge_runs {label}: {differ} kernel outputs "
                              f"differ from the twin's (max {err}); device "
                              f"and host paths bit-equal: {paths_equal}")
     return out
+
+
+def emit_merge(c: dict) -> None:
+    """A ``check_merge`` result as its kernel_vs_twin line and its
+    merge_split line."""
+    c = dict(c)
+    emit({"phase": "merge_split", **c.pop("split")})
+    emit({"phase": "kernel_vs_twin", "kernel": "merge_runs", **c})
 
 
 def check_symmetrize(knn: tuple, label: str, calls: int = SYM_CALLS) -> dict:
@@ -5216,7 +5320,8 @@ def main() -> int:
           "tsne_repulsion_launches": main_rep_launches,
           "walk_row_sort_launches": main_sort_launches,
           "merge_runs_launches": merge_launches["pines"],
-          "merges": merge_summary(pines_merges, "first")})
+          "merges": merge_summary(pines_merges, "first",
+                                  also=MERGE_WHOLE_LEVEL)})
 
     # the kernel once more at the level-1 size the main path just gave it
     from sph_tpu_torch.models.tsne import dense_npad
@@ -5226,8 +5331,10 @@ def main() -> int:
     emit({"phase": "kernel_vs_twin", "kernel": "tsne_forces_dense",
           "main_path_shape": True, **checks[-1]})
     # merge_runs and the whole device merge at the Pines path's level-0 ->
-    # 1 walk-row merge, and again with a cap that bites and is not a power
-    # of two; the symmetrization of its kNN graph both ways
+    # 1 walk-row merge, again with a cap that bites and is not a power of
+    # two, and the rows of a whole level (level MERGE_WHOLE_LEVEL) into one
+    # parent, as the hierarchy's top merges take them; the symmetrization
+    # of its kNN graph both ways
     merge_checks = [check_merge(pines_merges["inputs"],
                                 "pines_level_0_to_1")]
     cap_inputs = pines_merges.pop("inputs")
@@ -5237,9 +5344,15 @@ def main() -> int:
     del cap_inputs
     if not merge_checks[-1]["cap_bites"]:
         raise AssertionError(f"merge_runs: the cap {cut} does not bite")
+    whole = pines_merges.pop("also")
+    merge_checks.append(check_merge(
+        (whole[0], np.zeros(whole[0].num_rows, np.int64), 1, *whole[3:5],
+         None), f"pines_level_{MERGE_WHOLE_LEVEL}_into_one_parent",
+        twin_calls=1))
+    del whole
     sym_checks = [check_symmetrize(pines_merges.pop("knn"), "pines_knn_91")]
     for c in merge_checks:
-        emit({"phase": "kernel_vs_twin", "kernel": "merge_runs", **c})
+        emit_merge(c)
     emit({"phase": "kernel_vs_twin", "kernel": "symmetrize_graph_device",
           **sym_checks[-1]})
 
@@ -5448,8 +5561,7 @@ def main() -> int:
         raise AssertionError("merge_runs: salinas_walks launched it no time")
     merge_checks.append(check_merge(salw_merges.pop("inputs"),
                                     "salinas_walks_widest"))
-    emit({"phase": "kernel_vs_twin", "kernel": "merge_runs",
-          **merge_checks[-1]})
+    emit_merge(merge_checks[-1])
     sym_checks.append(check_symmetrize(salw_merges.pop("knn"),
                                        "salinas_knn_31"))
     emit({"phase": "kernel_vs_twin", "kernel": "symmetrize_graph_device",
@@ -5831,8 +5943,7 @@ def main() -> int:
                              f"{'inputs' in walks_merges}")
     merge_checks.append(check_merge(walks_merges.pop("inputs"),
                                     "eval_pines_walks_merge_data_min"))
-    emit({"phase": "kernel_vs_twin", "kernel": "merge_runs",
-          **merge_checks[-1]})
+    emit_merge(merge_checks[-1])
     if not sort_launches["eval_pines_walks"] or "ids" not in level0:
         raise AssertionError("walk_row_sort: the walk grids launched it "
                              f"{sort_launches['eval_pines_walks']} times, "
@@ -6094,35 +6205,40 @@ def main() -> int:
             "bound_by": c["bound_by"],
             "torch_sort_stable_ms": c["torch_sort_stable_ms"],
             "max_abs_err": c["max_abs_err"]} for c in sort_checks]}, {
-        # the JAX package's segment-combine of its device merge (an XLA
-        # program: no pallas_call); its main path is the Pines path's
-        # MERGE_RW_ONLY walk-row merges, one launch a parent range of a
-        # merge; ms and bound at the level-0 -> 1 merge
+        # the JAX package's device merge, _merge_flatten (an XLA program:
+        # no pallas_call); its main path is the Pines path's MERGE_RW_ONLY
+        # walk-row merges, one launch a merge; ms (the wrapper: the fold,
+        # its one wait and the pack) and bound at the level-0 -> 1 merge
         "name": "merge_runs", "route": "cuda",
         "source": "sph_tpu_torch/csrc/merge_runs.cu",
-        "replaces": "sph_tpu/ops/device_merge.py:56 _merge_flatten's "
-                    "scatter-add / scatter-min segment-combine (an XLA "
+        "replaces": "sph_tpu/ops/device_merge.py:56 _merge_flatten (flatten, "
+                    "stable sort, runs, scatter-add / scatter-min; an XLA "
                     "program: no pallas_call)",
         "launches": merge_launches["pines"],
         "max_abs_err": max(c["max_abs_err"] for c in merge_checks),
-        "ms": merge_checks[0]["ms"], "plain_ms": merge_checks[0]["plain_ms"],
+        "ms": merge_checks[0]["ms"], "fold_ms": merge_checks[0]["fold_ms"],
+        "plain_ms": merge_checks[0]["plain_ms"],
         "bound_ms": merge_checks[0]["bound_ms"],
         "bound_by": merge_checks[0]["bound_by"], "library_ms": None,
-        "library_note": "no PyTorch call sums runs in the host's order; "
-                        "index_add_ (atomics) is scatter_ms",
-        "shape": [merge_checks[0]["entries"], merge_checks[0]["runs"]],
+        "library_note": "no PyTorch call merges rows in the host's order; "
+                        "index_add_ over the sorted runs (atomics) is "
+                        "scatter_ms",
+        "shape": [merge_checks[0]["rows"], merge_checks[0]["width"],
+                  merge_checks[0]["num_merged"]],
         "launches_by_path": [
             {"path": path, "launches": n_launch}
             for path, n_launch in merge_launches.items()],
         "at_shapes": [{
             "path_shape": c["path_shape"], "combine": c["combine"],
+            "shape": [c["rows"], c["width"], c["num_merged"]],
             "entries": c["entries"], "runs": c["runs"],
-            "cap_bites": c["cap_bites"], "ms": c["ms"],
-            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "share_of_bound": c["share_of_bound"],
+            "windows": c["windows"], "cap_bites": c["cap_bites"],
+            "ms": c["ms"], "fold_ms": c["fold_ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "share_of_bound": c["share_of_bound"],
             "scatter_ms": c["scatter_ms"],
             "device_path_ms": c["device_path_ms"],
-            "host_path_ms": c["host_path_ms"],
+            "host_path_ms": c["host_path_ms"], "peak_bytes": c["peak_bytes"],
             "max_abs_err": c["max_abs_err"]} for c in merge_checks],
         "symmetrize_graph_device": sym_checks}]})
     elapsed = time.perf_counter() - started

@@ -7,7 +7,7 @@ is loaded with ctypes and returns the launch's CUDA error.  The wrappers
 live beside their twins: the t-SNE kernels in ``ops/tsne_kernels.py``, the
 grid tier's deposit and interpolation in ``ops/tsne_grid.py``, the
 Bellman-Ford relax in ``ops/shortest_path.py``, the walk rows' sort in
-``ops/walk_sort.py``, the merges' run sums in ``ops/device_merge.py``.
+``ops/walk_sort.py``, the sparse merges in ``ops/device_merge.py``.
 """
 
 from __future__ import annotations
@@ -42,9 +42,14 @@ _SIGNATURES = {
     "bellman_ford_relax": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _I, _P],
     "walk_row_sort": [_P, ctypes.c_longlong, _I, _P, _P, _P, _P],
-    "merge_runs": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _P,
-                   _P, ctypes.c_longlong, ctypes.c_longlong, _P, _P, _P, _P,
-                   _P],
+    "merge_runs": [_P, _P, ctypes.c_longlong, _I, _P, _P, _P, _P, _I, _I, _I,
+                   _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+}
+# further C entry points of a kernel's library, ``<entry>_launch``: its
+# argument types
+_ENTRIES = {
+    "merge_runs": {"merge_runs_pack": [_P, _P, _P, _I, _P, ctypes.c_longlong,
+                                       _I, _P, _P, _P]},
 }
 # every kernel of the port
 ALL_KERNELS = tuple(_SIGNATURES)
@@ -107,21 +112,25 @@ def build(*names: str) -> dict[str, str]:
 def _library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         lib = ctypes.CDLL(build(name)[name])
-        fn = getattr(lib, f"{name}_launch")
-        fn.restype = ctypes.c_int
-        fn.argtypes = _SIGNATURES[name]
+        for entry, argtypes in ((name, _SIGNATURES[name]),
+                                *_ENTRIES.get(name, {}).items()):
+            fn = getattr(lib, f"{entry}_launch")
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
         _libs[name] = lib
     return _libs[name]
 
 
-def _launch(name: str, device: torch.device, *args):
-    """Call the kernel's C entry point on `device`'s current stream and raise
-    on the launch error it returns."""
-    fn = getattr(_library(name), f"{name}_launch")
+def _launch(name: str, device: torch.device, *args, entry: str = ""):
+    """Call the kernel's C entry point (or its library's entry point
+    `entry`) on `device`'s current stream and raise on the launch error it
+    returns."""
+    entry = entry or name
+    fn = getattr(_library(name), f"{entry}_launch")
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
+        raise RuntimeError(f"{entry}: launch failed with CUDA error {err}")
 
 
 def sm_count(device: torch.device) -> int:

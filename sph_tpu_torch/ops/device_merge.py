@@ -21,16 +21,21 @@ ways, which the port does not copy:
   than its host path; the port keeps ``max_width`` entries, as the host;
 - it sums each run in the scatter's order.
 
-A merge (``merge_by_parents_device``): the live entries (index >= 0 and
-value != 0) of each parent's children, in ascending child order, are
-flattened row by row, keyed ``parent[row] * num_merged + parent[col]`` and
-sorted stably (the host's LSD radix sort is stable too, so equal keys keep
-the same order); flags mark where each run of equal keys starts; the kernel
-``csrc/merge_runs.cu`` (``merge_runs``) folds each run in that order and
-sums each parent's weights over its children, as the host C++ does; then
-``pack_coo`` lays the rows out, keeping each row's largest sums (smallest
-minima) where ``max_width`` bites, ties to the lower column.  The parents
-are processed in ranges that fit ``MERGE_MEMORY_BUDGET``.
+A merge (``merge_by_parents_device``) is the kernel
+``csrc/merge_runs.cu`` (``merge_runs``) on the children's rows as they lie:
+the parents are uploaded once and the rows grouped by parent with N-sized
+torch ops (``merge_kernel_inputs``); a block of the kernel takes a parent,
+folds its children's live entries (index >= 0 and value != 0) column by
+column in shared memory in the host's order (ascending child, then slot)
+and writes its columns in ascending order; after one synchronisation (the
+widest row and a column outside the domain) the runs are laid out as rows
+of the exact widest width.  Where ``max_width`` bites, each row keeps its
+largest sums (smallest minima), ties to the lower column, in torch ops
+(``keep_best``).  No sort, key or flag buffer runs over the entries, and
+no parent takes another path.  The plain version, ``merge_runs_reference``,
+is the torch pipeline the kernel replaced: the live entries flattened, keyed
+``parent[row] * num_merged + parent[col]`` and sorted stably (the host's
+LSD radix sort is stable too), each run of equal keys folded in order.
 
 The symmetrization (``symmetrize_graph_device``) has no sums: stable sorts,
 first-of-run flags, ranks in a row and a scatter, as torch ops.
@@ -47,18 +52,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.logging import Log
 from .cuda_build import _launch
 
-# bytes a merge's parent range may hold at once; parents are merged in
-# ranges that fit.  A range holds, for each padded slot of its children's
-# rows, the gathered index (int64), value (float32) and live flag (13 B),
-# and for each live entry its ids, key, value and the stable sort's
-# buffers: 48 B, above the 46.8 B measured on an H100 at salinas_walks'
-# widest merge in one range (chip_smoke.merge_peak_bytes: the range's peak
-# less 13 B a slot, over its live entries; PERF.md section 6)
-MERGE_MEMORY_BUDGET = 2 << 30
-_BYTES_PER_SLOT = 13
-_BYTES_PER_ENTRY = 48
+# the columns a block of merge_runs folds at once, its shared-memory window
+# (4 B an accumulator, a bit of occupancy): a parent whose columns pass it
+# takes another pass over its rows.  8192 columns and the 8 KB tile take
+# 42 KB, five blocks an SM
+MERGE_WINDOW = 8192
 
 
 def on_card(device) -> bool:
@@ -71,82 +72,158 @@ def on_card(device) -> bool:
 # the kernel and its twin
 # ---------------------------------------------------------------------------
 
-def _check_runs(keys, vals, run_start, child_w, parent_start):
-    if keys.dtype != torch.int64 or run_start.dtype != torch.int64:
-        raise TypeError("merge_runs: keys and run_start must be int64")
-    if vals.dtype != torch.float32:
-        raise TypeError("merge_runs: vals must be float32")
-    if keys.dim() != 1 or keys.shape != vals.shape or run_start.dim() != 1:
-        raise ValueError("merge_runs: keys [E], vals [E] and run_start "
-                         "[U + 1] must be 1-D")
-    if (child_w is None) != (parent_start is None):
-        raise ValueError("merge_runs: child_w and parent_start come together")
-    if child_w is not None and (child_w.dtype != torch.float32
-                                or parent_start.dtype != torch.int64):
-        raise TypeError("merge_runs: child_w must be float32, parent_start "
-                        "int64")
-    dev = keys.device
-    for t in (vals, run_start, child_w, parent_start):
-        if t is not None and t.device != dev:
-            raise ValueError("merge_runs: all tensors on one device")
-
-
-def merge_runs(keys: torch.Tensor, vals: torch.Tensor,
-               run_start: torch.Tensor, num_merged: int, combine: str,
-               child_w: Optional[torch.Tensor] = None,
-               parent_start: Optional[torch.Tensor] = None,
-               parent0: int = 0):
-    """Each run of equal keys folded in order, as the host C++ merge folds
-    it: keys [E] int64 (sorted, ``row * num_merged + col``), vals [E]
-    float32, run_start [U + 1] int64 (each run's first entry, then E).
-    combine "sum": ``s += v`` from 0 in float32; with child_w [C] float32
-    (the children's weights grouped by parent, ascending within a parent)
-    and parent_start [P + 1] int64, each parent's weight is summed the same
-    way and a run's sum divided by max(weight of row - parent0, 1).
-    combine "min": the smallest value (no weights).
-
-    Returns (rows [U] int64, cols [U] int64, out [U] float32, merged_w [P]
-    float32 or None).  The kernel ``csrc/merge_runs.cu`` on a CUDA tensor
-    (counted in ``merge_runs.launches``), the twin ``merge_runs_reference``
-    on a CPU one."""
+def _check_inputs(idx, val, par, order, child_start, by_size, num_merged,
+                  combine, weighted):
     if combine not in ("sum", "min"):
         raise ValueError(f"merge_runs: combine must be 'sum' or 'min', got "
                          f"{combine!r}")
-    if combine == "min" and child_w is not None:
+    if combine == "min" and weighted:
         raise ValueError("merge_runs: the min merge takes no weights")
-    _check_runs(keys, vals, run_start, child_w, parent_start)
-    dev = keys.device
+    if idx.dtype != torch.int64 or val.dtype != torch.float32:
+        raise TypeError("merge_runs: idx must be int64, val float32")
+    if par.dtype != torch.int32:
+        raise TypeError("merge_runs: par must be int32")
+    if any(t.dtype != torch.int64 for t in (order, child_start, by_size)):
+        raise TypeError("merge_runs: order, child_start and by_size must be "
+                        "int64")
+    n = idx.shape[0] if idx.dim() == 2 else -1
+    if (idx.dim() != 2 or val.shape != idx.shape or par.shape != (n,)
+            or order.shape != (n,)
+            or child_start.shape != (num_merged + 1,)
+            or by_size.shape != (num_merged,)):
+        raise ValueError("merge_runs: idx and val [N, W], par and order [N], "
+                         "child_start [M + 1] and by_size [M] expected")
+    if not 0 < num_merged < 2 ** 31:
+        raise ValueError(f"merge_runs: num_merged {num_merged} outside "
+                         "[1, 2^31)")
+    dev = idx.device
+    if any(t.device != dev for t in (val, par, order, child_start, by_size)):
+        raise ValueError("merge_runs: all tensors on one device")
+
+
+def _column_error(n: int) -> ValueError:
+    return ValueError("merge_by_parents_device: a column id lies outside "
+                      f"[0, {n})")
+
+
+def merge_runs(idx: torch.Tensor, val: torch.Tensor, par: torch.Tensor,
+               order: torch.Tensor, child_start: torch.Tensor,
+               by_size: torch.Tensor, num_merged: int, combine: str,
+               weighted: bool, window: int = MERGE_WINDOW):
+    """The rows idx [N, W] int64 / val [N, W] float32 merged into
+    num_merged parent rows: each row and each live column (idx >= 0 and
+    val != 0) mapped through par [N] int32; the rows grouped by parent in
+    ascending order by order [N] and child_start [M + 1] (int64); by_size
+    [M] int64 the parents in the order the kernel takes them (most children
+    first).  combine "sum" folds each parent column's values ``s += v``
+    from 0 in float32, in ascending child and then slot, as the host C++
+    merge does; where `weighted`, each value is first multiplied by its
+    row's live count and each sum divided by max(the parent's summed
+    counts, 1).  combine "min" keeps the running ``(v < m) ? v : m``.
+
+    Returns (idx [M, width] int64 with -1 pads, val [M, width] float32,
+    merged_w [M] float32 or None): each parent's columns ascending, width
+    the widest row (at least 1).  A live column at or above N raises
+    ValueError.  The kernel ``csrc/merge_runs.cu`` on a CUDA tensor (counted
+    in ``merge_runs.launches``; `window` the columns a block folds at once,
+    a multiple of 32), the twin ``merge_runs_reference`` on a CPU one."""
+    _check_inputs(idx, val, par, order, child_start, by_size, num_merged,
+                  combine, weighted)
+    dev = idx.device
     if dev.type == "cpu":
-        return merge_runs_reference(keys, vals, run_start, num_merged,
-                                    combine, child_w, parent_start, parent0)
+        return merge_runs_reference(idx, val, par, order, child_start,
+                                    by_size, num_merged, combine, weighted)
     if dev.type != "cuda":
         raise ValueError(f"merge_runs: no kernel for {dev}")
-    keys, vals, run_start = (keys.contiguous(), vals.contiguous(),
-                             run_start.contiguous())
-    runs = run_start.numel() - 1
-    rows = torch.empty(runs, dtype=torch.int64, device=dev)
-    cols = torch.empty(runs, dtype=torch.int64, device=dev)
-    out = torch.empty(runs, dtype=torch.float32, device=dev)
-    parents = 0 if parent_start is None else parent_start.numel() - 1
-    merged_w = None
-    if parent_start is not None:
-        child_w, parent_start = child_w.contiguous(), parent_start.contiguous()
-        merged_w = torch.empty(parents, dtype=torch.float32, device=dev)
-    if runs > 0 or parents > 0:
-        _launch("merge_runs", dev, keys.data_ptr(), vals.data_ptr(),
-                run_start.data_ptr(), runs, int(num_merged),
-                1 if combine == "min" else 0,
-                None if parents == 0 else child_w.data_ptr(),
-                None if parents == 0 else parent_start.data_ptr(), parents,
-                int(parent0), None if parents == 0 else merged_w.data_ptr(),
-                rows.data_ptr(), cols.data_ptr(),
-                out.data_ptr())
-        merge_runs.launches += 1
-    return rows, cols, out, merged_w
+    if window < 32 or window % 32:
+        raise ValueError(f"merge_runs: window {window} is not a positive "
+                         "multiple of 32")
+    fold = _merge_fold(idx, val, par, order, child_start, by_size,
+                       num_merged, combine, weighted, window)
+    width = _merge_width(idx.shape[0], fold)
+    out_idx, out_val = _merge_pack(idx.shape[1], child_start, fold, width)
+    return out_idx, out_val, fold["merged_w"]
 
 
-# launches of merge_runs (the kernel), counted where the kernel launches
+# launches of merge_runs (the kernel), counted where the kernel launches;
+# the windows its blocks took in the last launch (a parent's pass a window)
 merge_runs.launches = 0
+merge_runs.windows = 0
+
+
+def _merge_fold(idx, val, par, order, child_start, by_size, num_merged,
+                combine, weighted, window) -> dict:
+    """The kernel's launch: each parent's runs at child_start[p] * W of
+    out_col / out_val, their count, the merged weights, the state words.
+    The window is cut to the parent columns there are."""
+    dev = idx.device
+    window = min(window, -(-num_merged // 32) * 32)
+    n, w = idx.shape
+    fold = {"out_col": torch.empty(n * w, dtype=torch.int32, device=dev),
+            "out_val": torch.empty(n * w, dtype=torch.float32, device=dev),
+            "state": torch.zeros(2, dtype=torch.int64, device=dev),
+            "merged_w": None}
+    nnz = rowmin = pmin = None
+    if weighted:
+        nnz = torch.empty(n, dtype=torch.int32, device=dev)
+        fold["merged_w"] = torch.empty(num_merged, dtype=torch.float32,
+                                       device=dev)
+    if num_merged > window:       # each parent's first window at its first
+        rowmin = torch.empty(n, dtype=torch.int32, device=dev)    # column
+        pmin = torch.empty(num_merged, dtype=torch.int32, device=dev)
+    if n == 0 or w == 0:
+        fold["run_count"] = torch.zeros(num_merged, dtype=torch.int32,
+                                        device=dev)
+        if weighted:
+            fold["merged_w"].zero_()
+        return fold
+    fold["run_count"] = torch.empty(num_merged, dtype=torch.int32,
+                                    device=dev)
+    idx, val = idx.contiguous(), val.contiguous()
+    _launch("merge_runs", dev, idx.data_ptr(), val.data_ptr(), n, w,
+            par.contiguous().data_ptr(), order.contiguous().data_ptr(),
+            child_start.contiguous().data_ptr(),
+            by_size.contiguous().data_ptr(), num_merged, window,
+            1 if combine == "min" else 0, 1 if weighted else 0,
+            *(None if t is None else t.data_ptr()
+              for t in (nnz, rowmin, pmin)),
+            fold["out_col"].data_ptr(), fold["out_val"].data_ptr(),
+            fold["run_count"].data_ptr(),
+            None if nnz is None else fold["merged_w"].data_ptr(),
+            fold["state"].data_ptr())
+    merge_runs.launches += 1
+    return fold
+
+
+def _merge_width(n: int, fold: dict) -> int:
+    """The one wait on the card: the widest row, and whether a live column
+    lay outside [0, n) (raises ValueError)."""
+    width, bad, windows = torch.cat([
+        fold["run_count"].max().view(1).to(torch.int64),
+        fold["state"]]).tolist()
+    merge_runs.windows = windows
+    if bad:
+        raise _column_error(n)
+    return max(width, 1)
+
+
+def _merge_pack(w: int, child_start, fold: dict, width: int):
+    """The runs laid out as [M, width] rows (the kernel's second entry
+    point)."""
+    run_count = fold["run_count"]
+    m = run_count.numel()
+    dev = run_count.device
+    out_idx = torch.empty((m, width), dtype=torch.int64, device=dev)
+    out_val = torch.empty((m, width), dtype=torch.float32, device=dev)
+    if w == 0 or fold["out_col"].numel() == 0:
+        out_idx.fill_(-1)
+        out_val.zero_()
+        return out_idx, out_val
+    _launch("merge_runs", dev, fold["out_col"].data_ptr(),
+            fold["out_val"].data_ptr(), child_start.contiguous().data_ptr(),
+            w, run_count.data_ptr(), m, width, out_idx.data_ptr(),
+            out_val.data_ptr(), entry="merge_runs_pack")
+    return out_idx, out_val
 
 
 def _fold_segments(vals: torch.Tensor, starts: torch.Tensor, combine: str
@@ -185,60 +262,88 @@ def _fold_segments(vals: torch.Tensor, starts: torch.Tensor, combine: str
     return out
 
 
-def merge_runs_reference(keys: torch.Tensor, vals: torch.Tensor,
-                         run_start: torch.Tensor, num_merged: int,
-                         combine: str,
-                         child_w: Optional[torch.Tensor] = None,
-                         parent_start: Optional[torch.Tensor] = None,
-                         parent0: int = 0):
-    """The twin of ``merge_runs`` in torch ops: runs (and parents) folded
-    column by column (``_fold_segments``); the same float32 additions, in
-    the same order, and the same true division."""
-    _check_runs(keys, vals, run_start, child_w, parent_start)
-    merged_w = None
-    if parent_start is not None:
-        merged_w = _fold_segments(child_w, parent_start, "sum")
-    out = _fold_segments(vals, run_start, combine)
-    first = keys[run_start[:-1]]
+def sorted_entries(idx, val, par, order, num_merged: int, weighted: bool):
+    """The twin's entries: the live entries of the rows grouped by parent,
+    flattened (child, then slot), keyed ``par[row] * num_merged +
+    par[col]`` and sorted stably.  Returns (keys [E] int64, values [E]
+    float32, weighted where asked, run_start [U + 1] int64, each run's first
+    entry and E, nnz [N] int64, each row's live count).  A live column at or
+    above N raises ValueError."""
+    n = idx.shape[0]
+    live = (idx >= 0) & (val != 0)
+    if n and bool((live & (idx >= n)).any()):
+        raise _column_error(n)
+    nnz = live.sum(1)
+    p64 = par.to(torch.int64)
+    idx_c, live_c = idx[order], live[order]
+    child = order[:, None].expand_as(idx_c)[live_c]
+    v = val[order][live_c]
+    if weighted:
+        v = v * nnz.to(torch.float32)[child]
+    key = p64[child] * num_merged + p64[idx_c[live_c]]
+    del idx_c, live_c
+    key, perm = torch.sort(key, stable=True)
+    v = v[perm]
+    first = torch.ones(key.numel(), dtype=torch.bool, device=key.device)
+    first[1:] = key[1:] != key[:-1]
+    run_start = torch.cat([
+        torch.nonzero(first).flatten(),
+        torch.tensor([key.numel()], dtype=torch.int64, device=key.device)])
+    return key, v, run_start, nnz
+
+
+def merge_runs_reference(idx: torch.Tensor, val: torch.Tensor,
+                         par: torch.Tensor, order: torch.Tensor,
+                         child_start: torch.Tensor, by_size: torch.Tensor,
+                         num_merged: int, combine: str, weighted: bool,
+                         window: int = MERGE_WINDOW):
+    """The twin of ``merge_runs``, the kernel's arguments in torch ops
+    (by_size and window only schedule the kernel): ``sorted_entries``,
+    each run folded left to right and each parent's weight over its
+    children in order (``_fold_segments``: the same float32 operations in
+    the same order), the same true division, then the runs laid out as
+    rows."""
+    _check_inputs(idx, val, par, order, child_start, by_size, num_merged,
+                  combine, weighted)
+    key, v, run_start, nnz = sorted_entries(idx, val, par, order,
+                                            num_merged, weighted)
+    out = _fold_segments(v, run_start, combine)
+    first = key[run_start[:-1]]
     rows = torch.div(first, num_merged, rounding_mode="floor")
     cols = first - rows * num_merged
-    if merged_w is not None and out.numel():
-        out = out / torch.clamp_min(merged_w[rows - parent0], 1.0)
-    return rows, cols, out, merged_w
+    del key, v, first
+    merged_w = None
+    if weighted:
+        merged_w = _fold_segments(nnz.to(torch.float32)[order], child_start,
+                                  "sum")
+        if out.numel():
+            out = out / torch.clamp_min(merged_w[rows], 1.0)
+    counts = torch.bincount(rows, minlength=num_merged)
+    width = max(int(counts.max()) if rows.numel() else 0, 1)
+    slot = torch.arange(rows.numel(), device=rows.device) - (
+        torch.cumsum(counts, 0) - counts)[rows]
+    out_idx = torch.full((num_merged, width), -1, dtype=torch.int64,
+                         device=rows.device)
+    out_val = torch.zeros((num_merged, width), dtype=torch.float32,
+                          device=rows.device)
+    out_idx[rows, slot] = cols
+    out_val[rows, slot] = out
+    return out_idx, out_val, merged_w
 
 
 # ---------------------------------------------------------------------------
 # the merges
 # ---------------------------------------------------------------------------
 
-def _parent_ranges(par_cost: torch.Tensor, budget: int) -> list:
-    """[p0, p1) ranges of parents, in order, whose summed cost is at most
-    budget (a parent above it alone)."""
-    m = par_cost.numel()
-    cum = torch.cumsum(par_cost, 0)
-    total = int(cum[-1]) if m else 0
-    if total <= budget:
-        return [(0, m)]
-    cum = cum.cpu().numpy()
-    out, p0 = [], 0
-    while p0 < m:
-        base = cum[p0 - 1] if p0 else 0
-        p1 = int(np.searchsorted(cum, base + budget, side="right"))
-        p1 = min(max(p1, p0 + 1), m)
-        out.append((p0, p1))
-        p0 = p1
-    return out
-
-
 def merge_kernel_inputs(sr, parents: np.ndarray, num_merged: int,
-                        weight_by_size: bool, combine: str,
-                        memory_budget: int = MERGE_MEMORY_BUDGET):
-    """The calls of ``merge_runs`` that merge the rows of `sr` into their
-    parents (see ``merge_by_parents_device``): for each range of parents
-    that fits `memory_budget` bytes (``_BYTES_PER_SLOT`` a padded slot of
-    its children's rows, ``_BYTES_PER_ENTRY`` a live entry), in order, the
-    pair (args, kwargs).  Raises ValueError on a parent or a live column outside
-    the domain, as the C++ merge rejects it."""
+                        weight_by_size: bool, combine: str) -> dict:
+    """The arguments of ``merge_runs`` that merge the rows of `sr` into
+    their parents (see ``merge_by_parents_device``), built with N-sized
+    torch ops on the rows' device: the parents uploaded (int32 for the
+    kernel), the rows grouped by parent (a stable sort of the parents and
+    a search for each parent's first row) and the parents by their number
+    of rows.  Raises ValueError on a parent outside the domain, as the C++
+    merge rejects it."""
     if combine not in ("sum", "min"):
         raise ValueError(f"merge_by_parents_device: combine must be 'sum' or "
                          f"'min', got {combine!r}")
@@ -248,58 +353,38 @@ def merge_kernel_inputs(sr, parents: np.ndarray, num_merged: int,
     if parents.shape != (n,):
         raise ValueError(f"merge_by_parents_device: parents must be [{n}], "
                          f"got {parents.shape}")
-    if num_merged <= 0 or (n and (int(parents.min()) < 0
-                                  or int(parents.max()) >= num_merged)):
+    if not 0 < num_merged < 2 ** 31 or (n and (
+            int(parents.min()) < 0 or int(parents.max()) >= num_merged)):
         raise ValueError("merge_by_parents_device: a parent id lies outside "
                          f"[0, {num_merged})")
-    live = (sr.idx >= 0) & (sr.val != 0)
-    if n and bool((live & (sr.idx >= n)).any()):
-        raise ValueError("merge_by_parents_device: a column id lies outside "
-                         f"[0, {n})")
-    par = torch.as_tensor(parents, device=dev)
-    weighted = combine == "sum" and weight_by_size
-    nnz = live.sum(1)
-    weight = nnz.to(torch.float32)
-    # children grouped by parent, ascending within a parent
-    order = torch.sort(par, stable=True).indices
-    child_start = torch.zeros(num_merged + 1, dtype=torch.int64, device=dev)
-    torch.cumsum(torch.bincount(par, minlength=num_merged), 0,
-                 out=child_start[1:])
-    par_cost = torch.zeros(num_merged, dtype=torch.int64, device=dev)
-    par_cost.index_add_(0, par, nnz * _BYTES_PER_ENTRY
-                        + sr.width * _BYTES_PER_SLOT)
-    cs = child_start.cpu().numpy()
-    for p0, p1 in _parent_ranges(par_cost, memory_budget):
-        rows = order[int(cs[p0]):int(cs[p1])]
-        idx_c, live_c = sr.idx[rows], live[rows]
-        child = rows[:, None].expand_as(idx_c)[live_c]
-        v = sr.val[rows][live_c]
-        if weighted:
-            v = v * weight[child]
-        key = par[child] * num_merged + par[idx_c[live_c]]
-        del idx_c, live_c
-        key, perm = torch.sort(key, stable=True)
-        v = v[perm]
-        del perm, child
-        first = torch.ones(key.numel(), dtype=torch.bool, device=dev)
-        first[1:] = key[1:] != key[:-1]
-        run_start = torch.cat([
-            torch.nonzero(first).flatten(),
-            torch.tensor([key.numel()], dtype=torch.int64, device=dev)])
-        del first
-        extra = {}
-        if weighted:
-            extra = {"child_w": weight[rows],
-                     "parent_start": (child_start[p0:p1 + 1]
-                                      - child_start[p0]),
-                     "parent0": p0}
-        yield (key, v, run_start, num_merged, combine), extra
+    par = torch.as_tensor(parents.astype(np.int32), device=dev)
+    sorted_par, order = torch.sort(par, stable=True)
+    child_start = torch.searchsorted(
+        sorted_par, torch.arange(num_merged + 1, dtype=torch.int32,
+                                 device=dev))
+    by_size = torch.sort(child_start.diff().to(torch.int32),
+                         descending=True, stable=True).indices
+    return {"idx": sr.idx, "val": sr.val, "par": par,
+            "order": order, "child_start": child_start, "by_size": by_size,
+            "num_merged": int(num_merged), "combine": combine,
+            "weighted": combine == "sum" and bool(weight_by_size)}
+
+
+def keep_best(idx: torch.Tensor, val: torch.Tensor, max_width: int,
+              largest: bool):
+    """Each row's max_width largest values (smallest where not `largest`),
+    ties to the lower column, back in ascending column order: the host
+    path's lexsort by (row, -value) and cut, as torch ops on the merged
+    rows."""
+    key = torch.where(idx >= 0, -val if largest else val, float("inf"))
+    keep = torch.sort(key + 0.0, dim=1, stable=True).indices[:, :max_width]
+    keep = torch.sort(keep, dim=1).values
+    return idx.gather(1, keep), val.gather(1, keep)
 
 
 def merge_by_parents_device(sr, parents: np.ndarray, num_merged: int,
                             weight_by_size: bool, combine: str,
-                            max_width: Optional[int] = None,
-                            memory_budget: int = MERGE_MEMORY_BUDGET):
+                            max_width: Optional[int] = None):
     """Merge the rows of `sr` (a SparseRows) into `num_merged` parent rows,
     mapping rows and columns through `parents` [N]: "sum" adds duplicate
     entries (each child row weighted by its live count and each merged row
@@ -310,17 +395,15 @@ def merge_by_parents_device(sr, parents: np.ndarray, num_merged: int,
     (``ops/sparse.merge_rows_by_parents`` / ``merge_rows_min_by_parents``
     on CPU rows).  A parent or a live column outside the domain raises
     ValueError, as the C++ merge rejects it."""
-    from .sparse import pack_coo
-    got = [merge_runs(*args, **extra)[:3] for args, extra in
-           merge_kernel_inputs(sr, parents, num_merged, weight_by_size,
-                               combine, memory_budget)]
-    rows = torch.cat([g[0] for g in got])
-    cols = torch.cat([g[1] for g in got])
-    vals = torch.cat([g[2] for g in got])
-    return pack_coo(rows, cols, vals, num_merged, num_merged, max_width,
-                    largest=combine == "sum",
-                    log_as="merge_by_parents_device")
-
+    from .sparse import SparseRows
+    idx, val, _ = merge_runs(**merge_kernel_inputs(
+        sr, parents, num_merged, weight_by_size, combine))
+    if max_width is not None and idx.shape[1] > max_width:
+        Log.info("merge_by_parents_device: truncating rows from width %d to "
+                 "%d (keeping %s values)", idx.shape[1], max_width,
+                 "largest" if combine == "sum" else "smallest")
+        idx, val = keep_best(idx, val, max_width, combine == "sum")
+    return SparseRows(idx, val, num_merged)
 
 # ---------------------------------------------------------------------------
 # the kNN graph's symmetrization

@@ -9,10 +9,10 @@ power-of-two buckets, which existed only to bound XLA recompiles.
 
 Each op runs as torch ops on the rows' device.  The two merges
 (``merge_rows_by_parents``, ``merge_rows_min_by_parents``) run there too
-where the rows lie on the card (``device_merge.on_card``), with the run
-sums as the kernel ``csrc/merge_runs.cu``; rows on the CPU take the host
-C++ merge (native/graphops.cpp), as the JAX package runs them off its
-accelerator.  Both paths give the same bits.
+where the rows lie on the card (``device_merge.on_card``), as the kernel
+``csrc/merge_runs.cu`` over the children's rows; rows on the CPU take the
+host C++ merge (native/graphops.cpp), as the JAX package runs them off
+its accelerator.  Both paths give the same bits.
 """
 
 from __future__ import annotations

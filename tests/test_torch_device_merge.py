@@ -27,6 +27,7 @@ on the CPU).  The kernel itself runs only on a card (the test marked
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -45,6 +46,7 @@ from sph_tpu_torch.ops import sparse as tsp
 from sph_tpu_torch.utils.logging import set_level
 from sph_tpu_torch.utils.testdata import create_hyperspectral_scene
 from test_torch_reference_native import use_reference_native
+import test_torch_merge_rows as merge_rows
 
 use_reference_native()
 
@@ -76,21 +78,10 @@ def with_flag(value, fn, *args, **kw):
 
 
 def walk_rows(c: int, width: int, seed: int, num_cols: int = 0):
-    """c rows of 0..width distinct ascending columns of num_cols (c by
-    default), values summing to one; row 3 keeps its columns with all-zero
-    values, row 4 is empty, and a few values repeat (ties under a cap)."""
-    r = np.random.default_rng(seed)
-    n = num_cols or c
-    idx = np.full((c, width), -1, np.int32)
-    val = np.zeros((c, width), np.float32)
-    for i in range(c):
-        m = int(r.integers(0, width + 1))
-        idx[i, :m] = np.sort(r.choice(n, m, replace=False))
-        v = np.ceil(r.random(m) * 64.0).astype(np.float32)
-        val[i, :m] = v / max(float(v.sum()), 1.0)
-    val[3] = 0.0
-    idx[4], val[4] = -1, 0.0
-    return idx, val
+    """tests/test_torch_merge_rows.py's walk rows (row 3 all zeros, row 4
+    empty; a few values repeat: ties under a cap) with int32 columns."""
+    idx, val = merge_rows.walk_rows(c, width, seed, num_cols)
+    return idx.astype(np.int32), val
 
 
 def parents_of(n: int, m: int, seed: int) -> np.ndarray:
@@ -199,21 +190,24 @@ def test_single_parent_and_empty_input(combine):
 
 
 @pytest.mark.parametrize("combine", ["sum", "min"])
-def test_parent_ranges_give_the_whole_merge(combine):
-    """A memory budget of a few dozen entries merges the parents in many
-    ranges; the result is the one-range merge's, bit for bit."""
-    idx, val = walk_rows(300, 20, seed=6)
-    par = parents_of(300, 29, seed=7)
-    sr = tsp.SparseRows(idx, val, 300, device=CPU)
-    budget = 40 * tdm._BYTES_PER_ENTRY + 20 * sr.width * tdm._BYTES_PER_SLOT
-    ranges = list(tdm.merge_kernel_inputs(sr, par, 29, True, combine,
-                                          memory_budget=budget))
-    assert len(ranges) > 5
-    whole = tdm.merge_by_parents_device(sr, par, 29, True, combine, 9)
-    parts = tdm.merge_by_parents_device(sr, par, 29, True, combine, 9,
-                                        memory_budget=budget)
-    assert torch.equal(whole.idx, parts.idx)
-    assert same_bits(whole.val.numpy(), parts.val.numpy())
+@pytest.mark.parametrize("name", merge_rows.CASES)
+def test_edge_cases_equal_the_host_and_both_jax_paths(name, combine):
+    """tests/test_torch_merge_rows.py's cases (parents of one child, every
+    row into one parent, half the rows into one parent whose columns span
+    the others, a row whose columns map several times to one parent
+    column, pads, zeros and -0.0 inside rows, more parent columns than a
+    kernel window) through the port's device path (the kernel's twin):
+    bit-equal to the port's host path, the JAX package's host path and its
+    device path (its power-of-two pad columns stripped; no cap)."""
+    idx, val, par, m = merge_rows.case(name)
+    idx = idx.astype(np.int32)
+    kw = {"weight_by_size": True} if combine == "sum" else {}
+    got = assert_three_equal(combine, idx, val, par, m, **kw)
+    dev_i, dev_v = jax_merge("1", idx, val, par, m, combine, **kw)
+    w = got[0].shape[1]
+    assert np.all(dev_i[:, w:] == -1) and np.all(dev_v[:, w:] == 0)
+    assert np.array_equal(dev_i[:, :w], got[0])
+    assert same_bits(dev_v[:, :w], got[1])
 
 
 @pytest.mark.parametrize("combine,weight_by_size,norm", [
@@ -281,29 +275,33 @@ def test_out_of_domain_ids_raise_on_the_device_path():
 
 
 def test_merge_runs_twin_folds_in_order():
-    """The twin's run sums are left-to-right float32 additions (1e8 + 1 - 1e8
-    is 0 in that order, 1 in another), its minima the running
-    ``(v < m) ? v : m``, and its merged weights divide the sums."""
-    keys = torch.tensor([0, 0, 0, 5, 7, 7], dtype=torch.int64)
-    vals = torch.tensor([1e8, 1.0, -1e8, 3.0, 2.0, 0.5])
-    starts = torch.tensor([0, 3, 4, 6], dtype=torch.int64)
-    r, c, s, w = tdm.merge_runs(keys, vals, starts, 4, "sum")
-    assert r.tolist() == [0, 1, 1] and c.tolist() == [0, 1, 3]
-    assert s.tolist() == [0.0, 3.0, 2.5] and w is None
-    _, _, m, _ = tdm.merge_runs(keys, vals, starts, 4, "min")
-    assert m.tolist() == [-1e8, 3.0, 0.5]
-    child_w = torch.tensor([3.0, 1.0, 0.5, 0.25])
-    pstart = torch.tensor([0, 2, 4], dtype=torch.int64)
-    _, _, s, w = tdm.merge_runs(keys, vals, starts, 4, "sum", child_w, pstart)
-    assert w.tolist() == [4.0, 0.75]
-    assert s.tolist() == [0.0, 3.0, 2.5]
-    _, _, s, _ = tdm.merge_runs(keys[:3], vals[:3] * 0 + 8.0, starts[:2], 4,
-                                "sum", child_w, pstart)
-    assert s.tolist() == [6.0]
+    """The twin's sums are left-to-right float32 additions in ascending
+    child, then slot (1e8 + 1 - 1e8 is 0 in that order, 1 in another), its
+    minima the running ``(v < m) ? v : m``, and its merged weights the
+    children's live counts summed, dividing the sums."""
+    idx = torch.tensor([[0, -1, 3], [1, 0, -1], [2, -1, -1], [3, 2, -1]])
+    val = torch.tensor([[1e8, 9.0, 1.0], [1.0, 0.0, 0.0], [-1e8, 0.0, 0.0],
+                        [0.5, 3.0, 0.0]])
+    sr = tsp.SparseRows(idx, val, 4)
+    par = np.array([0, 0, 0, 1])      # parent 0 takes rows 0-2
+    args = tdm.merge_kernel_inputs(sr, par, 2, False, "sum")
+    assert args["order"].tolist() == [0, 1, 2, 3]
+    assert args["child_start"].tolist() == [0, 3, 4]
+    assert args["by_size"].tolist() == [0, 1]
+    i, s, w = tdm.merge_runs(**args)
+    assert i.tolist() == [[0, 1], [0, 1]] and w is None
+    assert s.tolist() == [[0.0, 1.0], [3.0, 0.5]]   # 1e8 + 1 - 1e8 is 0
+    _, m, _ = tdm.merge_runs(**{**args, "combine": "min"})
+    assert m.tolist() == [[-1e8, 1.0], [3.0, 0.5]]
+    _, s, w = tdm.merge_runs(**{**args, "weighted": True})
+    assert w.tolist() == [4.0, 2.0]                  # live counts 2, 1, 1
+    f = np.float32
+    col0 = (f(f(1e8) * f(2)) + f(1.0)) + f(-1e8)
+    assert s.tolist() == [[float(col0 / f(4)), 0.5], [3.0, 0.5]]
     with pytest.raises(ValueError, match="weights"):
-        tdm.merge_runs(keys, vals, starts, 4, "min", child_w, pstart)
+        tdm.merge_runs(**{**args, "combine": "min", "weighted": True})
     with pytest.raises(TypeError):
-        tdm.merge_runs(keys.int(), vals, starts, 4, "sum")
+        tdm.merge_runs(**{**args, "par": args["par"].long()})
 
 
 def test_merged_weights_above_2_24_in_child_order():
@@ -495,16 +493,24 @@ def test_hierarchy_with_the_device_path_forced(handling, monkeypatch):
 
 def test_kernel_source_and_registry():
     """The source names what it replaces and what bounds it; the build
-    registry holds it with its C entry point."""
+    registry holds its two C entry points (the merge and the layout)."""
     from sph_tpu_torch.ops import cuda_build
     with open(cuda_build.source("merge_runs")) as f:
         src = f.read()
     assert "sph_tpu/ops/device_merge.py::_merge_flatten" in src
     assert "Replaces no Pallas kernel" in src and "Bound: bytes" in src
     assert 'extern "C" int merge_runs_launch' in src
-    assert "__fadd_rn" in src and "__fdiv_rn" in src
+    assert 'extern "C" int merge_runs_pack_launch' in src
+    for op in ("__fadd_rn", "__fmul_rn", "__fdiv_rn", "__match_any_sync"):
+        assert op in src
     assert "merge_runs" in cuda_build.ALL_KERNELS
-    assert len(cuda_build._SIGNATURES["merge_runs"]) == 15
+    # one argument type a parameter of each C prototype, the stream last
+    protos = dict(re.findall(r'extern "C" int (\w+)_launch\(([^)]*)\)', src))
+    assert set(protos) == {"merge_runs", "merge_runs_pack"}
+    assert protos["merge_runs"].count(",") + 1 == len(
+        cuda_build._SIGNATURES["merge_runs"]) == 21
+    assert protos["merge_runs_pack"].count(",") + 1 == len(
+        cuda_build._ENTRIES["merge_runs"]["merge_runs_pack"]) == 10
 
 
 @pytest.mark.cuda
@@ -526,28 +532,14 @@ def test_cuda_kernel_bit_equal_to_twin(combine):
                                 max_width=40)
     assert np.array_equal(got.indices, want_i)
     assert same_bits(got.values, want_v)
-    r = np.random.default_rng(20)
-    keys = torch.as_tensor(np.sort(r.integers(0, 5000, 200000))).cuda()
-    vals = torch.as_tensor(r.random(200000).astype(np.float32)).cuda()
-    first = torch.ones_like(keys, dtype=torch.bool)
-    first[1:] = keys[1:] != keys[:-1]
-    starts = torch.cat([torch.nonzero(first).flatten(),
-                        torch.tensor([keys.numel()], device="cuda")])
-    extra = {}
-    if weighted:
-        extra = {"child_w": torch.as_tensor(
-            r.integers(1, 500, 9000).astype(np.float32)).cuda(),
-            "parent_start": torch.as_tensor(np.concatenate(
-                [[0], np.sort(r.integers(0, 9000, 70)), [9000]])).cuda()}
-    k = tdm.merge_runs(keys, vals, starts, 71, combine, **extra)
-    t = tdm.merge_runs_reference(keys.cpu(), vals.cpu(), starts.cpu(), 71,
-                                 combine, *(v.cpu() for v in extra.values()))
-    torch.cuda.synchronize()
+    args = tdm.merge_kernel_inputs(sr, par, 301, weighted, combine)
+    k = tdm.merge_runs(**args)
+    t = tdm.merge_runs_reference(**args)
     for a, b in zip(k, t):
         if a is None:
             assert b is None
         else:
-            assert same_bits(a.cpu().numpy(), b.numpy())
+            assert same_bits(a.cpu().numpy(), b.cpu().numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -614,8 +606,8 @@ def test_smoke_check_merge_catches_a_wrong_sum(smoke, monkeypatch):
     real = tdm.merge_runs
 
     def off_by_one_ulp(*a, **kw):
-        rows, cols, out, w = real(*a, **kw)
-        return rows, cols, torch.nextafter(out, out + 1), w
+        idx, val, w = real(*a, **kw)
+        return idx, torch.nextafter(val, val + 1), w
 
     monkeypatch.setattr(tdm, "merge_runs", off_by_one_ulp)
     with pytest.raises(AssertionError, match="merge_runs"):
@@ -628,7 +620,11 @@ def test_merge_runs_bound_counts_each_byte_once():
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
         __file__))))
     import chip_smoke
-    b = chip_smoke.merge_runs_bound(10_000_000, 2_000_000, 21025, 5358)
-    nbytes = 4e7 + 36 * 2e6 + 8 + 4 * 21025 + 12 * 5358 + 8
+    b = chip_smoke.merge_runs_bound(21025, 433, 5358, 610, True)
+    nbytes = (12 * 21025 * 433 + 12 * 21025 + 16 * 5358 + 8
+              + 12 * 5358 * 610 + 4 * 5358 + 4 * 5358)
     assert b["bound_by"] == "bytes"
     assert b["bound_ms"] == pytest.approx(nbytes / 3.35e12 * 1e3)
+    unweighted = chip_smoke.merge_runs_bound(21025, 433, 5358, 610, False)
+    assert unweighted["bound_ms"] == pytest.approx(
+        (nbytes - 4 * 5358) / 3.35e12 * 1e3)
