@@ -159,8 +159,9 @@ Phases, each printing one JSON line, and each raising on failure:
    the grid sizes, the KL at iterations 0, 250, 1000 and 4000, the grid's
    Z against tsne_repulsion's (at most 1e-3 apart) and the final KL with
    the exact Z, milliseconds an iteration by part (the box, grid_deposit
-   with its keys and sort, the FFT, grid_interpolate, the attraction, the
-   update), the points in the fullest base cell on each grid size, two
+   with its order passes apart, the FFT, grid_interpolate, the
+   attraction, the update), the points in the fullest base cell on each
+   grid size, two
    calls of the grid's repulsion bit-equal (the deposit sums in a fixed
    order), peak memory; the iterations launch tsne_attraction (on the
    u16-packed table, the default), grid_deposit and grid_interpolate once
@@ -169,10 +170,12 @@ Phases, each printing one JSON line, and each raising on failure:
    its twin at this P (1,000,448 x 64) and layout, unpacked and packed:
    within 1e-5 x max|twin|, two calls bit-equal, two row windows equal to
    the full call's rows; ms against the bound; and grid_deposit and
-   grid_interpolate against their twins at the final layout on its grid
-   and at iteration 1000's layout on the 128 grid (crowded cells): each
-   bit-equal to its twin and from call to call, ms, the twin's ms, the
-   bound and the share of it.
+   grid_interpolate against their twins at the final layout on its grid,
+   at iteration 1000's layout on the 128 grid (crowded cells) and at 10^6
+   points with half of them in one base cell: each bit-equal to its twin
+   and from call to call, the deposit's order index for index
+   torch.sort(stable=True)'s, ms, the twin's ms, the bound and the share
+   of it, the order passes' ms beside torch.sort's.
 13. large  — the same graph on the exact sparse-P tier (SPH_TSNE_GRID=0),
    cut to 10 iterations; the KL before and after, the launches
    (tsne_attraction, float32, and tsne_repulsion on every iteration).
@@ -1209,7 +1212,7 @@ def z_gap(comp) -> dict:
     from sph_tpu_torch.ops.tsne_grid import grid_repulsion
     from sph_tpu_torch.ops.tsne_kernels import tsne_repulsion
     g = comp._current_grid()
-    _, z_grid = grid_repulsion(comp._y, comp._n, g)
+    _, z_grid = grid_repulsion(comp._y, comp._n, g, comp._grid_ws)
     _, z_exact = tsne_repulsion(comp._y, comp._n)
     z_grid, z_exact = float(z_grid), float(z_exact)
     return {"grid": g, "z_grid": z_grid, "z_exact": z_exact,
@@ -1221,18 +1224,20 @@ def grid_split(comp, calls: int = 10) -> dict:
     """Milliseconds of one grid-tier iteration by part at the computation's
     layout, CUDA events: the attraction as _forces calls it (the packed
     table and the tsne_attraction kernel), the same unpacked, the packing
-    alone, the box, the deposit (grid_deposit: its keys and sort, timed
-    alone too, and its kernel), the FFT convolution, the interpolation
-    (grid_interpolate), the update, and the whole step; and the points in
-    the fullest base cell.  The state is put back afterwards."""
+    alone, the box, the deposit (grid_deposit on the computation's
+    workspace, and its order passes alone), the FFT convolution, the
+    interpolation (grid_interpolate), the update, and the whole step; and
+    the points in the fullest base cell.  The state is put back
+    afterwards."""
     import torch
     from sph_tpu_torch.models.tsne import attractive_forces
     from sph_tpu_torch.ops import tsne_grid as G
     from sph_tpu_torch.ops.packing import pack_positions
     y, n, g = comp._y, comp._n, comp._grid
+    ws = comp._grid_ws
     lo, h = G.grid_box(y, n, g)
     yv = y[:n]
-    charges = G.grid_deposit(yv, lo, h, g)
+    charges = G.grid_deposit(yv, lo, h, g, ws)
     fields = G.field_grids(charges, h, g)
     state = (comp._y, comp._vel, comp._gain, comp._iteration)
     forces = comp._forces()
@@ -1249,14 +1254,15 @@ def grid_split(comp, calls: int = 10) -> dict:
             y, comp._p_idx32, comp._p_val), calls, 2),
         "pack": cuda_ms(lambda: pack_positions(y[:, 0], y[:, 1]), calls, 2),
         "box": cuda_ms(lambda: G.grid_box(y, n, g), calls, 2),
-        "deposit": cuda_ms(lambda: G.grid_deposit(yv, lo, h, g), calls, 2),
-        "deposit_keys_and_sort": cuda_ms(lambda: torch.sort(G.base_cells(
-            G.grid_coords(yv, lo, h), g), stable=True), calls, 2),
+        "deposit": cuda_ms(lambda: G.grid_deposit(yv, lo, h, g, ws), calls,
+                           2),
+        "deposit_order_passes": cuda_ms(lambda: ws.order_passes(
+            yv, lo, h, g), calls, 2),
         "fft": cuda_ms(lambda: G.field_grids(charges, h, g), calls, 2),
         "interpolation": cuda_ms(lambda: G.grid_interpolate(
             fields, y, n, lo, h), calls, 2),
         "update": cuda_ms(update, calls, 2)}
-    ms["deposit_kernel"] = ms["deposit"] - ms["deposit_keys_and_sort"]
+    ms["deposit_sums"] = ms["deposit"] - ms["deposit_order_passes"]
     ms["box_deposit_interpolation"] = (ms["box"] + ms["deposit"]
                                        + ms["interpolation"])
     ms["step"] = cuda_ms(comp._step, calls, 2)
@@ -1269,18 +1275,25 @@ def check_grid_kernels(y, n: int, grid: int, label: str,
                        calls: int = GRID_KERNEL_CALLS,
                        twin_calls: int = GRID_TWIN_CALLS) -> tuple:
     """grid_deposit and grid_interpolate against their twins at the layout
-    y [Npad, 2] on a grid x grid grid: each kernel's result bit-equal to
-    its twin's on the same inputs and two calls bit-equal (raises
-    otherwise); with calls > 0, ms a call of each kernel's wrapper and of
-    its twin (CUDA events), each against its bound.  Returns the two
-    kernel_vs_twin lines (deposit, interpolation)."""
+    y [Npad, 2] on a grid x grid grid: the deposit's charges bit-equal to
+    its twin's and its order index for index torch.sort(stable=True)'s;
+    the interpolation bit-equal to its twin; two calls of each bit-equal
+    (raises otherwise).  With calls > 0, ms a call of each kernel's wrapper
+    and of its twin (CUDA events), each against its bound; the deposit's
+    order passes alone and torch.sort's stable sort of the keys, the
+    library sort that the order replaces.  Returns the two kernel_vs_twin
+    lines (deposit, interpolation)."""
     import torch
     from sph_tpu_torch.ops import tsne_grid as G
     npad = y.shape[0]
     lo, h = G.grid_box(y, n, grid)
     yv = y[:n]
-    dep = G.grid_deposit(yv, lo, h, grid)
-    dep2 = G.grid_deposit(yv, lo, h, grid)
+    # on the CPU (a rehearsal) the wrappers take their twins: no workspace
+    ws = G.GridWorkspace(y.device) if y.device.type == "cuda" else None
+    dep = G.grid_deposit(yv, lo, h, grid, ws)
+    keys = G.base_cells(G.grid_coords(yv, lo, h), grid)
+    order_ref = torch.sort(keys, stable=True).indices
+    dep2 = G.grid_deposit(yv, lo, h, grid, ws)
     dep_ref = G.grid_deposit_reference(yv, lo, h, grid)
     fields = G.field_grids(dep_ref, h, grid)
     got = G.grid_interpolate(fields, y, n, lo, h)
@@ -1293,6 +1306,9 @@ def check_grid_kernels(y, n: int, grid: int, label: str,
                              f" {float((dep - dep_ref).abs().max())}")
     if not torch.equal(dep, dep2):
         raise AssertionError(f"grid_deposit {name}: two calls differ")
+    if ws is not None and not torch.equal(ws.order.long(), order_ref):
+        raise AssertionError(f"grid_deposit {name}: its order is not "
+                             "torch.sort(stable=True)'s")
     if not all(torch.equal(a, b) for a, b in zip(got, ref)):
         raise AssertionError(f"grid_interpolate {name}: differs from its "
                              f"twin by {float((got[0] - ref[0]).abs().max())}"
@@ -1307,11 +1323,12 @@ def check_grid_kernels(y, n: int, grid: int, label: str,
               "max_abs_err": 0.0}
     deposit = {**common, "points_in_fullest_cell": fullest_cell(y, n, grid),
                "dense_points": G.DEPOSIT_DENSE_POINTS,
+               "order_equal_torch_sort": True,
                **grid_deposit_bound(n, grid)}
     interp = {**common, **grid_interpolate_bound(n, npad, grid)}
     if calls:
         for line, fn, twin in (
-                (deposit, lambda: G.grid_deposit(yv, lo, h, grid),
+                (deposit, lambda: G.grid_deposit(yv, lo, h, grid, ws),
                  lambda: G.grid_deposit_reference(yv, lo, h, grid)),
                 (interp, lambda: G.grid_interpolate(fields, y, n, lo, h),
                  lambda: G.grid_interpolate_reference(fields, y, n, lo,
@@ -1321,10 +1338,25 @@ def check_grid_kernels(y, n: int, grid: int, label: str,
             line["calls_timed"] = calls
             line["plain_calls_timed"] = twin_calls
             line["share_of_bound"] = line["bound_ms"] / line["ms"]
-        deposit["keys_and_sort_ms"] = cuda_ms(lambda: torch.sort(
+        deposit["order_passes_ms"] = cuda_ms(lambda: ws.order_passes(
+            yv, lo, h, grid), calls, 3)
+        deposit["torch_sort_ms"] = cuda_ms(lambda: torch.sort(
             G.base_cells(G.grid_coords(yv, lo, h), grid), stable=True),
             calls, 3)
     return deposit, interp
+
+
+def crowded_layout(n: int = 1_000_000, seed: int = 21):
+    """n points [n, 2] on the card: normal of scale 5, half of them within
+    an ulp of one spot (one base cell of n / 2 points and more), shuffled,
+    made from a seed with numpy."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    y = rng.standard_normal((n, 2)).astype(np.float32) * 5
+    y[:n // 2] = np.nextafter(y[n // 2], np.float32(100), dtype=np.float32)
+    y[:n // 4] = y[n // 2]
+    return torch.from_numpy(y[rng.permutation(n)]).to(DEV)
 
 
 def grid_kernel_line(name: str, checks: list, launches_by_path: list) -> dict:
@@ -1361,8 +1393,8 @@ def scatter_repeatability(comp) -> dict:
     are if not."""
     from sph_tpu_torch.ops.tsne_grid import grid_repulsion
     g = comp._current_grid()
-    r1, z1 = grid_repulsion(comp._y, comp._n, g)
-    r2, z2 = grid_repulsion(comp._y, comp._n, g)
+    r1, z1 = grid_repulsion(comp._y, comp._n, g, comp._grid_ws)
+    r2, z2 = grid_repulsion(comp._y, comp._n, g, comp._grid_ws)
     return {"grid": g, "bits_equal": bool((r1 == r2).all() and z1 == z2),
             "rep_max_rel_diff": float((r1 - r2).abs().max()
                                       / r1.abs().max()),
@@ -5674,6 +5706,9 @@ def main() -> int:
                                       f"large_grid_iteration_"
                                       f"{kept['iteration']}")]
     del kept["y"]
+    # a crowded shape: 10^6 points, half of them in one base cell
+    grid_checks.append(check_grid_kernels(crowded_layout(), 1_000_000, 256,
+                                          "crowded_half_in_one_cell"))
     for dep, interp in grid_checks:
         emit({"phase": "kernel_vs_twin", "kernel": "grid_deposit", **dep})
         emit({"phase": "kernel_vs_twin", "kernel": "grid_interpolate",

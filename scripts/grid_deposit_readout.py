@@ -10,9 +10,12 @@ four designs with CUDA events and checks that five calls give the same
 bits:
 
 - ``kernel``: sph_tpu_torch.ops.tsne_grid.grid_deposit, the CUDA kernel
-  (csrc/grid_deposit.cu) after the keys and the stable sort, timed also
-  with DEPOSIT_DENSE_POINTS set to each of DENSE (the cells above it are
-  summed in pieces), with its keys and sort alone;
+  (csrc/grid_deposit.cu: its own order passes, then the sums) on one
+  workspace, timed also with DEPOSIT_DENSE_POINTS set to each of DENSE
+  (the cells above it are summed in pieces) and DEPOSIT_BLOCKS_PER_SM to
+  each of BLOCKS (the piece pass's blocks), each bit-equal to the
+  default's; its order passes alone (``GridWorkspace.order_passes``), and
+  torch.sort's stable sort of the keys that the kernel's order replaces;
 - ``twin``: its plain twin's deposit from the taps (deposit_charges: a
   sort by base cell, the inputs gathered once in that order, segment
   sums in pieces, then 16 shifted adds), which the kernel equals bit for
@@ -87,30 +90,46 @@ def segment_shifted_adds(y, cells, wx, wy, grid):
 
 
 DENSE = (0, 4, 16, 64)
+BLOCKS = (4, 8)
 
 
 def kernel_steps(y, lo, h, grid, ms) -> dict:
-    """Milliseconds of grid_deposit's keys and stable sort alone, of the
-    whole call at each DENSE threshold (each bit-equal to the default's),
+    """Milliseconds of grid_deposit's order passes alone, of
+    torch.sort's stable sort of the same keys, of the whole call at each
+    DENSE threshold and BLOCKS count (each bit-equal to the default's),
     and the cells' load."""
     import torch
     from sph_tpu_torch.ops import tsne_grid as G
     base = G.base_cells(G.grid_coords(y, lo, h), grid)
     counts = torch.bincount(base, minlength=grid * grid)
-    want = G.grid_deposit(y, lo, h, grid)
-    out = {"keys_and_sort": ms(lambda: torch.sort(G.base_cells(
-        G.grid_coords(y, lo, h), grid), stable=True))}
-    default = G.DEPOSIT_DENSE_POINTS
+    ws = G.GridWorkspace(y.device)
+    want = G.grid_deposit(y, lo, h, grid, ws)
+    if not torch.equal(ws.order.long(), torch.sort(base, stable=True)
+                       .indices):
+        raise AssertionError("grid_deposit: its order is not torch.sort's")
+    out = {"order_passes": ms(lambda: ws.order_passes(y, lo, h, grid)),
+           "torch_sort_keys": ms(lambda: torch.sort(G.base_cells(
+               G.grid_coords(y, lo, h), grid), stable=True))}
+    defaults = G.DEPOSIT_DENSE_POINTS, G.DEPOSIT_BLOCKS_PER_SM
     try:
         for dense in DENSE:
             G.DEPOSIT_DENSE_POINTS = dense
             out[f"dense_{dense}"] = ms(lambda: G.grid_deposit(y, lo, h,
-                                                              grid))
-            if not torch.equal(G.grid_deposit(y, lo, h, grid), want):
+                                                              grid, ws))
+            if not torch.equal(G.grid_deposit(y, lo, h, grid, ws), want):
                 raise AssertionError(f"grid_deposit: dense {dense} gives "
                                      "other bits")
+        G.DEPOSIT_DENSE_POINTS = defaults[0]
+        for blocks in BLOCKS:
+            G.DEPOSIT_BLOCKS_PER_SM = blocks
+            wsb = G.GridWorkspace(y.device)
+            out[f"blocks_per_sm_{blocks}"] = ms(
+                lambda: G.grid_deposit(y, lo, h, grid, wsb))
+            if not torch.equal(G.grid_deposit(y, lo, h, grid, wsb), want):
+                raise AssertionError(f"grid_deposit: {blocks} blocks an SM"
+                                     " give other bits")
     finally:
-        G.DEPOSIT_DENSE_POINTS = default
+        G.DEPOSIT_DENSE_POINTS, G.DEPOSIT_BLOCKS_PER_SM = defaults
     out["points_in_fullest_cell"] = int(counts.max())
     out["occupied_cells"] = int((counts > 0).sum())
     out["cells_above_default_dense"] = int(
@@ -163,8 +182,9 @@ def main() -> int:
         ref = index_add(y, cells, wx, wy, grid)
         row = {"layout": name, "grid": grid,
                "kernel_steps_ms": kernel_steps(y, lo, h, grid, ms)}
+        ws = G.GridWorkspace(y.device)
         for design, fn in (
-                ("kernel", lambda *_: G.grid_deposit(y, lo, h, grid)),
+                ("kernel", lambda *_: G.grid_deposit(y, lo, h, grid, ws)),
                 ("twin", G.deposit_charges),
                 ("index_add", index_add),
                 ("segment_shifted_adds", segment_shifted_adds)):
@@ -176,7 +196,7 @@ def main() -> int:
                 "max_rel_vs_index_add": float(
                     (outs[0] - ref).abs().max() / ref.abs().max())}
         row["kernel"]["bits_equal_twin"] = bool(torch.equal(
-            G.grid_deposit(y, lo, h, grid),
+            G.grid_deposit(y, lo, h, grid, ws),
             G.deposit_charges(y, cells, wx, wy, grid)))
         if not row["kernel"]["bits_equal_twin"]:
             raise AssertionError(f"grid_deposit differs from its twin at "

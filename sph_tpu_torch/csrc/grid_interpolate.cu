@@ -25,6 +25,15 @@
 // Output: rep [npad, 2] float32, pad rows 0, and phi_z [n] float32, which
 // the wrapper sums with the same torch call as the twin for Z.
 //
+// The threads take the points in index order.  In grid_deposit's order
+// by base cell a warp's taps share lines, but y is then gathered and rep
+// and phi_z are scattered: at the 1M t-SNE's final layout on an H100 this
+// kernel took 0.0373-0.0379 ms a call in that order against 0.0287 in
+// index order, and a variant that read the [4, G, G] fields in place
+// through their strides (64 scalar loads a point, no copy) 0.0452-0.0463
+// in index order and 0.0391-0.0392 in the deposit's
+// (scripts/grid_interpolate_readout.py, device time).
+//
 // What bounds it: bytes.  The function reads the fields (16 G^2 bytes) and
 // y's n rows and writes rep [npad, 2] and Z: 32.8 MB at 10^6 points on the
 // 1024 grid, about 10 us at 3.35 TB/s; about 200 flops a point.  The

@@ -46,7 +46,7 @@ import torch
 from ..device import resolve_device
 from ..ops.packing import pack_positions
 from ..ops.sparse import SparseRows, topk_rows
-from ..ops.tsne_grid import grid_repulsion, pick_grid_size
+from ..ops.tsne_grid import GridWorkspace, grid_repulsion, pick_grid_size
 from ..ops.tsne_kernels import (ATTR_FUSE_MAX, ATTR_PIECE, DenseForces,
                                 attraction_chunk, tsne_attraction,
                                 tsne_forces_dense, tsne_repulsion)
@@ -186,17 +186,18 @@ def repulsive_forces(y: torch.Tensor, n_valid: int, block: int = 1024):
 
 def tsne_kl_divergence(y: torch.Tensor, p_idx: torch.Tensor,
                        p_val: torch.Tensor, n_valid: int,
-                       grid: int = 0) -> torch.Tensor:
+                       grid: int = 0, workspace=None) -> torch.Tensor:
     """KL(P || Q) over P's off-diagonal support: sum p log(p / q), q = w/Z,
     with P renormalized over that support (Q gives i == j no mass).
 
     grid > 0 (the grid tier) takes Z from ``grid_repulsion`` with that many
-    nodes, as the JAX package does.  Otherwise Z comes from the
+    nodes, as the JAX package does (on a card with ``workspace``, the
+    computation's ``GridWorkspace``).  Otherwise Z comes from the
     ``tsne_repulsion`` kernel on the card and from ``repulsive_forces``,
     the counterpart of the JAX package's XLA repulsion, on the CPU.  The
     support is visited in the row pieces of ``attractive_forces``."""
     if grid > 0:
-        _, z = grid_repulsion(y, n_valid, grid)
+        _, z = grid_repulsion(y, n_valid, grid, workspace)
     elif y.device.type == "cpu":
         _, z = repulsive_forces(y, n_valid)
     else:
@@ -319,6 +320,9 @@ class TsneComputation:
                      cap, 100.0 * kept)
         self._grid = 0
         self.grid_history: list[tuple[int, int]] = []
+        # the grid deposit's buffers and order on a card, once a run
+        self._grid_ws = (GridWorkspace(dev) if tier == "grid"
+                         and torch.device(dev).type == "cuda" else None)
         if tier == "grid":
             Log.info("t-SNE: grid-interpolated repulsion (N=%d)", n)
             # the attraction's gathers dominate this tier: a harder cap
@@ -424,7 +428,8 @@ class TsneComputation:
         attr = attractive_forces(self._y, self._p_idx32, self._p_val,
                                  packed=self.attr_packed)
         if self.tier == "grid":
-            return (attr, *grid_repulsion(self._y, self._n, self._grid))
+            return (attr, *grid_repulsion(self._y, self._n, self._grid,
+                                          self._grid_ws))
         return (attr, *tsne_repulsion(self._y, self._n))
 
     def _update(self, attr: torch.Tensor, rep: torch.Tensor,
@@ -472,4 +477,4 @@ class TsneComputation:
             return 0.0
         grid = self._current_grid() if self.tier == "grid" else 0
         return float(tsne_kl_divergence(self._y, self._p_idx, self._p_val,
-                                        self._n, grid))
+                                        self._n, grid, self._grid_ws))

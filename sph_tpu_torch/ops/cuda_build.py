@@ -35,8 +35,7 @@ _SIGNATURES = {
     "tsne_repulsion": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "tsne_attraction": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_longlong, _P,
                         _P],
-    "grid_deposit": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                     _P],
+    "grid_deposit": [_P, _P, _P, _I, _I, _I, _I, *[_P] * 14],
     "grid_interpolate": [_P, ctypes.c_longlong, ctypes.c_longlong, _P, _P,
                          _P, _I, _P, _P, _P],
     "bellman_ford_relax": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
@@ -48,6 +47,8 @@ _SIGNATURES = {
 # further C entry points of a kernel's library, ``<entry>_launch``: its
 # argument types
 _ENTRIES = {
+    "grid_deposit": {"grid_deposit_order": [_P, _P, _P, _I, _I, _I, _I,
+                                            *[_P] * 12]},
     "merge_runs": {"merge_runs_pack": [_P, _P, _P, _I, _P, ctypes.c_longlong,
                                        _I, _P, _P, _P]},
 }

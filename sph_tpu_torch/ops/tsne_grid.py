@@ -20,10 +20,13 @@ scatters serialize on a TPU.  Here each point has its 4 x 4 taps, and two
 CUDA kernels do the point work on the card, the taps recomputed in
 registers (no tap table):
 
-- ``grid_deposit`` (``csrc/grid_deposit.cu``): the charges onto the grid,
-  a dense base cell's 48 tap sums once in pieces spread over threads, then
-  one thread a grid node summing the 16 base cells that cover it, in the
-  order below;
+- ``grid_deposit`` (``csrc/grid_deposit.cu``): the charges onto the grid in
+  six launches: the points' stable order by base cell by a counting (LSD
+  radix) sort written in the kernel, a dense base cell's 48 tap sums once
+  in pieces spread over threads and then folded, then a block a tile of
+  nodes summing the cells that cover it from shared memory, in the order
+  below.  Its buffers, the order included, live in a caller-owned
+  ``GridWorkspace``;
 - ``grid_interpolate`` (``csrc/grid_interpolate.cu``): the fields back at
   the points, one thread a point, 16 taps of 16 bytes each.
 
@@ -68,13 +71,26 @@ _PIECE = 64
 # divides by a scalar exactly on the CPU and by its reciprocal on the card)
 _SIXTH = float(np.float32(1.0 / 6.0))
 # the most points of a base cell that the deposit kernel's node pass sums
-# directly at each of the cell's 16 nodes; a denser cell is summed once, in
-# pieces, by the piece pass (csrc/grid_deposit.cu).  4 was the fastest of
-# 0, 4, 16 and 64 at 10^6 points on the 1024 grid and as fast as any on
-# the 128-512 grids (scripts/grid_deposit_readout.py, PERF.md)
+# itself, in the tile that stages the cell; a denser cell is summed once, in
+# pieces over many threads (csrc/grid_deposit.cu).  Every value in
+# 0 .. 64 gives the same bits (scripts/grid_deposit_readout.py times
+# several; 4 was the fastest of 0, 4, 16 and 64 on the 128 and 256 grids)
 DEPOSIT_DENSE_POINTS = 4
-# blocks of the deposit kernel's striding passes for each SM
+# blocks of the deposit kernel's piece pass for each SM
 DEPOSIT_BLOCKS_PER_SM = 4
+# the deposit kernel's limits: keys of at most 20 bits (two 10-bit digits)
+# and a look-back value of 30 bits
+DEPOSIT_MAX_GRID = 1024
+DEPOSIT_MAX_POINTS = (1 << 30) - 1
+# points (and cells) a tile of the deposit kernel's order passes
+_ORDER_TILE = 2048
+# the deposit kernel's small words: two counters, two tickets, two spare,
+# then the low digits' histogram (at most 1024 digits)
+_SMALL_WORDS = 6 + 1024
+# the most pieces of a dense cell that the deposit kernel's node tiles fold
+# themselves (csrc/grid_deposit.cu kInlineFold); a cell of more is folded
+# once by its fold pass
+_INLINE_FOLD = 8
 
 
 def pick_grid_size(span: float, target_h: float = 0.35,
@@ -233,48 +249,160 @@ def grid_deposit_reference(y: torch.Tensor, lo: torch.Tensor,
     return deposit_charges(y, *grid_taps(y, lo, h, grid), grid)
 
 
+def dense_cells_bound(n: int, grid: int, dense: int) -> int:
+    """The most cells of more than `dense` of n points on a G x G grid."""
+    return min(grid * grid, n // (dense + 1))
+
+
+def large_cells_bound(n: int) -> int:
+    """The most cells of more than _INLINE_FOLD pieces: the deposit
+    kernel's list of the cells that its fold pass folds (first row and
+    pieces each)."""
+    return n // (_INLINE_FOLD * _PIECE + 1)
+
+
 def deposit_rows(n: int, grid: int, dense: int) -> int:
-    """Rows of the deposit kernel's piece table: each cell of more than
-    `dense` points takes a header row and a row a piece, at most
-    2 min(G^2, n // (dense + 1)) + n // 64 in all."""
-    return 2 * min(grid * grid, n // (dense + 1)) + n // _PIECE + 1
+    """Rows of the deposit kernel's piece table: a row for each piece of
+    64 points of a dense cell, at most n // 64 + one more a dense cell."""
+    return n // _PIECE + dense_cells_bound(n, grid, dense)
+
+
+def order_status_words(n: int, grid: int) -> int:
+    """Look-back words of the deposit kernel's order passes: one a tile of
+    the cells' scan, one a tile and digit of each radix pass (keys of
+    ceil(log2 G^2) bits split into a low and a high digit)."""
+    bits = max(grid * grid - 1, 1).bit_length()
+    tiles = -(-n // _ORDER_TILE)
+    return (-(-grid * grid // _ORDER_TILE)
+            + tiles * ((1 << (bits // 2)) + (1 << (bits - bits // 2))))
+
+
+class GridWorkspace:
+    """Caller-owned buffers of ``grid_deposit`` on one card, reused from
+    call to call: the keys, the first radix pass's records, the order, the
+    points in it, the cells' counts, starts and first rows, the look-back
+    words, the large cells' list, the pieces' point ranges and the piece
+    table.  They grow to the largest n and grid served; one call at a time
+    may use them (one stream).  After a call ``order`` [n] int32 is its
+    points' stable order by base cell; the next call overwrites it.  The counts and the
+    small words are 0 between calls (the kernel clears what it used, and
+    its first pass clears the look-back words), so nothing is cleared from
+    the host."""
+
+    def __init__(self, device):
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device.type != "cuda":
+            raise ValueError(f"GridWorkspace: no kernel for {device}")
+        self.device = device
+        self.order = None
+        self._size = {}
+        self._blocks = DEPOSIT_BLOCKS_PER_SM * sm_count(device)
+
+    def _grow(self, name: str, size: int, shape, dtype, zero: bool = False):
+        """Make buffer `name` anew when it holds fewer than `size` rows."""
+        if self._size.get(name, 0) < size:
+            make = torch.zeros if zero else torch.empty
+            setattr(self, name, make(shape, dtype=dtype, device=self.device))
+            self._size[name] = size
+
+    def _buffers(self, n: int, grid: int, dense: int) -> list:
+        """The launch's buffer pointers for (n, grid, dense), growing the
+        buffers that are too small."""
+        i32, f32, cells = torch.int32, torch.float32, grid * grid
+        large = max(large_cells_bound(n), 1)
+        rows = max(deposit_rows(n, grid, dense), 1)
+        words = order_status_words(n, grid)
+        for name, size, shape, dtype, zero in (
+                ("keys", n, n, i32, False), ("pairs", n, (n, 4), i32, False),
+                ("_order", n, n, i32, False), ("ys", n, (n, 2), f32, False),
+                ("counts", cells, cells, i32, True),
+                ("start", cells, cells + 1, i32, False),
+                ("dense_row", cells, cells, i32, False),
+                ("small", 1, _SMALL_WORDS, i32, True),
+                ("status", words, words, i32, False),
+                ("large", large, (large, 2), i32, False),
+                ("rows", rows, (rows, 2), i32, False),
+                ("table", rows, (rows, 48), f32, False)):
+            self._grow(name, size, shape, dtype, zero)
+        return [getattr(self, name).data_ptr() for name in (
+            "keys", "pairs", "_order", "ys", "counts", "start", "dense_row",
+            "small", "status", "large", "rows")]
+
+    def launch(self, y: torch.Tensor, lo: torch.Tensor, h: torch.Tensor,
+               grid: int, dense: int, out: torch.Tensor = None):
+        """One deposit (six kernels) into `out` [3, G, G] on the current
+        stream, or with `out` None its order passes alone (the first
+        three); the inputs are checked by the caller."""
+        n = y.shape[0]
+        args = self._buffers(n, grid, dense)
+        if out is not None:
+            args += [self.table.data_ptr(), out.data_ptr()]
+        try:
+            _launch("grid_deposit", self.device, y.data_ptr(),
+                    lo.data_ptr(), h.data_ptr(), n, grid, dense,
+                    self._blocks, *args,
+                    entry="" if out is not None else "grid_deposit_order")
+        except RuntimeError:
+            # a launch that did not run may leave counts behind: clear them
+            self.counts.zero_()
+            self.small.zero_()
+            raise
+        self.order = self._order[:n]
+
+    def order_passes(self, y: torch.Tensor, lo: torch.Tensor,
+                     h: torch.Tensor, grid: int):
+        """The deposit's first three kernels alone (its order passes) on
+        the points y [n, 2] (1 <= n) in the box, leaving ``order`` as a
+        deposit leaves it and computing no charges: for timing them apart.
+        Not counted in ``grid_deposit.launches``."""
+        _check_box("grid_deposit", y, lo, h, int(grid))
+        y, lo, h = y.contiguous(), lo.contiguous(), h.contiguous()
+        if _on_card("grid_deposit", y, lo, h) != self.device:
+            raise ValueError("grid_deposit: y lies on another card")
+        self.launch(y, lo, h, int(grid), DEPOSIT_DENSE_POINTS)
 
 
 def grid_deposit(y: torch.Tensor, lo: torch.Tensor, h: torch.Tensor,
-                 grid: int) -> torch.Tensor:
+                 grid: int, workspace: GridWorkspace = None) -> torch.Tensor:
     """[3, G, G] charge grids (unit, y_x, y_y), laid out [u, v], of the
     points y [c, 2] in the box (lo, h) (``grid_box``).
 
     On a CUDA tensor the kernel ``csrc/grid_deposit.cu`` (counted in
-    ``grid_deposit.launches``), after the points' stable sort by base cell
-    (``torch.sort``); a base cell of more than DEPOSIT_DENSE_POINTS points
-    is summed once in pieces, the others at each node they cover.  On a
-    CPU tensor the twin ``grid_deposit_reference``.  Both give the same
-    bits on one device, whatever the threshold.  No rows: zero charges,
-    and no launch."""
+    ``grid_deposit.launches``; G <= 1024): the points' stable order by base
+    cell sorted in the kernel, a base cell of more than
+    DEPOSIT_DENSE_POINTS points summed once in pieces and folded, the
+    nodes summed tile by tile.  Its buffers are ``workspace``'s, a
+    ``GridWorkspace`` on y's card that the caller keeps (required there),
+    whose ``order`` then holds the points' order.  On a CPU tensor the
+    twin ``grid_deposit_reference``.  Both give the same bits on one
+    device, whatever the threshold.  No rows: zero charges, and no
+    launch."""
     grid = int(grid)
     if y.device.type == "cpu":
         return grid_deposit_reference(y, lo, h, grid)
     _check_box("grid_deposit", y, lo, h, grid)
     y, lo, h = y.contiguous(), lo.contiguous(), h.contiguous()
     dev = _on_card("grid_deposit", y, lo, h)
+    if workspace is None:
+        raise ValueError("grid_deposit: a GridWorkspace is required on "
+                         f"{dev}")
+    if workspace.device != dev:
+        raise ValueError(f"grid_deposit: y lies on {dev}, the workspace on "
+                         f"{workspace.device}")
+    if grid > DEPOSIT_MAX_GRID:
+        raise ValueError(f"grid_deposit: the kernel takes grid <= "
+                         f"{DEPOSIT_MAX_GRID}, got {grid}")
     c = y.shape[0]
+    if c > DEPOSIT_MAX_POINTS:
+        raise ValueError(f"grid_deposit: the kernel takes at most "
+                         f"{DEPOSIT_MAX_POINTS} points, got {c}")
     out = torch.empty((3, grid, grid), dtype=torch.float32, device=dev)
     if c == 0:
+        workspace.order = torch.empty(0, dtype=torch.int32, device=dev)
         return out.zero_()
-    keys, order = torch.sort(base_cells(grid_coords(y, lo, h), grid),
-                             stable=True)
-    dense = DEPOSIT_DENSE_POINTS
-    rows = deposit_rows(c, grid, dense)
-    ys = torch.empty((c, 2), dtype=torch.float32, device=dev)
-    ints = torch.empty(3 * grid * grid + 1, dtype=torch.int32, device=dev)
-    row_list = torch.empty((rows, 2), dtype=torch.int32, device=dev)
-    table = torch.empty((rows, 48), dtype=torch.float32, device=dev)
-    _launch("grid_deposit", dev, y.data_ptr(), lo.data_ptr(), h.data_ptr(),
-            keys.data_ptr(), order.data_ptr(), c, grid, dense,
-            DEPOSIT_BLOCKS_PER_SM * sm_count(dev), ys.data_ptr(),
-            ints.data_ptr(), row_list.data_ptr(), table.data_ptr(),
-            out.data_ptr())
+    workspace.launch(y, lo, h, grid, DEPOSIT_DENSE_POINTS, out)
     grid_deposit.launches += 1
     return out
 
@@ -401,15 +529,17 @@ def grid_interpolate(fields: torch.Tensor, y: torch.Tensor, n_valid: int,
 grid_interpolate.launches = 0
 
 
-def grid_repulsion(y: torch.Tensor, n_valid: int, grid: int):
+def grid_repulsion(y: torch.Tensor, n_valid: int, grid: int,
+                   workspace: GridWorkspace = None):
     """Approximate Student-t repulsion via kernel-interpolated grid
     convolution: y [Npad, 2] -> (rep [Npad, 2], Z 0-d tensor), the
     semantics of the exact repulsion (rep_i = sum_j k2 (y_i - y_j),
     Z = sum_{i != j} k1).  Pad rows (>= n_valid) carry no charge and get
-    zero force."""
+    zero force.  On a card the deposit's buffers are ``workspace``'s (a
+    ``GridWorkspace`` the caller keeps, required there)."""
     n_valid = int(n_valid)
     lo, h = grid_box(y, n_valid, grid)
-    charges = grid_deposit(y[:n_valid], lo, h, grid)
+    charges = grid_deposit(y[:n_valid], lo, h, grid, workspace)
     rep, z = grid_interpolate(field_grids(charges, h, grid), y, n_valid, lo,
                               h)
     return rep, torch.clamp(z - float(n_valid), min=1e-12)

@@ -42,8 +42,8 @@ from ..models.tsne import TsneParameters, attractive_forces, \
 from ..ops.knn import KNN_MEMORY_BUDGET, _bottom_k
 from ..ops.numerics import (_fma, flush_subnormals, pow, row_dot,
                             row_sum, sqrt)
-from ..ops.tsne_grid import (_BIG, _MARGIN, field_grids, grid_deposit,
-                             grid_interpolate, pick_grid_size)
+from ..ops.tsne_grid import (_BIG, _MARGIN, GridWorkspace, field_grids,
+                             grid_deposit, grid_interpolate, pick_grid_size)
 from ..ops.tsne_kernels import tsne_repulsion_rows
 from .mesh import MeshLike, as_mesh
 
@@ -264,11 +264,15 @@ def make_sharded_grid_tsne_step(mesh: MeshLike = None, grid: int = 128):
 
     The box is the min and max of the valid rows over shards; each shard
     deposits its valid points' charges (``grid_deposit``, the fixed-order
-    deposit: the kernel on a card), the grids are summed in shard order,
-    the fields are convolved once and each shard interpolates its own
-    points (``grid_interpolate``), its phi_z sums added in shard order."""
+    deposit: the kernel on a card, with a workspace a shard), the grids are
+    summed in shard order, the fields are convolved once and each shard
+    interpolates its own points (``grid_interpolate``), its phi_z sums
+    added in shard order."""
     m = as_mesh(mesh)
     usable = float(grid - 2 * _MARGIN - 1)
+    # each card shard's deposit buffers
+    spaces = [GridWorkspace(dev) if torch.device(dev).type == "cuda"
+              else None for dev in m.devices]
 
     def step(y, vel, gain, p_idx, p_val, n_valid, params_vec, it):
         pv = _params_vec(params_vec)
@@ -289,7 +293,7 @@ def make_sharded_grid_tsne_step(mesh: MeshLike = None, grid: int = 128):
         for s, dev in enumerate(m.devices):
             if live[s]:
                 charges.append(grid_deposit(y[s][:live[s]], lo.to(dev),
-                                            h.to(dev), grid))
+                                            h.to(dev), grid, spaces[s]))
         total = _sum_in_order(charges, dev0)
         fields_on: dict = {}
         reps, zs = [], []

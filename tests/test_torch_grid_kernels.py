@@ -8,7 +8,8 @@ degenerate along x.  A transcription of each kernel's arithmetic and loops
 into numpy float32 (the deposit's steps, its rows in any order, included)
 gives the twins' bits, wherever the dense threshold falls.  On the card
 (``cuda``) each kernel gives its twin's bits at 20000 points on the 128
-and the 1024 grid.
+and the 1024 grid (tests/test_torch_grid_order.py holds the deposit's
+order passes).
 """
 
 import os
@@ -22,6 +23,7 @@ import jax.numpy as jnp
 from sph_tpu.ops import tsne_grid as jgrid
 from sph_tpu_torch.ops import cuda_build, tsne_kernels
 from sph_tpu_torch.ops import tsne_grid as tgrid
+from test_torch_grid_order import kernel_deposit
 from test_torch_reference_native import use_reference_native
 
 use_reference_native()
@@ -256,86 +258,6 @@ def _weights(t):
     return [_cardinal(abs(t - (first + F32(j)))) for j in range(4)]
 
 
-def kernel_deposit(y: np.ndarray, lo: np.ndarray, h: np.ndarray, grid: int,
-                   dense: int) -> np.ndarray:
-    """csrc/grid_deposit.cu's steps as written: mark_cells, reserve_rows
-    (the rows in a shuffled order, as the warps' atomics may place them),
-    piece_sums, cell_sums and node_sums."""
-    t = _coord(y, lo, h)
-    keys = ((np.floor(t) - F32(1)).astype(np.int32) * np.array(
-        [1, grid], np.int32)).sum(1)
-    order = np.argsort(keys, kind="stable")
-    keys, ys = keys[order], y[order]
-    start = np.zeros(grid * grid, np.int64)
-    end = np.zeros(grid * grid, np.int64)
-    for i, k in enumerate(keys):
-        if i == 0 or keys[i - 1] != k:
-            start[k] = i
-        if i == len(keys) - 1 or keys[i + 1] != k:
-            end[k] = i + 1
-    piece = tgrid._PIECE
-    # reserve_rows: a header and a row a piece for each dense cell
-    dense_row = np.full(grid * grid, -1, np.int64)
-    rows = []
-    cells = [c for c in range(grid * grid) if end[c] - start[c] > dense]
-    for c in np.random.default_rng(0).permutation(cells):
-        dense_row[c] = len(rows)
-        rows.append((c, -1))
-        rows += [(c, p) for p in range(-(-(end[c] - start[c]) // piece))]
-    assert len(rows) <= tgrid.deposit_rows(len(y), grid, dense)
-    table = np.zeros((len(rows), 48), F32)
-    for r, (c, p) in enumerate(rows):             # piece_sums
-        if p < 0:
-            continue
-        s = [F32(0)] * 48
-        b = start[c] + p * piece
-        for i in range(b, min(b + piece, end[c])):
-            px, py = ys[i]
-            wx = _weights(_coord(px, lo[0], h[0]))
-            wy = _weights(_coord(py, lo[1], h[1]))
-            for dv in range(4):
-                qx = (wx[dv], px * wx[dv], py * wx[dv])
-                for q in range(3):
-                    for du in range(4):
-                        j = q * 16 + du * 4 + dv
-                        s[j] = s[j] + wy[du] * qx[q]
-        table[r] = s
-    for r, (c, p) in enumerate(rows):             # cell_sums
-        if p >= 0:
-            continue
-        for j in range(48):
-            acc = F32(0)
-            for q in range(1, -(-(end[c] - start[c]) // piece) + 1):
-                acc = acc + table[r + q, j]
-            table[r, j] = acc
-    out = np.zeros((3, grid, grid), F32)
-    for u in range(grid):                         # node_sums
-        for v in range(grid):
-            node = [F32(0)] * 3
-            for du in range(4):
-                for dv in range(4):
-                    if u < du or v < dv:
-                        continue
-                    c = (u - du) * grid + v - dv
-                    if dense_row[c] >= 0:
-                        cs = [table[dense_row[c], q * 16 + du * 4 + dv]
-                              for q in range(3)]
-                    else:
-                        s = [F32(0)] * 3
-                        for i in range(start[c], end[c]):
-                            px, py = ys[i]
-                            wx = _cardinal(abs(_coord(px, lo[0], h[0])
-                                               - F32(v)))
-                            wy = _cardinal(abs(_coord(py, lo[1], h[1])
-                                               - F32(u)))
-                            s = [s[0] + wy * wx, s[1] + wy * (px * wx),
-                                 s[2] + wy * (py * wx)]
-                        cs = [F32(0) + a for a in s]
-                    node = [a + b for a, b in zip(node, cs)]
-            out[:, u, v] = node
-    return out
-
-
 def _cardinal_vec(s):
     inner = ((s + F32(1)) * (s - F32(1))) * (s - F32(2)) * F32(0.5)
     outer = ((-(s - F32(1))) * (s - F32(2))) * (s - F32(3)) * SIXTH
@@ -373,7 +295,9 @@ def kernel_interpolate(fields, y, n, lo, h):
 def test_kernel_deposit_transcription_gives_the_twins_bits(dense):
     """On a 16 grid: 150 of 400 points in one base cell (three pieces), a
     point alone; every cell summed in pieces (dense 0), none but the
-    crowded one (64), or some, gives the twin's bits."""
+    crowded one (64), or some, gives the twin's bits (the passes
+    transcribed in tests/test_torch_grid_order.py), and the order is
+    torch.sort(stable=True)'s."""
     grid, n = 16, 400
     rng = np.random.default_rng(7)
     y = rng.standard_normal((n, 2)).astype(F32)
@@ -382,14 +306,19 @@ def test_kernel_deposit_transcription_gives_the_twins_bits(dense):
     yt = torch.from_numpy(y)
     lo, h = tgrid.grid_box(yt, n, grid)
     want = tgrid.grid_deposit_reference(yt, lo, h, grid).numpy()
-    got = kernel_deposit(y, lo.numpy(), h.numpy(), grid, dense)
+    got, order = kernel_deposit(y, lo.numpy(), h.numpy(), grid, dense)
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    keys = tgrid.base_cells(tgrid.grid_coords(yt, lo, h), grid)
+    assert np.array_equal(order, torch.sort(keys, stable=True).indices)
 
 
 @pytest.mark.parametrize("n,grid,dense,rows", [
-    (10**6, 256, 16, 2 * 58823 + 15625 + 1),
-    (10**6, 128, 0, 2 * 16384 + 15625 + 1), (100, 1024, 64, 2 * 1 + 1 + 1)])
+    (10**6, 256, 16, 58823 + 15625), (10**6, 128, 0, 16384 + 15625),
+    (100, 1024, 64, 1 + 1)])
 def test_deposit_rows_bound_the_piece_table(n, grid, dense, rows):
+    """A row a piece of 64 points of a dense cell: at most n / 64 rows and
+    one more for each of the at most min(G^2, n / (dense + 1)) dense
+    cells."""
     assert tgrid.deposit_rows(n, grid, dense) == rows
 
 
@@ -431,11 +360,12 @@ def test_grid_deposit_kernel_gives_the_twins_bits(grid):
     want = tgrid.grid_deposit_reference(y, lo, h, grid)
     before = tsne_kernels.grid_deposit.launches
     denses = (0, 1, 4, 16, tgrid._PIECE)
+    ws = tgrid.GridWorkspace(dev)
     for dense in denses:
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(tgrid, "DEPOSIT_DENSE_POINTS", dense)
-            got = tgrid.grid_deposit(y, lo, h, grid)
-            again = tgrid.grid_deposit(y, lo, h, grid)
+            got = tgrid.grid_deposit(y, lo, h, grid, ws)
+            again = tgrid.grid_deposit(y, lo, h, grid, ws)
         torch.cuda.synchronize()
         assert torch.equal(got, want) and torch.equal(again, got), dense
     assert tsne_kernels.grid_deposit.launches == before + 2 * len(denses)
@@ -448,8 +378,8 @@ def test_grid_interpolate_kernel_gives_the_twins_bits(grid):
     n, npad = 20000, 20480
     y = torch.from_numpy(_layout("crowded", n, npad, seed=grid)).to(dev)
     lo, h = tgrid.grid_box(y, n, grid)
-    fields = tgrid.field_grids(tgrid.grid_deposit(y[:n], lo, h, grid), h,
-                               grid)
+    fields = tgrid.field_grids(tgrid.grid_deposit(
+        y[:n], lo, h, grid, tgrid.GridWorkspace(dev)), h, grid)
     want = tgrid.grid_interpolate_reference(fields, y, n, lo, h)
     before = tsne_kernels.grid_interpolate.launches
     got = tgrid.grid_interpolate(fields, y, n, lo, h)
@@ -468,7 +398,7 @@ def test_grid_repulsion_on_the_card_launches_both_kernels():
     y = torch.from_numpy(_layout("line", n, npad, seed=5)).to(dev)
     before = (tsne_kernels.grid_deposit.launches,
               tsne_kernels.grid_interpolate.launches)
-    rep, z = tgrid.grid_repulsion(y, n, grid)
+    rep, z = tgrid.grid_repulsion(y, n, grid, tgrid.GridWorkspace(dev))
     torch.cuda.synchronize()
     assert (tsne_kernels.grid_deposit.launches,
             tsne_kernels.grid_interpolate.launches) == (before[0] + 1,

@@ -282,7 +282,8 @@ def test_grid_repulsion_on_the_card_matches_the_cpu(grid):
     n, npad = 20000, 20480
     y = torch.from_numpy(_layout(n, npad, seed=grid, garbage=True))
     rep_c, z_c = tgrid.grid_repulsion(y, n, grid)
-    rep_g, z_g = tgrid.grid_repulsion(y.cuda(), n, grid)
+    rep_g, z_g = tgrid.grid_repulsion(y.cuda(), n, grid,
+                                      tgrid.GridWorkspace("cuda"))
     scale = float(rep_c.abs().max())
     assert float((rep_g.cpu() - rep_c).abs().max()) <= 1e-4 * scale
     assert abs(float(z_g) - float(z_c)) <= 1e-5 * float(z_c)

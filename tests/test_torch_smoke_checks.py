@@ -939,3 +939,13 @@ def test_p_mirror_checks_allow_only_the_device_paths_hub_shedding():
     bad.val[row, slot] *= 1.5
     with pytest.raises(AssertionError, match="symmetric"):
         chip_smoke.p_mirror_checks(bad, shed)
+
+
+def test_crowded_layout_puts_half_the_points_in_one_cell(monkeypatch):
+    """chip_smoke's crowded shape, small, on the CPU: half the points (and
+    more) in one base cell of the 256 grid, the rest spread, shuffled."""
+    monkeypatch.setattr(chip_smoke, "DEV", "cpu")
+    y = chip_smoke.crowded_layout(4000, seed=3)
+    assert y.shape == (4000, 2) and y.dtype == torch.float32
+    assert chip_smoke.fullest_cell(y, 4000, 256) >= 2000
+    assert not bool((y[:2000] == y[:2000][0]).all())
